@@ -1,0 +1,485 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's estimation path on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed 0]
+
+Run from the root of a checkout (it puts ``src/`` on ``sys.path``
+itself).  Phases, each printing its numbers:
+
+1. environment: torch, the device, and the card's name and power limit;
+2. build every CUDA kernel from ``src/repro_torch/csrc`` (timed, with the
+   compiler's register / shared-memory / spill report);
+3. workload from ``--seed``: 64 synthetic application traces of 6000
+   requests, padded to the serving ring's largest bucket (64 x 16384
+   commands), and the committed fitted model with its two baselines
+   (3 vendors);
+4. every kernel against its plain PyTorch version on these inputs
+   (features bit-exact, charge at rtol 1e-5), timed with CUDA events
+   beside its bound;
+5. ``estimate`` end to end for 3 kinds x 4 modes through ``impl='cuda'``
+   against ``impl='vectorized'`` (rtol 1e-5), surface summing to mean, pad
+   rows and pad commands adding zero, every kernel of the path launched;
+   the device time of one estimate by kernel (``torch.profiler``); and a
+   small input against the command-by-command oracle on the CPU.
+
+Any failed check exits non-zero.  The last lines are one JSON object of
+per-kernel numbers, the card's ``name, power.limit`` line, and
+``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
+prints no result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+MODEL_FILE = ROOT / "src" / "repro_torch" / "data" / "vampire_quickfit_v2.npz"
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
+FP32_OPS_PER_S = 67e12        # H100 SXM float32 rate outside the tensor cores
+RTOL = 1e-5                   # the reference's energy bar (test_impl_registry)
+MODES = ("mean", "range", "distribution", "surface")
+MODE_KW = {"distribution": dict(ones_frac=0.35, toggle_frac=0.15)}
+KINDS = ("vampire", "micron", "drampower")
+
+
+class CheckFailed(RuntimeError):
+    pass
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise CheckFailed(what)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def assert_close(got, want, rtol: float, what: str) -> float:
+    """Element-wise |got - want| <= rtol * |want|; returns the max abs
+    error."""
+    import torch
+    got, want = got.double(), want.double()
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} vs "
+                                   f"{tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
+    err = (got - want).abs()
+    bad = err > rtol * want.abs()
+    if bool(bad.any()):
+        rel = torch.where(bad, err / want.abs().clamp(min=1e-300), 0.0)
+        i = int(rel.argmax())
+        idx = tuple(int(k) for k in torch.unravel_index(
+            torch.tensor(i), got.shape))
+        raise CheckFailed(
+            f"{what}: {int(bad.sum())} elements beyond rtol {rtol}; worst "
+            f"at {idx}: got {float(got.reshape(-1)[i])!r} want "
+            f"{float(want.reshape(-1)[i])!r} (max abs err "
+            f"{float(err.max()):.3e})")
+    return float(err.max())
+
+
+def event_ms(fn, iters: int, flush=None) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches, each timed by
+    its own CUDA events; ``flush`` (run outside the timed window) evicts
+    the L2 cache first, as the estimation path finds it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        if flush is not None:
+            flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Median host-clock time of ``fn`` ending in a device synchronize."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def bound(nbytes: float, nops: float) -> tuple[float, str]:
+    """The least time the card could take: bytes over the memory rate or
+    float32 operations over the peak rate, whichever is larger (ms)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def build_workload(seed: int, n_traces: int, n_requests: int, length: int,
+                   device):
+    import dataclasses
+
+    from repro_torch.core import traces
+    from repro_torch.core.estimate_batch import bucketed_trace_batch
+    apps = [dataclasses.replace(traces.SPEC_APPS[i % len(traces.SPEC_APPS)],
+                                seed=seed * 1000 + i + 1)
+            for i in range(n_traces)]
+    trs = [traces.app_trace(app, n_requests=n_requests) for app in apps]
+    return trs, bucketed_trace_batch(trs, n_traces, length).to(device)
+
+
+def kernel_inputs(tb, models):
+    """The per-command inputs the path hands each kernel, built by the
+    same assembler steps as ``impl='cuda'``."""
+    import torch
+
+    from repro_torch.core.dram import ACT
+    from repro_torch.core.energy_model import prev_lines, structural_state
+    from repro_torch.kernels.vampire_energy import ops as vops
+    tr, w = tb.trace, tb.weight
+    t, n = tr.cmd.shape
+    st = structural_state(tr)
+    return dict(
+        data=tr.data.reshape(t * n, -1),
+        prev=prev_lines(tr.data, st).reshape(t * n, -1),
+        tmask=(st.has_prev & st.is_rw).to(torch.float32).reshape(t * n),
+        state=vops.pack_state(st), w=w.contiguous(),
+        params=vops.pack_param_blocks(models["vampire"].fleet.params),
+        any_act=(tr.cmd == ACT).any(dim=-1).to(torch.float32),
+        table=models["micron"].idd_table)
+
+
+def kernel_phase(tb, models, card: str) -> list[dict]:
+    """Phase 4: every kernel against its plain version at the path's
+    shapes, timed beside its bound."""
+    import torch
+
+    from repro_torch.kernels.baseline_energy import baseline_energy as be
+    from repro_torch.kernels.vampire_energy import vampire_energy as ve
+    x = kernel_inputs(tb, models)
+    tr = tb.trace
+    t, n = tr.cmd.shape
+    m = t * n
+    v = x["params"].shape[0]
+    flush_buf = torch.empty(96 << 20, dtype=torch.uint8, device=tb.device)
+    flush = flush_buf.zero_
+    rows = []
+
+    # features: exact
+    ones, togg = ve.batched_features(x["data"], x["prev"], x["tmask"])
+    p_ones, p_togg = ve.batched_features_plain(x["data"], x["prev"],
+                                               x["tmask"])
+    check(torch.equal(ones, p_ones) and torch.equal(togg, p_togg),
+          "features kernel differs from its plain version")
+    nbytes = m * (64 + 64 + 4) + 2 * m * 4
+    rows.append(dict(
+        name="batched_features", fn=lambda: ve.batched_features(
+            x["data"], x["prev"], x["tmask"]),
+        plain=lambda: ve.batched_features_plain(x["data"], x["prev"],
+                                                x["tmask"]),
+        source="src/repro_torch/csrc/features.cu",
+        replaces="src/repro/kernels/vampire_energy/vampire_energy.py:90",
+        err=0.0, bound=bound(nbytes, m * 64)))
+
+    ones, togg = ones.reshape(t, n), togg.reshape(t, n)
+    vargs = (ones, togg, tr.cmd, tr.bank, tr.row, tr.dt, x["state"], x["w"],
+             x["params"])
+    for surface, fn, line in ((False, ve.vampire_charge, 220),
+                              (True, ve.vampire_charge_surface, 179)):
+        got = fn(*vargs)
+        want = ve.vampire_charge_plain(*vargs, surface=surface)
+        err = assert_close(got, want, RTOL, fn.__name__)
+        out_bytes = t * v * (64 if surface else 1) * 4
+        rows.append(dict(
+            name=fn.__name__, fn=lambda fn=fn: fn(*vargs),
+            plain=lambda s=surface: ve.vampire_charge_plain(*vargs,
+                                                            surface=s),
+            source="src/repro_torch/csrc/vampire_energy.cu",
+            replaces=("src/repro/kernels/vampire_energy/vampire_energy.py:"
+                      f"{line}"),
+            err=err, bound=bound(m * 8 * 4 + v * 123 * 4 + out_bytes,
+                                 m * v * 45)))
+
+    for (kind, surface), fn in be.WRAPPERS.items():
+        bargs = (tr.cmd, tr.bank, tr.row, tr.dt, x["state"], x["w"],
+                 x["any_act"], x["table"])
+        got = fn(*bargs)
+        want = be.baseline_charge_plain(kind, *bargs, surface=surface)
+        err = assert_close(got, want, RTOL, fn.__name__)
+        planes = 6 if surface else 4     # + bank, row for the cell index
+        out_bytes = t * v * (64 if surface else 1) * 4
+        rows.append(dict(
+            name=fn.__name__, fn=lambda fn=fn, b=bargs: fn(*b),
+            plain=lambda k=kind, s=surface, b=bargs:
+                be.baseline_charge_plain(k, *b, surface=s),
+            source="src/repro_torch/csrc/baseline_energy.cu",
+            replaces=("src/repro/kernels/baseline_energy/baseline_energy.py:"
+                      + ("81" if surface else "97")),
+            err=err, bound=bound(m * planes * 4 + t * 4 + v * 40 + out_bytes,
+                                 m * v * 20)))
+
+    for r in rows:
+        r["ms"] = event_ms(r["fn"], 20, flush)
+        r["plain_ms"] = event_ms(r["plain"], 5, flush)
+        print(f"[kernel] {r['name']}: ms={r['ms']:.4f} "
+              f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
+              f"({r['bound'][1]}) share_of_bound="
+              f"{r['bound'][0] / r['ms']:.3f} max_abs_err={r['err']:.3e} "
+              f"shape=(T={t}, N={n}, V={v}) card=\"{card}\"", flush=True)
+    del flush_buf
+    return rows
+
+
+def counters():
+    from repro_torch.kernels.baseline_energy import baseline_energy as be
+    from repro_torch.kernels.vampire_energy import vampire_energy as ve
+    wrappers = [ve.batched_features, ve.vampire_charge,
+                ve.vampire_charge_surface, *be.WRAPPERS.values()]
+    return {w.__name__: w for w in wrappers}
+
+
+def reset_counters() -> None:
+    for w in counters().values():
+        w.launches = 0
+
+
+def read_counters() -> dict[str, int]:
+    return {name: w.launches for name, w in counters().items()}
+
+
+def path_kernels(kind: str, mode: str) -> set[str]:
+    """The kernels ``estimate(..., impl='cuda')`` must launch."""
+    if kind == "vampire":
+        charge = ("vampire_charge_surface" if mode == "surface"
+                  else "vampire_charge")
+        return {charge} | ({"batched_features"} if mode != "distribution"
+                           else set())
+    return {f"{kind}_charge" + ("_surface" if mode == "surface" else "")}
+
+
+def leaves(rep, mode):
+    return rep if mode == "range" else (rep,)
+
+
+def e2e_phase(tb, trs, models, kernel_ms: dict[str, float], card: str):
+    """Phase 5: the main path, through the entry point a user calls.
+    Returns the launches of every kernel over the main-path runs and the
+    host-clock ms of every (kind, mode) estimate."""
+    import torch
+
+    from repro_torch.core.energy_model import (prev_lines,
+                                               structural_state)
+    from repro_torch.core.estimate_batch import bucketed_trace_batch
+    from repro_torch.kernels.vampire_energy import ops as vops
+    t, n = tb.trace.cmd.shape
+    total = {name: 0 for name in counters()}
+    times = {}
+
+    def bookkeeping():
+        st = structural_state(tb.trace)
+        prev_lines(tb.trace.data, st)
+        vops.pack_state(st)
+
+    book_ms = wall_ms(bookkeeping, 5)
+    for kind in KINDS:
+        est = models[kind]
+        for mode in MODES:
+            kw = MODE_KW.get(mode, {})
+            reset_counters()
+            rep = est.estimate(tb, mode=mode, impl="cuda", **kw)
+            torch.cuda.synchronize()
+            launched = read_counters()
+            for name, c in launched.items():
+                total[name] += c
+            need = path_kernels(kind, mode)
+            check(all(launched[k] > 0 for k in need),
+                  f"{kind}/{mode}: kernels {sorted(need)} not all launched "
+                  f"({launched})")
+            vec = est.estimate(tb, mode=mode, impl="vectorized", **kw)
+            for a, b in zip(leaves(rep, mode), leaves(vec, mode)):
+                for name, la, lb in zip(a._fields, a, b):
+                    if name == "cycles":
+                        check(torch.equal(la, lb), f"{kind}/{mode} cycles")
+                    else:
+                        assert_close(la, lb, RTOL,
+                                     f"{kind}/{mode} leaf {name}")
+            ms = wall_ms(lambda: est.estimate(tb, mode=mode, impl="cuda",
+                                              **kw), 5)
+            vec_ms = wall_ms(lambda: est.estimate(tb, mode=mode,
+                                                  impl="vectorized", **kw), 3)
+            times[kind, mode] = ms
+            kern = sum(kernel_ms[k] * c for k, c in launched.items())
+            print(f"[e2e] {kind}/{mode}: estimate_ms={ms:.3f} "
+                  f"traces_per_s={t / ms * 1e3:.1f} "
+                  f"vectorized_ms={vec_ms:.3f} bookkeeping_ms={book_ms:.3f} "
+                  f"kernels_ms={kern:.3f} "
+                  f"launches={ {k: v for k, v in launched.items() if v} } "
+                  f"shape=(T={t}, N={n}, V=3) card=\"{card}\"", flush=True)
+
+        mean = est.estimate(tb, impl="cuda")
+        surf = est.estimate(tb, mode="surface", impl="cuda")
+        assert_close(surf.charge_ma_cycles.sum(dim=(-2, -1)),
+                     mean.charge_ma_cycles, RTOL, f"{kind} surface sum")
+        check(torch.equal(surf.cycles.sum(dim=(-2, -1)), mean.cycles),
+              f"{kind} surface cycles sum")
+        # pad rows: k traces in a 2k-slot bucket; pad commands: a trace
+        # scored at its own length vs inside the full-length bucket
+        k = min(8, len(trs))
+        small = bucketed_trace_batch(trs[:k], 2 * k, n).to(tb.device)
+        part = est.estimate(small, impl="cuda")
+        check(bool((part.charge_ma_cycles[k:] == 0).all())
+              and bool((part.cycles[k:] == 0).all()),
+              f"{kind}: pad rows add charge or cycles")
+        assert_close(part.charge_ma_cycles[:k], mean.charge_ma_cycles[:k],
+                     1e-6, f"{kind}: rows inside a padded bucket")
+        solo = est.estimate([trs[0]], impl="cuda")
+        assert_close(solo.charge_ma_cycles[0], mean.charge_ma_cycles[0],
+                     RTOL, f"{kind}: pad commands")
+        print(f"[e2e] {kind}: surface sums to mean, pad rows and pad "
+              f"commands add zero", flush=True)
+    return total, times
+
+
+def profile_phase(tb, models, estimate_ms: float, card: str) -> None:
+    """Where one ``vampire`` mean estimate spends its device time: every
+    kernel the profiler records, summed by name, against the host-clock
+    time of the same call (the rest is the device's idle share)."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    est = models["vampire"]
+    est.estimate(tb, impl="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        est.estimate(tb, impl="cuda")
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] += e.device_time_total / 1e3
+    busy = sum(by_name.values())
+    if not by_name:
+        print("[profile] vampire/mean: device time not measured (the "
+              "profiler recorded no kernel)", flush=True)
+        return
+    print(f"[profile] vampire/mean: device_busy_ms={busy:.3f} of "
+          f"estimate_ms={estimate_ms:.3f} (idle share "
+          f"{max(0.0, 1 - busy / estimate_ms):.3f}) kernels={len(by_name)} "
+          f"card=\"{card}\"", flush=True)
+    for name, ms in by_name.most_common(8):
+        print(f"[profile]   {ms:8.3f} ms  {name[:90]}", flush=True)
+
+
+def oracle_phase(models, trs) -> None:
+    """A small input on the card against the command-by-command oracle
+    run on the CPU (``impl='reference'`` on a CPU copy of the model)."""
+    from repro_torch.core import model_api
+    from repro_torch.core.dram import CommandTrace
+    small = [CommandTrace(*(f[:400] for f in tr)) for tr in trs[:3]]
+    cpu_vampire = models["vampire"].to("cpu")
+    for kind in KINDS:
+        cpu = model_api.make_estimator(kind, cpu_vampire)
+        for mode in MODES:
+            kw = MODE_KW.get(mode, {})
+            got = models[kind].estimate(small, mode=mode, impl="cuda", **kw)
+            want = cpu.estimate(small, mode=mode, impl="reference", **kw)
+            for a, b in zip(leaves(got, mode), leaves(want, mode)):
+                for name, la, lb in zip(a._fields, a, b):
+                    assert_close(la.cpu(), lb, RTOL,
+                                 f"oracle {kind}/{mode} leaf {name}")
+    print("[oracle] 3 kinds x 4 modes on 3 x 400 commands match the CPU "
+          "oracle", flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    try:
+        from repro_torch.core import model_api
+        from repro_torch.kernels import build
+    except ImportError as exc:
+        print(f"chip_smoke: the repro_torch package is missing ({exc})",
+              file=sys.stderr)
+        return 2
+
+    # phase 1: environment
+    card = card_line()
+    name = torch.cuda.get_device_name(0)
+    print(f"[env] torch={torch.__version__} cuda={torch.version.cuda} "
+          f"device={name} count={torch.cuda.device_count()} "
+          f"nvidia-smi=\"{card}\"", flush=True)
+
+    # phase 2: build
+    t0 = time.perf_counter()
+    build.build_all()
+    print(f"[build] {len(build.SIGNATURES)} sources built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    # phase 3: workload and models
+    t0 = time.perf_counter()
+    trs, tb = build_workload(args.seed, 64, 6000, 16384, "cuda")
+    lengths = [tr.n for tr in trs]
+    vampire = model_api.load_estimator(str(MODEL_FILE), device="cuda")
+    models = {kind: model_api.make_estimator(kind, vampire) for kind in KINDS}
+    torch.cuda.synchronize()
+    print(f"[workload] seed={args.seed} traces={len(trs)} "
+          f"commands min={min(lengths)} max={max(lengths)} "
+          f"total={sum(lengths)} batch=(T={tb.n_traces}, "
+          f"N={tb.trace.cmd.shape[1]}) vendors={len(vampire.vendors)} "
+          f"line_bytes={tb.trace.data.numel() * 4} "
+          f"setup_s={time.perf_counter() - t0:.2f}", flush=True)
+
+    # phase 4: kernels against their plain versions
+    rows = kernel_phase(tb, models, card)
+
+    # phase 5: the main path end to end
+    launches, times = e2e_phase(tb, trs, models,
+                                {r["name"]: r["ms"] for r in rows}, card)
+    profile_phase(tb, models, times["vampire", "mean"], card)
+    oracle_phase(models, trs)
+    for r in rows:
+        check(launches[r["name"]] > 0,
+              f"kernel {r['name']} was not launched on the main path")
+        print(f"[launches] {r['name']}: {launches[r['name']]} over the 12 "
+              f"main-path estimates", flush=True)
+
+    print(json.dumps({"kernels": [
+        {"name": r["name"], "route": "cuda", "source": r["source"],
+         "replaces": r["replaces"], "launches": launches[r["name"]],
+         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+         "library_ms": None} for r in rows]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

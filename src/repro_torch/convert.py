@@ -1,0 +1,81 @@
+"""Carry fitted weights from numpy (the reference's arrays or a schema-v2
+file) into the port's tensors.
+
+* :func:`power_params_from_numpy` — a ``PowerParams``'s leaves by field
+  name, stacked (leading vendor axis) or not, as float32 tensors.
+* :func:`params_from_fitted` — the v2 loader's transform of the stored
+  fitted quantities into ``PowerParams`` leaves: float32 casts, the
+  I/O-driver constants, ``ones_quad = 0`` (the fitted model is linear),
+  the neutral all-ones surface when absent, and the low-power LUT entries
+  defaulting to the fast power-down current ``i_pd``.
+* :func:`fleet_model_from_numpy` — a whole ``FleetModel``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import params as P
+from repro_torch.core.dram import N_BANKS, N_ROW_BANDS
+from repro_torch.core.energy_model import PowerParams
+
+# PowerParams leaves that may be absent (the NamedTuple's defaults)
+_OPTIONAL = {"act_surface": 1.0, "i_pd_slow": 0.0, "i_actpd": 0.0,
+             "i_sr": 0.0}
+
+
+def power_params_from_numpy(leaves: dict, device="cpu") -> PowerParams:
+    """``PowerParams`` from numpy leaves keyed by field name (all sharing
+    one leading vendor axis, or none); the optional leaves default as the
+    NamedTuple does."""
+    lead = np.asarray(leaves["i2n"]).shape
+    out = {}
+    for name in PowerParams._fields:
+        if name in leaves:
+            x = np.array(leaves[name], np.float32)
+        elif name == "act_surface":
+            x = np.ones(lead + (N_BANKS, N_ROW_BANDS), np.float32)
+        elif name in _OPTIONAL:
+            x = np.full(lead, _OPTIONAL[name], np.float32)
+        else:
+            raise KeyError(f"PowerParams leaf {name!r} missing")
+        out[name] = torch.from_numpy(x).to(device)
+    return PowerParams(**out)
+
+
+def params_from_fitted(fitted: dict) -> dict:
+    """The stored fitted quantities of every vendor (``(V, ...)`` arrays
+    keyed as in the v2 file) -> numpy ``PowerParams`` leaves, exactly as
+    the reference's ``_rebuild_vendor`` + ``build_params`` builds them."""
+    i_pd = np.asarray(fitted["i_pd"], np.float64)
+    v = i_pd.shape[0]
+    leaves = {name: np.asarray(fitted[name], np.float64) for name in
+              ("datadep", "i2n", "bank_open_delta", "bank_read_factor",
+               "bank_write_factor", "q_actpre", "row_ones_slope", "q_ref")}
+    leaves["i_pd"] = i_pd
+    leaves["io_read_ma_per_one"] = np.full(v, P.IO_DRIVER_MA_PER_ONE_READ)
+    leaves["io_write_ma_per_zero"] = np.full(v, P.IO_DRIVER_MA_PER_ZERO_WRITE)
+    leaves["ones_quad"] = np.zeros(v)
+    leaves["act_surface"] = (
+        np.asarray(fitted["act_surface"], np.float64)
+        if fitted.get("act_surface") is not None
+        else np.ones((v, N_BANKS, N_ROW_BANDS)))
+    for name in ("i_pd_slow", "i_actpd", "i_sr"):
+        leaves[name] = (np.asarray(fitted[name], np.float64)
+                        if fitted.get(name) is not None else i_pd)
+    return {name: leaves[name].astype(np.float32) for name in leaves}
+
+
+def fleet_model_from_numpy(params: dict, band, idd_datasheet, vendor_ids,
+                           device="cpu"):
+    """A ``FleetModel`` from numpy: ``params`` are stacked ``PowerParams``
+    leaves by name, ``band`` is ``(V, 2)``, ``idd_datasheet`` ``(V, K)``,
+    ``vendor_ids`` ``(V,)``."""
+    from repro_torch.core.vampire import FleetModel
+    return FleetModel(
+        params=power_params_from_numpy(params, device),
+        band=torch.as_tensor(np.asarray(band, np.float32), device=device),
+        idd_datasheet=torch.as_tensor(np.asarray(idd_datasheet, np.float32),
+                                      device=device),
+        vendor_ids=torch.as_tensor(np.asarray(vendor_ids, np.int32),
+                                   device=device))

@@ -1,0 +1,421 @@
+"""The unified estimator protocol, the impl registry and schema-v2 model
+files, in PyTorch.
+
+Every power model — the fitted VAMPIRE model and the datasheet baselines
+(Micron calculator, DRAMPower) — implements ONE entry point:
+
+    model.estimate(traces, vendors=None, *, mode='mean'|'range'|
+                   'distribution'|'surface', impl='vectorized',
+                   data=DataProfile(...) | None, ones_frac=None,
+                   toggle_frac=None)
+
+* ``traces`` is one :class:`~repro_torch.core.dram.CommandTrace`, a
+  sequence of ragged traces, or a
+  :class:`~repro_torch.core.estimate_batch.TraceBatch`; they are moved to
+  the model's device;
+* report leaves are ``(traces, vendors)``; ``'range'`` returns
+  ``(lo, mean, hi)``; ``'surface'`` leaves are ``(traces, vendors, banks,
+  row_bands)`` and sum over the cells to ``'mean'``;
+* ``impl`` resolves through the registry: ``'vectorized'`` (plain
+  PyTorch over the whole batch), ``'cuda'`` (the hand-written kernels of
+  ``repro_torch.kernels``; on CPU tensors their plain versions) and
+  ``'reference'`` (alias ``'scan'``: the pair-at-a-time per-command
+  oracle).
+
+A model lives on one device.  The entry points that make one
+(:func:`load_estimator`, :func:`make_estimator`, the estimator classes)
+put it on ``cuda`` unless the caller passes ``device="cpu"``; without a
+card and without that request they raise rather than run on the CPU.
+
+Models are saved as schema v2: a ``.npz`` of plain arrays plus a
+``__manifest__`` JSON entry, the format ``repro.core.model_api`` writes;
+it is read with ``allow_pickle=False``.  The v1 pickle format is not
+read here.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import zipfile
+from typing import Literal, Protocol, Sequence, runtime_checkable
+
+import numpy as np
+import torch
+
+SCHEMA_VERSION = 2
+MANIFEST_KEY = "__manifest__"
+
+EstimateMode = Literal["mean", "range", "distribution", "surface"]
+
+
+@runtime_checkable
+class Estimator(Protocol):
+    """What every power model exposes (see the module docstring)."""
+
+    kind: str                        # 'vampire' | 'micron' | 'drampower'
+    device: torch.device
+
+    @property
+    def vendors(self) -> tuple[int, ...]:
+        """Vendor ids the model covers, in the stacked-leaf order."""
+        ...
+
+    def estimate(self, traces, vendors=None, *, mode: EstimateMode = "mean",
+                 impl: str = "vectorized", data: "DataProfile | None" = None,
+                 ones_frac=None, toggle_frac=None):
+        ...
+
+    def save(self, path: str) -> None:
+        ...
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device a model is put on: ``cuda`` unless the caller names
+    another.  Raises when CUDA is asked for (or defaulted to) and no card
+    is present — the port never carries on on the CPU by itself."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "estimators on the CPU")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# Impl registry
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class EstimateImpl:
+    """One way of evaluating the (traces, vendors) report matrix."""
+    name: str
+    description: str
+    modes: tuple[str, ...] = ("mean", "range", "distribution", "surface")
+    aliases: tuple[str, ...] = ()
+
+
+_IMPLS: dict[str, EstimateImpl] = {}
+_IMPL_ALIASES: dict[str, str] = {}
+
+
+def register_impl(impl: EstimateImpl) -> EstimateImpl:
+    """Register an impl (or re-register to override)."""
+    _IMPLS[impl.name] = impl
+    for alias in impl.aliases:
+        _IMPL_ALIASES[alias] = impl.name
+    return impl
+
+
+def registered_impls() -> tuple[str, ...]:
+    return tuple(sorted(_IMPLS))
+
+
+def resolve_impl(name: str, *, mode: str | None = None) -> EstimateImpl:
+    """Resolve an ``impl=`` argument (name or alias), checking that it
+    supports ``mode``."""
+    impl = _IMPLS.get(_IMPL_ALIASES.get(name, name))
+    if impl is None:
+        raise ValueError(f"unknown impl {name!r}; registered impls: "
+                         f"{list(registered_impls())}")
+    if mode is not None and mode not in impl.modes:
+        raise ValueError(f"impl {impl.name!r} does not support mode "
+                         f"{mode!r} (supports {list(impl.modes)})")
+    return impl
+
+
+def impl_execution_mode(name: str, device) -> str:
+    """How an impl runs on ``device``: ``'kernel'`` for ``'cuda'`` on a
+    CUDA device, ``'plain'`` for ``'cuda'`` on the CPU (the kernels'
+    plain versions), ``'torch'`` for the other impls.  There is no
+    fallback from a kernel to its plain version on a CUDA device."""
+    impl = resolve_impl(name)
+    if impl.name != "cuda":
+        return "torch"
+    return "kernel" if torch.device(device).type == "cuda" else "plain"
+
+
+def require_impl_path(kind: str, impl: str,
+                      supported: tuple[str, ...]) -> None:
+    """Raise when an estimator has no branch for a registered impl."""
+    if impl not in supported:
+        raise ValueError(
+            f"estimator kind {kind!r} has no evaluation path for impl "
+            f"{impl!r} (it implements {list(supported)}); registering an "
+            f"impl does not give existing estimators a dispatch for it")
+
+
+VECTORIZED_IMPL = register_impl(EstimateImpl(
+    "vectorized",
+    "plain PyTorch over the padded (traces, commands) batch: one "
+    "structural pass, one charge pass per vendor",
+    modes=("mean", "range", "distribution", "surface")))
+CUDA_IMPL = register_impl(EstimateImpl(
+    "cuda",
+    "hand-written Hopper kernels: one feature kernel per batch and a "
+    "per-vendor charge kernel over (chunks, traces, vendors); their plain "
+    "versions on CPU tensors",
+    modes=("mean", "range", "distribution", "surface")))
+REFERENCE_IMPL = register_impl(EstimateImpl(
+    "reference",
+    "pair-at-a-time per-command oracle (a host-side walk of the state "
+    "machine for measured-data modes), kept for cross-checking",
+    modes=("mean", "range", "distribution", "surface"),
+    aliases=("scan",)))
+
+
+# ---------------------------------------------------------------------------
+# Argument contract
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class DataProfile:
+    """Fraction of ones on the bus and of toggling bit lanes (scalar, or
+    one value per trace) for ``mode='distribution'``."""
+    ones_frac: object = None
+    toggle_frac: object = None
+
+    @property
+    def empty(self) -> bool:
+        return self.ones_frac is None and self.toggle_frac is None
+
+
+def normalize_data_profile(data: "DataProfile | None" = None,
+                           ones_frac=None,
+                           toggle_frac=None) -> DataProfile:
+    """Map the typed ``data=`` argument or the loose kwargs onto one
+    :class:`DataProfile`; exactly one spelling per call."""
+    if data is not None:
+        if not isinstance(data, DataProfile):
+            raise TypeError(f"data= must be a DataProfile, got "
+                            f"{type(data).__name__}")
+        if ones_frac is not None or toggle_frac is not None:
+            raise ValueError("pass data=DataProfile(...) OR the loose "
+                             "ones_frac=/toggle_frac= kwargs, not both")
+        return data
+    return DataProfile(ones_frac=ones_frac, toggle_frac=toggle_frac)
+
+
+def validate_estimate_args(mode: str, ones_frac, toggle_frac) -> None:
+    """Fractions are required with ``mode='distribution'`` and rejected
+    with any other mode."""
+    if mode not in ("mean", "range", "distribution", "surface"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if mode == "distribution":
+        if ones_frac is None or toggle_frac is None:
+            raise ValueError("mode='distribution' requires ones_frac "
+                             "and toggle_frac")
+    elif ones_frac is not None or toggle_frac is not None:
+        raise ValueError("ones_frac/toggle_frac are only meaningful "
+                         "with mode='distribution'")
+
+
+def validate_data_profile(mode: str, profile: DataProfile) -> None:
+    validate_estimate_args(mode, profile.ones_frac, profile.toggle_frac)
+
+
+def resolve_vendor_indices(order: Sequence[int],
+                           vendors) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """Normalize a ``vendors`` argument against a model's stacked vendor
+    order -> (vendor ids, row indices into the stacked leaves)."""
+    order = list(order)
+    if vendors is None:
+        vs = tuple(order)
+    elif isinstance(vendors, (int, np.integer)):
+        vs = (int(vendors),)
+    else:
+        vs = tuple(int(v) for v in vendors)
+    try:
+        idx = tuple(order.index(v) for v in vs)
+    except ValueError:
+        missing = [v for v in vs if v not in order]
+        raise KeyError(f"vendor(s) {missing} not fitted; model covers "
+                       f"{order}") from None
+    return vs, idx
+
+
+def stack_reports(reports):
+    """Stack a list of EnergyReports leaf by leaf along a new axis 0."""
+    from repro_torch.core.energy_model import EnergyReport
+    return EnergyReport(*(torch.stack(leaves) for leaves in zip(*reports)))
+
+
+# ---------------------------------------------------------------------------
+# Per-model caches
+# ---------------------------------------------------------------------------
+class TraceBatchCache:
+    """Remembers the padded, device-resident TraceBatch of the last few
+    trace sets scored through a model, keyed by trace identity (entries
+    hold the traces, so an id cannot be recycled while cached)."""
+
+    def __init__(self, device, maxsize: int = 4):
+        self.device = device
+        self.maxsize = maxsize
+        self._entries: list[tuple[tuple, object]] = []
+
+    def get(self, traces):
+        from repro_torch.core.dram import CommandTrace
+        from repro_torch.core.estimate_batch import TraceBatch, as_trace_batch
+        if isinstance(traces, TraceBatch):
+            return traces.to(self.device)
+        key = ((traces,) if isinstance(traces, CommandTrace)
+               else tuple(traces))
+        for held, tb in self._entries:
+            if len(held) == len(key) and all(a is b
+                                             for a, b in zip(held, key)):
+                return tb
+        tb = as_trace_batch(list(key)).to(self.device)
+        self._entries.append((key, tb))
+        del self._entries[:-self.maxsize]
+        return tb
+
+
+class StackedEstimatorMixin:
+    """Caches every stacked estimator shares: the padded-batch memo and
+    vendor-subset slices of the stacked leaves."""
+
+    @property
+    def _batch_cache(self) -> TraceBatchCache:
+        cache = self.__dict__.get("_batches")
+        if cache is None:
+            cache = self.__dict__["_batches"] = TraceBatchCache(self.device)
+        return cache
+
+    def _memo_subset(self, idx: tuple[int, ...], build):
+        cache = self.__dict__.setdefault("_subsets", {})
+        hit = cache.get(idx)
+        if hit is None:
+            hit = cache[idx] = build()
+        return hit
+
+
+# ---------------------------------------------------------------------------
+# Schema-v2 serialization
+# ---------------------------------------------------------------------------
+def save_estimator(model, path: str, *, meta: dict | None = None) -> None:
+    """Write an estimator as a schema-v2 ``.npz`` + JSON manifest, the
+    file ``repro.core.model_api.load_estimator`` reads."""
+    kind = getattr(model, "kind", None)
+    if kind == "vampire":
+        arrays, manifest = _vampire_payload(model)
+    elif kind in ("micron", "drampower"):
+        arrays, manifest = _baseline_payload(model)
+    else:
+        raise TypeError(f"cannot serialize estimator kind {kind!r}")
+    manifest["schema"] = SCHEMA_VERSION
+    manifest["kind"] = kind
+    if meta is not None:
+        manifest["meta"] = meta
+    payload = {MANIFEST_KEY: np.array(json.dumps(manifest))}
+    payload.update(arrays)
+    with open(path, "wb") as f:
+        np.savez(f, **payload)
+
+
+def read_manifest(path: str) -> dict | None:
+    """The v2 manifest of a saved estimator, or ``None`` for v1 pickles."""
+    if not zipfile.is_zipfile(path):
+        return None
+    with np.load(path, allow_pickle=False) as npz:
+        return json.loads(npz[MANIFEST_KEY].item())
+
+
+def load_estimator(path: str, device=None):
+    """Load a schema-v2 estimator onto ``device`` (``cuda`` by default)."""
+    device = resolve_device(device)
+    if not zipfile.is_zipfile(path):
+        raise ValueError(f"{path} is not a schema-v2 model file (a v1 "
+                         "pickle must be re-saved as v2 by the reference "
+                         "package first)")
+    with np.load(path, allow_pickle=False) as npz:
+        manifest = json.loads(npz[MANIFEST_KEY].item())
+        schema = manifest.get("schema")
+        if schema != SCHEMA_VERSION:
+            raise ValueError(f"unsupported model schema {schema!r} in {path}")
+        kind = manifest.get("kind")
+        if kind == "vampire":
+            return _vampire_from_payload(npz, manifest, device)
+        if kind in ("micron", "drampower"):
+            return _baseline_from_payload(npz, manifest, device)
+        raise ValueError(f"unknown estimator kind {kind!r} in {path}")
+
+
+# ---- VAMPIRE payload ------------------------------------------------------
+# fitted quantities stored per vendor (the reference's ``_FITTED_FIELDS``)
+_FITTED_FIELDS = ("datadep", "datadep_r2", "i2n", "bank_open_delta",
+                  "bank_read_factor", "bank_write_factor", "q_actpre",
+                  "row_ones_slope", "q_ref", "i_pd", "act_surface",
+                  "i_pd_slow", "i_actpd", "i_sr")
+
+
+def _vampire_payload(model) -> tuple[dict, dict]:
+    fm = model.fleet
+    v = fm.band.shape[0]
+    arrays: dict[str, np.ndarray] = {
+        "vendor_ids": fm.vendor_ids.cpu().numpy().astype(np.int64),
+        "band": fm.band.cpu().numpy().astype(np.float64),
+        "idd_datasheet": fm.idd_datasheet.cpu().numpy().astype(np.float64),
+        "datadep_r2": (np.zeros((v, 4, 2)) if model.datadep_r2 is None
+                       else np.asarray(model.datadep_r2, np.float64)),
+    }
+    for field in _FITTED_FIELDS:
+        if field != "datadep_r2":
+            arrays[field] = getattr(fm.params, field).cpu().numpy().astype(
+                np.float64)
+    manifest = {"vendors": list(model.vendors),
+                "idd_keys": list(model.idd_keys),
+                "idd_r2": {}, "row_r2": {}, "raw": False}
+    return arrays, manifest
+
+
+def _vampire_from_payload(npz, manifest, device):
+    from repro_torch.convert import fleet_model_from_numpy, params_from_fitted
+    from repro_torch.core.vampire import Vampire
+    fitted = {f: np.asarray(npz[f]) for f in _FITTED_FIELDS
+              if f != "datadep_r2" and f in npz.files}
+    fleet = fleet_model_from_numpy(
+        params_from_fitted(fitted), band=np.asarray(npz["band"]),
+        idd_datasheet=np.asarray(npz["idd_datasheet"]),
+        vendor_ids=np.asarray(npz["vendor_ids"]), device=device)
+    r2 = np.asarray(npz["datadep_r2"]) if "datadep_r2" in npz.files else None
+    return Vampire(fleet=fleet, idd_keys=tuple(manifest["idd_keys"]),
+                   datadep_r2=r2)
+
+
+# ---- baseline payload -----------------------------------------------------
+def _baseline_payload(model) -> tuple[dict, dict]:
+    vs = list(model.vendors)
+    idd_keys = sorted(model.datasheets[vs[0]])
+    arrays = {
+        "vendor_ids": np.asarray(vs, np.int64),
+        "idd_table": np.asarray(
+            [[model.datasheets[v][k] for k in idd_keys] for v in vs],
+            np.float64),
+    }
+    return arrays, {"vendors": vs, "idd_keys": idd_keys}
+
+
+def _baseline_from_payload(npz, manifest, device):
+    from repro_torch.core.baselines_power import BASELINE_MODELS
+    cls = BASELINE_MODELS[manifest["kind"]]
+    vs = [int(v) for v in np.asarray(npz["vendor_ids"])]
+    idd_keys = list(manifest["idd_keys"])
+    table = np.asarray(npz["idd_table"], np.float64)
+    return cls.from_datasheets(
+        {v: {k: float(table[i, j]) for j, k in enumerate(idd_keys)}
+         for i, v in enumerate(vs)}, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Estimator kinds
+# ---------------------------------------------------------------------------
+def make_estimator(kind: str, vampire) -> "Estimator":
+    """Build the requested estimator kind from a fitted VAMPIRE model, on
+    the model's device (the baselines share its per-vendor datasheets)."""
+    if kind == "vampire":
+        return vampire
+    from repro_torch.core.baselines_power import BASELINE_MODELS
+    if kind in BASELINE_MODELS:
+        return BASELINE_MODELS[kind].from_vampire(vampire)
+    raise ValueError(f"unknown estimator kind {kind!r}; expected 'vampire', "
+                     f"'micron', or 'drampower'")
+
+
+ESTIMATOR_KINDS = ("vampire", "micron", "drampower")

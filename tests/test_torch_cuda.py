@@ -1,0 +1,127 @@
+"""The CUDA kernels on the card: each against its plain version, the
+launch counts, the wrappers' input checks, and ``impl='cuda'`` against
+``impl='vectorized'`` end to end.  Needs an NVIDIA GPU and ``nvcc``; on a
+machine without a card every test skips, naming the missing device.
+
+Run on the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``
+(``PYTHONPATH=src``)."""
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import model_api, traces
+from repro_torch.core.dram import ACT
+from repro_torch.core.estimate_batch import bucketed_trace_batch
+from repro_torch.core.energy_model import prev_lines, structural_state
+from repro_torch.kernels.baseline_energy import baseline_energy as be
+from repro_torch.kernels.vampire_energy import ops as vops
+from repro_torch.kernels.vampire_energy import vampire_energy as ve
+
+pytestmark = pytest.mark.cuda
+
+MODEL = (pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+         / "data" / "vampire_quickfit_v2.npz")
+RTOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: torch.cuda.is_available() is "
+                    "False on this machine")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def setup(device):
+    trs = [traces.app_trace(traces.SPEC_APPS[i], n_requests=n)
+           for i, n in ((0, 300), (7, 500), (13, 200), (18, 400))]
+    tb = bucketed_trace_batch(trs, 6, 2048 + 5).to(device)
+    vampire = model_api.load_estimator(str(MODEL), device=device)
+    models = {k: model_api.make_estimator(k, vampire)
+              for k in model_api.ESTIMATOR_KINDS}
+    return trs, tb, models
+
+
+def _close(got, want, rtol=RTOL):
+    np.testing.assert_allclose(got.double().cpu().numpy(),
+                               want.double().cpu().numpy(), rtol=rtol)
+
+
+def test_features_kernel_is_bit_exact(device):
+    gen = torch.Generator().manual_seed(5)
+    data = torch.randint(-2**31, 2**31 - 1, (4099, 16), generator=gen,
+                         dtype=torch.int32).to(device)
+    prev = torch.randint(-2**31, 2**31 - 1, (4099, 16), generator=gen,
+                         dtype=torch.int32).to(device)
+    tmask = (torch.rand(4099, generator=gen) < 0.5).float().to(device)
+    before = ve.batched_features.launches
+    ones, togg = ve.batched_features(data, prev, tmask)
+    torch.cuda.synchronize()
+    assert ve.batched_features.launches == before + 1
+    p_ones, p_togg = ve.batched_features_plain(data, prev, tmask)
+    assert torch.equal(ones, p_ones) and torch.equal(togg, p_togg)
+
+
+@pytest.mark.parametrize("surface", [False, True])
+def test_vampire_charge_kernel_matches_plain(setup, surface):
+    _, tb, models = setup
+    tr = tb.trace
+    st = structural_state(tr)
+    t, n = tr.cmd.shape
+    ones, togg = ve.batched_features(
+        tr.data.reshape(t * n, -1), prev_lines(tr.data, st).reshape(t * n, -1),
+        (st.has_prev & st.is_rw).float().reshape(-1))
+    args = (ones.reshape(t, n), togg.reshape(t, n), tr.cmd, tr.bank, tr.row,
+            tr.dt, vops.pack_state(st), tb.weight,
+            vops.pack_param_blocks(models["vampire"].fleet.params))
+    fn = ve.vampire_charge_surface if surface else ve.vampire_charge
+    before = fn.launches
+    got = fn(*args)
+    assert fn.launches == before + 1
+    _close(got, ve.vampire_charge_plain(*args, surface=surface))
+
+
+@pytest.mark.parametrize("kind", be.KINDS)
+@pytest.mark.parametrize("surface", [False, True])
+def test_baseline_charge_kernel_matches_plain(setup, kind, surface):
+    _, tb, models = setup
+    tr = tb.trace
+    args = (tr.cmd, tr.bank, tr.row, tr.dt,
+            vops.pack_state(structural_state(tr)), tb.weight,
+            (tr.cmd == ACT).any(-1).float(), models[kind].idd_table)
+    fn = be.WRAPPERS[kind, surface]
+    before = fn.launches
+    got = fn(*args)
+    assert fn.launches == before + 1
+    _close(got, be.baseline_charge_plain(kind, *args, surface=surface))
+
+
+def test_wrappers_check_their_inputs(setup):
+    _, tb, models = setup
+    tr = tb.trace
+    t, n = tr.cmd.shape
+    good = (torch.zeros(t, n, device=tr.device),) * 2 + (
+        tr.cmd, tr.bank, tr.row, tr.dt, torch.zeros_like(tr.cmd), tb.weight,
+        vops.pack_param_blocks(models["vampire"].fleet.params))
+    with pytest.raises(TypeError, match="dtype"):
+        ve.vampire_charge(*good[:2], tr.cmd.long(), *good[3:])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ve.vampire_charge(good[0].cpu(), *good[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        ve.vampire_charge(*good[:2], tr.cmd.t().contiguous().t(), *good[3:])
+
+
+@pytest.mark.parametrize("kind", model_api.ESTIMATOR_KINDS)
+def test_cuda_impl_matches_vectorized_on_the_card(setup, kind):
+    _, tb, models = setup
+    est = models[kind]
+    for mode, kw in (("mean", {}), ("surface", {}),
+                     ("distribution", dict(ones_frac=0.35,
+                                           toggle_frac=0.15))):
+        a = est.estimate(tb, mode=mode, impl="cuda", **kw)
+        b = est.estimate(tb, mode=mode, impl="vectorized", **kw)
+        for la, lb in zip(a, b):
+            _close(la, lb)

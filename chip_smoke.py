@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's estimation path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -7,21 +7,34 @@ Run from the root of a checkout (it puts ``src/`` on ``sys.path``
 itself).  Phases, each printing its numbers:
 
 1. environment: torch, the device, and the card's name and power limit;
-2. build every CUDA kernel from ``src/repro_torch/csrc`` (timed, with the
-   compiler's register / shared-memory / spill report);
+2. build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   source, all at once; timed, with the compiler's register /
+   shared-memory / spill report);
 3. workload from ``--seed``: 64 synthetic application traces of 6000
    requests, padded to the serving ring's largest bucket (64 x 16384
    commands), and the committed fitted model with its two baselines
    (3 vendors);
-4. every kernel against its plain PyTorch version on these inputs
-   (features bit-exact, charge at rtol 1e-5), timed with CUDA events
-   beside its bound;
+4. every kernel against its plain PyTorch version, timed with CUDA events
+   beside its bound: the charge-path kernels on the estimation inputs
+   (features bit-exact, charge at rtol 1e-5), the line kernels (popcount,
+   toggle, byte LUT, BDI) bit-exact on a seeded 32 MiB bf16 tensor, with
+   ``torch.take`` timed beside the byte LUT;
 5. ``estimate`` end to end for 3 kinds x 4 modes through ``impl='cuda'``
    against ``impl='vectorized'`` (rtol 1e-5), surface summing to mean, pad
    rows and pad commands adding zero, every kernel of the path launched;
    the device time of one estimate by kernel (``torch.profiler``); and a
-   small input against the command-by-command oracle on the CPU.
+   small input against the command-by-command oracle on the CPU;
+6. ``[study]``: the paper's Section 10 encoding study at full size — all
+   23 synthetic SPEC apps x 4 encodings (92 traces of 6000 requests),
+   scored by ``encoding_energy_study`` on the card, the same encoded
+   batch again through ``impl='cuda'`` (rtol 1e-5), per-app ratios and
+   the mean OWI saving beside the paper's 12.2%;
+7. ``[hbm]``: ``tensor_stats``, BDI ``compression_ratio`` and the OWI
+   energy ratio of four seeded 32 MiB tensor corpora made on the card,
+   and ``tensor_stats`` of a 1 GiB all-ones tensor (exactly 1.0).
 
+Each main path (5, 6, 7) runs with the kernels' launch counts set to 0
+just before it and read just after; every kernel must have been launched.
 Any failed check exits non-zero.  The last lines are one JSON object of
 per-kernel numbers, the card's ``name, power.limit`` line, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -43,6 +56,7 @@ MODEL_FILE = ROOT / "src" / "repro_torch" / "data" / "vampire_quickfit_v2.npz"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 rate outside the tensor cores
 RTOL = 1e-5                   # the reference's energy bar (test_impl_registry)
+SPIN_CYCLES = 200_000         # ~0.1 ms of device clock before a timed window
 MODES = ("mean", "range", "distribution", "surface")
 MODE_KW = {"distribution": dict(ones_frac=0.35, toggle_frac=0.15)}
 KINDS = ("vampire", "micron", "drampower")
@@ -91,7 +105,10 @@ def assert_close(got, want, rtol: float, what: str) -> float:
 def event_ms(fn, iters: int, flush=None) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, each timed by
     its own CUDA events; ``flush`` (run outside the timed window) evicts
-    the L2 cache first, as the estimation path finds it."""
+    the L2 cache first, as the estimation path finds it.  A device-side
+    spin of ~0.1 ms before the window lets the host enqueue ``fn``'s
+    launches ahead of the device, so the host's Python time for a short
+    wrapper does not show up as device time."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -99,6 +116,7 @@ def event_ms(fn, iters: int, flush=None) -> float:
     for _ in range(iters):
         if flush is not None:
             flush()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -246,11 +264,89 @@ def kernel_phase(tb, models, card: str) -> list[dict]:
     return rows
 
 
+def line_kernel_phase(seed: int, card: str, device="cuda",
+                      shape=(4096, 4096)) -> list[dict]:
+    """Phase 4, second half: the line kernels of the study and HBM paths
+    on 32 MiB — 524,288 lines of a seeded bf16 (4096, 4096) tensor —
+    bit-exact against their plain versions, timed beside their bounds."""
+    import torch
+
+    from repro_torch.core import hbm
+    from repro_torch.kernels.bdi import bdi, ref as bdi_ref
+    from repro_torch.kernels.byte_lut import byte_lut, ref as lut_ref
+    from repro_torch.kernels.popcount import popcount, ref as pc_ref
+    from repro_torch.kernels.toggle import ops as tops, ref as tg_ref
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(*shape, generator=gen, device=device,
+                    dtype=torch.bfloat16)
+    lines = hbm._tensor_lines(x)
+    n = lines.shape[0]
+    lut = torch.randperm(256, generator=gen, device=device).to(torch.int32)
+    idx = lut_ref.words_to_bytes(lines).reshape(-1).long()
+    # bounds: each line read once, each output written once; integer
+    # operations per line (popc + adds, + xor, the BDI compares, per-word
+    # byte split + lookup + repack) against the float32 rate — the bytes
+    # bound every one of them
+    in_bytes = n * 64
+    rows = [
+        dict(name="line_ones", fn=lambda: popcount.line_ones(lines),
+             plain=lambda: pc_ref.line_ones(lines),
+             source="src/repro_torch/csrc/line_bits.cu",
+             replaces="src/repro/kernels/popcount/popcount.py:31",
+             bound=bound(in_bytes + n * 4, n * 31), library=None),
+        dict(name="line_toggles", fn=lambda: tops.line_toggles_seq(lines),
+             plain=lambda: tg_ref.line_toggles_seq(lines),
+             source="src/repro_torch/csrc/line_bits.cu",
+             replaces="src/repro/kernels/toggle/toggle.py:27",
+             bound=bound(in_bytes + n * 4, n * 47), library=None),
+        dict(name="bdi_sizes", fn=lambda: bdi.bdi_sizes(lines),
+             plain=lambda: bdi_ref.bdi_sizes(lines),
+             source="src/repro_torch/csrc/bdi.cu",
+             replaces="src/repro/kernels/bdi/bdi.py:101",
+             bound=bound(in_bytes + n * 8, n * 400), library=None),
+        dict(name="apply_lut_lines",
+             fn=lambda: byte_lut.apply_lut_lines(lines, lut),
+             plain=lambda: lut_ref.apply_lut_lines(lines, lut),
+             source="src/repro_torch/csrc/byte_lut.cu",
+             replaces="src/repro/kernels/byte_lut/byte_lut.py:36",
+             bound=bound(2 * in_bytes + 256 * 4, n * 16 * 18),
+             library=lambda: torch.take(lut, idx)),
+    ]
+    flush_buf = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+    flush = flush_buf.zero_
+    for r in rows:
+        got, want = r["fn"](), r["plain"]()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"{r['name']} kernel differs from its plain version")
+        r["err"] = 0.0
+        r["ms"] = event_ms(r["fn"], 20, flush)
+        r["plain_ms"] = event_ms(r["plain"], 5, flush)
+        r["library_ms"] = (None if r["library"] is None
+                           else event_ms(r["library"], 20, flush))
+        lib = ("" if r["library_ms"] is None
+               else f" library_ms={r['library_ms']:.4f} (torch.take)")
+        print(f"[kernel] {r['name']}: ms={r['ms']:.4f} "
+              f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
+              f"({r['bound'][1]}) share_of_bound="
+              f"{r['bound'][0] / r['ms']:.3f}{lib} max_abs_err=0 "
+              f"shape=(lines={n}, 16) card=\"{card}\"", flush=True)
+    del flush_buf, idx
+    return rows
+
+
 def counters():
     from repro_torch.kernels.baseline_energy import baseline_energy as be
+    from repro_torch.kernels.bdi import bdi
+    from repro_torch.kernels.byte_lut import byte_lut
+    from repro_torch.kernels.popcount import popcount
+    from repro_torch.kernels.toggle import toggle
     from repro_torch.kernels.vampire_energy import vampire_energy as ve
     wrappers = [ve.batched_features, ve.vampire_charge,
-                ve.vampire_charge_surface, *be.WRAPPERS.values()]
+                ve.vampire_charge_surface, *be.WRAPPERS.values(),
+                popcount.line_ones, toggle.line_toggles,
+                byte_lut.apply_lut_lines, bdi.bdi_sizes]
     return {w.__name__: w for w in wrappers}
 
 
@@ -409,6 +505,175 @@ def oracle_phase(models, trs) -> None:
           "oracle", flush=True)
 
 
+PAPER_OWI_SAVING = 0.122      # the paper's average OWI energy reduction
+
+
+def study_phase(seed: int, model, card: str,
+                n_requests: int = 6000) -> dict[str, int]:
+    """Phase 6: the Section 10 encoding study at full size through the
+    entry point a user calls, then the same encoded batch through
+    ``impl='cuda'``.  Returns the launches of the ``encoding_energy_study``
+    run."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.analysis import trace_lint
+    from repro_torch.core import encodings, traces
+    t0 = time.perf_counter()
+    apps = [dataclasses.replace(app, seed=seed * 1000 + i + 1)
+            for i, app in enumerate(traces.SPEC_APPS)]
+    trs = {app.name: traces.app_trace(app, n_requests=n_requests)
+           for app in apps}
+    gen_s = time.perf_counter() - t0
+
+    reset_counters()
+    t0 = time.perf_counter()
+    study = encodings.encoding_energy_study(trs, model)
+    torch.cuda.synchronize()
+    study_s = time.perf_counter() - t0
+    launched = read_counters()
+    check(launched["apply_lut_lines"] > 0,
+          f"study: the byte-LUT kernel was not launched ({launched})")
+
+    # the same batch, step by step: encode (LUT on the card, refresh
+    # rescheduling and lint), lint alone, the estimate in both impls
+    t0 = time.perf_counter()
+    encoded = encodings.encode_all(trs, device=model.device)
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    diags = [trace_lint.lint_trace(tr) for tr in encoded]
+    lint_s = time.perf_counter() - t0
+    # clean: no rule broken, and no refresh later than tREFI plus the
+    # linter's scheduling slack
+    check(not any(diags), "study: an encoded trace does not lint clean")
+    lengths = [tr.n for tr in encoded]
+    t0 = time.perf_counter()
+    rep = model.estimate(encoded)
+    torch.cuda.synchronize()
+    est_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep_cuda = model.estimate(encoded, impl="cuda")
+    torch.cuda.synchronize()
+    cuda_s = time.perf_counter() - t0
+    for name, a, b in zip(rep._fields, rep_cuda, rep):
+        if name == "cycles":
+            check(torch.equal(a, b), "study: cycles differ between impls")
+        else:
+            assert_close(a, b, RTOL, f"study impl='cuda' leaf {name}")
+    table = encodings.study_table(list(trs), rep)
+    for app in trs:
+        want = torch.tensor([table[app][e] for e in encodings.ENCODINGS])
+        got = torch.tensor([study[app][e] for e in encodings.ENCODINGS])
+        assert_close(got, want, RTOL, f"study {app} vs its batch")
+        check(bool((got > 0).all()), f"study {app}: energy not positive")
+
+    savings = []
+    for app, per in study.items():
+        base = per["baseline"]
+        savings.append(1 - per["owi"] / base)
+        print(f"[study] {app:11s} " + " ".join(
+            f"{e}={per[e] / base:.4f}" for e in ("bdi", "optimized", "owi")),
+            flush=True)
+    mean = sum(savings) / len(savings)
+    print(f"[study] traces={len(encoded)} commands min={min(lengths)} "
+          f"max={max(lengths)} total={sum(lengths)} vendors="
+          f"{len(model.vendors)} owi_mean_saving={mean * 100:.2f}% "
+          f"(paper: {PAPER_OWI_SAVING * 100:.1f}%) gen_s={gen_s:.3f} "
+          f"study_s={study_s:.3f} encode_s={encode_s:.3f} "
+          f"lint_s={lint_s:.3f} estimate_s={est_s:.3f} "
+          f"estimate_cuda_s={cuda_s:.3f} "
+          f"launches={ {k: v for k, v in launched.items() if v} } "
+          f"card=\"{card}\"", flush=True)
+    return launched
+
+
+def hbm_phase(seed: int, model, card: str, mib: int = 32,
+              ones_bytes: int = 1 << 30) -> dict[str, int]:
+    """Phase 7: the HBM data statistics of four seeded ``mib`` MiB corpora
+    made on the card and of a 1 GiB all-ones tensor; returns the
+    launches of the run."""
+    import torch
+
+    from repro_torch.core import encodings, hbm, traces
+    from repro_torch.kernels.bdi import ops as bdi_ops
+    from repro_torch.kernels.popcount import ref as pc_ref
+    from repro_torch.kernels.toggle import ref as tg_ref
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    bf16 = dict(device=dev, dtype=torch.bfloat16, generator=gen)
+    corpora = {
+        "bf16_weights": torch.randn(4096, mib * 128, **bf16) * 0.02,
+        "bf16_activations": torch.relu(torch.randn(4096, mib * 128, **bf16)),
+        "int8_quantized": (torch.randn(4096, mib * 256, device=dev,
+                                       generator=gen) * 30).to(torch.int8),
+        "token_ids": torch.randint(0, 32000, (mib << 18,), device=dev,
+                                   generator=gen, dtype=torch.int32),
+    }
+    vendor = model.vendors[0]
+    reset_counters()
+    for name, x in corpora.items():
+        t0 = time.perf_counter()
+        ones, togg = hbm.tensor_stats(x)
+        stats_ms = (time.perf_counter() - t0) * 1e3
+        lines = hbm._tensor_lines(x)
+        cr = float(bdi_ops.compression_ratio(lines))
+        head = x.reshape(-1).view(torch.uint8)[:400 * 64].cpu().numpy()
+        app = traces.AppSpec("tensor", 0.5, 0.6, 0.7, "random", 99)
+        tr = traces.app_trace(app, n_requests=400,
+                              lines=traces.lines_from_bytes(head))
+        owi_tr = encodings.encode_trace(tr, "owi", device=dev)
+        rep = model.estimate([tr, owi_tr], (vendor,))
+        base, owi = rep.energy_pj[:, 0].double().tolist()
+        cr_trace = float(bdi_ops.compression_ratio(torch.from_numpy(
+            traces.trace_request_lines(tr).view("int32")).to(dev)))
+        check(0.0 < ones < 1.0 and 0.0 <= togg <= 1.0 and 0.0 < cr <= 1.0
+              and owi > 0 and base > 0, f"hbm {name}: values out of range")
+        if name == "bf16_weights":      # the kernels' sums on the CPU side
+            want_ones = int(pc_ref.line_ones(lines).sum(dtype=torch.int64))
+            want_togg = int(tg_ref.line_toggles_seq(lines).sum(
+                dtype=torch.int64))
+            n = lines.shape[0]
+            check((ones, togg) == (want_ones / (n * 512),
+                                   want_togg / ((n - 1) * 512)),
+                  "hbm: tensor_stats differs from the plain sums")
+        print(f"[hbm] {name:16s} bytes={x.numel() * x.element_size()} "
+              f"ones_frac={ones:.6f} toggle_frac={togg:.6f} "
+              f"bdi_ratio={cr:.4f} bdi_ratio_trace={cr_trace:.4f} "
+              f"owi_energy_ratio={owi / base:.4f} "
+              f"tensor_stats_ms={stats_ms:.3f} card=\"{card}\"",
+              flush=True)
+    del corpora
+    ones_gib = torch.full((ones_bytes // 2,), -1, dtype=torch.int16,
+                          device=dev).view(torch.bfloat16)
+    t0 = time.perf_counter()
+    ones, togg = hbm.tensor_stats(ones_gib)
+    stats_ms = (time.perf_counter() - t0) * 1e3
+    check(ones == 1.0 and togg == 0.0,
+          f"hbm: 1 GiB of all-ones bits gives ones_frac={ones!r} "
+          f"toggle_frac={togg!r}, not exactly 1.0 and 0.0")
+    print(f"[hbm] all_ones          bytes={ones_bytes} ones_frac={ones!r} "
+          f"toggle_frac={togg!r} ({ones_bytes * 8} ones, counted in int64) "
+          f"tensor_stats_ms={stats_ms:.3f} card=\"{card}\"", flush=True)
+    del ones_gib
+    return read_counters()
+
+
+def print_result(rows: list[dict], launches: dict[str, int], card: str,
+                 device_name: str, count: int) -> None:
+    """The last three lines: the per-kernel JSON object, the card's
+    ``name, power.limit`` line and the ``{"ok": true, ...}`` line."""
+    print(json.dumps({"kernels": [
+        {"name": r["name"], "route": "cuda", "source": r["source"],
+         "replaces": r["replaces"], "launches": launches[r["name"]],
+         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+         "library_ms": r.get("library_ms")} for r in rows]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": device_name, "count": count}}))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -428,9 +693,9 @@ def main(argv=None) -> int:
 
     # phase 1: environment
     card = card_line()
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     print(f"[env] torch={torch.__version__} cuda={torch.version.cuda} "
-          f"device={name} count={torch.cuda.device_count()} "
+          f"device={device_name} count={torch.cuda.device_count()} "
           f"nvidia-smi=\"{card}\"", flush=True)
 
     # phase 2: build
@@ -456,28 +721,28 @@ def main(argv=None) -> int:
 
     # phase 4: kernels against their plain versions
     rows = kernel_phase(tb, models, card)
+    rows += line_kernel_phase(args.seed, card)
 
-    # phase 5: the main path end to end
+    # phase 5: the estimation path end to end
     launches, times = e2e_phase(tb, trs, models,
                                 {r["name"]: r["ms"] for r in rows}, card)
     profile_phase(tb, models, times["vampire", "mean"], card)
     oracle_phase(models, trs)
+    del tb
+
+    # phases 6 and 7: the encoding study and the HBM statistics
+    for path in (study_phase(args.seed, models["vampire"], card),
+                 hbm_phase(args.seed, models["vampire"], card)):
+        for name, c in path.items():
+            launches[name] += c
     for r in rows:
         check(launches[r["name"]] > 0,
-              f"kernel {r['name']} was not launched on the main path")
-        print(f"[launches] {r['name']}: {launches[r['name']]} over the 12 "
-              f"main-path estimates", flush=True)
+              f"kernel {r['name']} was not launched on a main path")
+        print(f"[launches] {r['name']}: {launches[r['name']]} over the "
+              f"main-path runs", flush=True)
 
-    print(json.dumps({"kernels": [
-        {"name": r["name"], "route": "cuda", "source": r["source"],
-         "replaces": r["replaces"], "launches": launches[r["name"]],
-         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-         "library_ms": None} for r in rows]}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}))
+    print_result(rows, launches, card, device_name,
+                 torch.cuda.device_count())
     return 0
 
 

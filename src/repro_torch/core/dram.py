@@ -13,6 +13,7 @@ CUDA kernels reinterpret the same bits as ``uint32_t``.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -144,6 +145,11 @@ def validate_low_power_transitions(cmds) -> None:
             in_sr = False
 
 
+def host_array(x) -> np.ndarray:
+    """A tensor (on any device), array or list as a host numpy array."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def lines_as_int32(data) -> torch.Tensor:
     """64-byte lines (uint32 words from numpy/lists, or an int32 tensor)
     as an int32 bit-pattern tensor."""
@@ -162,9 +168,14 @@ def make_trace(cmds, banks=None, rows=None, cols=None, data=None, dts=None,
                default_dt: int = 1) -> CommandTrace:
     """Build a CommandTrace of CPU tensors from (list, numpy or tensor)
     fields; the low-power transition rules are checked first.  Estimators
-    move traces to their own device."""
-    validate_low_power_transitions(
-        cmds.cpu().numpy() if isinstance(cmds, torch.Tensor) else cmds)
+    move traces to their own device.
+
+    The full protocol linter (``repro_torch.analysis.trace_lint``)
+    additionally runs on every construction when ``REPRO_TRACE_LINT`` is
+    set to ``warn`` or ``strict``; it is off by default here because unit
+    tests legitimately build toy traces with symbolic 1-cycle slots.  The
+    generators lint their outputs unconditionally."""
+    validate_low_power_transitions(host_array(cmds))
 
     def i32(x):
         if isinstance(x, torch.Tensor):
@@ -185,7 +196,12 @@ def make_trace(cmds, banks=None, rows=None, cols=None, data=None, dts=None,
             dat = dat[None, :].expand(n, LINE_WORDS).contiguous()
     dt = (torch.full((n,), default_dt, dtype=torch.int32) if dts is None
           else i32(dts))
-    return CommandTrace(cmd, bank, row, col, dat, dt)
+    trace = CommandTrace(cmd, bank, row, col, dat, dt)
+    mode = os.environ.get("REPRO_TRACE_LINT", "off")
+    if mode != "off":
+        from repro_torch.analysis import trace_lint
+        trace_lint.check_trace(trace, origin="make_trace", mode=mode)
+    return trace
 
 
 def pad_trace(trace: CommandTrace, length: int) -> CommandTrace:

@@ -44,6 +44,34 @@ BG_PDN_ACT = 3    # active power-down, banks open (IDD3P): i_actpd
 BG_SR = 4         # self-refresh (IDD6): i_sr
 
 
+class DataOps(NamedTuple):
+    """The two data-stream reductions of the feature pass — per-line
+    popcount and bus-XOR toggle count — as injectable callables: the seam
+    that isolates the O(N x 512 bit) work from the index bookkeeping.
+    :func:`extract_structural_features` takes one, so a feature pass can
+    run through the ``kernels/popcount`` / ``kernels/toggle`` kernels
+    (:func:`kernel_data_ops`; the parity suite pins it equal to the plain
+    default).  The batched ``impl='cuda'`` path does not come through
+    here: it fuses both reductions into one kernel over the whole batch
+    (``kernels/vampire_energy.batched_features``)."""
+    line_ones: object     # (..., 16) int32 -> (...) counts
+    line_toggles: object  # ((..., 16), (..., 16)) int32 -> (...) counts
+
+
+TORCH_DATA_OPS = DataOps(line_ones=dram.line_ones,
+                         line_toggles=dram.line_toggles)
+
+
+def kernel_data_ops() -> DataOps:
+    """The kernel-backed :class:`DataOps` (``kernels/popcount`` +
+    ``kernels/toggle``), resolved lazily so importing this module never
+    pulls in the kernel stack."""
+    from repro_torch.kernels.popcount import ops as pc_ops
+    from repro_torch.kernels.toggle import ops as tg_ops
+    return DataOps(line_ones=pc_ops.line_ones,
+                   line_toggles=tg_ops.line_toggles)
+
+
 class PowerParams(NamedTuple):
     """Everything the integrator needs, as float32 tensors.  The 16 leaves
     keep the reference's order; a stacked set carries a leading vendor
@@ -225,13 +253,18 @@ def prev_lines(data: torch.Tensor, st: StructuralState) -> torch.Tensor:
     return torch.where(st.has_prev[..., None], prev, 0)
 
 
-def extract_structural_features(trace: CommandTrace) -> StructuralFeatures:
-    """The parameter-independent feature pass."""
+def extract_structural_features(trace: CommandTrace,
+                                data_ops: DataOps = TORCH_DATA_OPS
+                                ) -> StructuralFeatures:
+    """The parameter-independent feature pass.  ``data_ops`` injects the
+    popcount/toggle reductions: plain torch by default, the kernels with
+    :func:`kernel_data_ops`."""
     st = structural_state(trace)
-    ones = dram.line_ones(trace.data)
+    ones = data_ops.line_ones(trace.data)
     toggles = torch.where(st.has_prev & st.is_rw,
-                          dram.line_toggles(trace.data,
-                                            prev_lines(trace.data, st)), 0)
+                          data_ops.line_toggles(trace.data,
+                                                prev_lines(trace.data, st)),
+                          0)
     return StructuralFeatures(st.is_rw, st.op, st.il_mode, ones,
                               toggles.to(torch.int32), st.open_before,
                               st.bg_state, st.row_ones)

@@ -4,7 +4,9 @@ Synthetic application traces from a small behavioral model — memory
 intensity, row-buffer locality, read/write mix and a byte-value
 distribution — with per-app parameters spanning the qualitative range of
 the paper's SPEC CPU2006 suite.  A port of the reference's generator: the
-same seed gives the same trace, field by field.
+same seed gives the same trace, field by field.  The same machinery turns
+arbitrary byte buffers (e.g. framework tensors) into traces, and every
+producer lints its output (``repro_torch.analysis.trace_lint``).
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ import numpy as np
 from repro_torch.core import dram
 from repro_torch.core.dram import (ACT, NOP, PDE, PDE_SLOW, PDX, PRE, PREA,
                                    RD, REF, SRX, WR, CommandTrace, TIMING,
-                                   LINE_BYTES, LINE_WORDS, N_BANKS)
+                                   LINE_BYTES, LINE_WORDS, N_BANKS,
+                                   host_array as _host)
 
 _T = TIMING
 _NEG = -(1 << 30)   # "never happened" sentinel time
@@ -27,8 +30,8 @@ class TraceBuilder:
     protocol-legal cycle by stretching the *previous* slot's ``dt`` (never
     reordering): the generator states WHAT happens, the builder owns WHEN.
 
-    It tracks the same state the reference package's protocol linter
-    checks — per-bank open rows and
+    It tracks the same state the protocol linter
+    (``repro_torch.analysis.trace_lint``) checks — per-bank open rows and
     ACT/PRE/RD/WR times, the rolling four-activate window, global
     write-to-read turnaround, and the refresh / power-down-exit lockouts —
     and is a no-op (zero stretched cycles) on schedules that are already
@@ -146,8 +149,9 @@ class TraceBuilder:
             self.emit(PRE, b, dt=_T.tRP)
         self.emit(ACT, b, r, dt=_T.tRCD)
 
-    def build(self) -> CommandTrace:
-        """Materialize the trace (on the CPU)."""
+    def build(self, origin: str | None = None) -> CommandTrace:
+        """Materialize the trace on the CPU (and lint it when ``origin`` is
+        given)."""
         n = len(self.cmds)
         data = np.zeros((n, LINE_WORDS), dtype=np.uint32)
         for i, d in enumerate(self.datas):
@@ -158,6 +162,9 @@ class TraceBuilder:
                               np.asarray(self.rows, np.int32),
                               np.asarray(self.cols, np.int32), data,
                               dts=np.asarray(self.dts, np.int32))
+        if origin is not None:
+            from repro_torch.analysis import trace_lint
+            trace_lint.check_generated(out, origin)
         return out
 
 
@@ -280,6 +287,17 @@ def sample_lines(dist_name: str, n_lines: int,
             | (b[:, 3::4] << 24)).astype(np.uint32)
 
 
+def lines_from_bytes(buf: bytes | np.ndarray) -> np.ndarray:
+    """Pack an arbitrary byte buffer into (n_lines, 16) uint32 lines."""
+    b = np.frombuffer(bytes(buf), dtype=np.uint8)
+    pad = (-len(b)) % LINE_BYTES
+    if pad:
+        b = np.concatenate([b, np.zeros(pad, dtype=np.uint8)])
+    b = b.reshape(-1, LINE_BYTES).astype(np.uint32)
+    return (b[:, 0::4] | (b[:, 1::4] << 8) | (b[:, 2::4] << 16)
+            | (b[:, 3::4] << 24)).astype(np.uint32)
+
+
 def app_trace(app: AppSpec, n_requests: int = 2000,
               lines: np.ndarray | None = None) -> CommandTrace:
     """Generate the command trace for one synthetic application.
@@ -287,8 +305,7 @@ def app_trace(app: AppSpec, n_requests: int = 2000,
     Commands are emitted through :class:`TraceBuilder`, so every request
     lands on a protocol-legal cycle (the builder stretches the previous
     slot when a back-to-back random schedule would violate e.g. tWTR or
-    tRAS).  The reference package lints the same output; this port's
-    builder does not lint yet.
+    tRAS), and the result is linted before it is returned.
     """
     rng = np.random.default_rng(np.random.SeedSequence([29, app.seed]))
     if lines is None:
@@ -359,4 +376,120 @@ def app_trace(app: AppSpec, n_requests: int = 2000,
             bld.emit(REF, dt=_T.tRFC)
             ref_anchor = bld.t
 
-    return bld.build()
+    return bld.build("traces.app_trace")
+
+
+def reschedule_refresh(trace: CommandTrace,
+                       period: int = _T.tREFI) -> CommandTrace:
+    """Re-place the PREA+REF refresh pairs of a trace so every refresh
+    interval meets the ``period`` deadline under the trace's *current* dts.
+
+    Trace transforms that stretch command slots (e.g. the encoding LUT
+    latency, Section 10.1) push the refreshes ``app_trace`` scheduled past
+    the tREFI deadline. This pass rebuilds the schedule with the
+    generator's own rule: strip the existing PREA+REF pairs, walk the
+    commands counting every slot's dt, refresh after the RD/WR that crosses
+    the deadline, and lazily re-ACT banks the moved refresh closed (with a
+    PRE first when a different row is open). RD/WR order, data, and slot
+    durations are preserved — the :class:`TraceBuilder` walk adds a NOP
+    wait slot when an inserted refresh pair needs lead time (e.g. tWR
+    before its PREA); traces without REF pass through unchanged.
+    """
+    cmd = _host(trace.cmd)
+    if not (cmd == REF).any():
+        return trace
+    data = _host(trace.data).astype(np.uint32)
+    n = len(cmd)
+
+    keep = np.ones(n, dtype=bool)
+    keep[cmd == REF] = False
+    prea_before_ref = np.flatnonzero((cmd[:-1] == dram.PREA)
+                                     & (cmd[1:] == REF))
+    keep[prea_before_ref] = False
+
+    # plain-int working lists: the walk is a Python loop, so per-element
+    # numpy scalar access would dominate its cost
+    kept = np.flatnonzero(keep)
+    cmd_l = cmd[kept].tolist()
+    bank_l = _host(trace.bank)[kept].tolist()
+    row_l = _host(trace.row)[kept].tolist()
+    col_l = _host(trace.col)[kept].tolist()
+    dt_l = _host(trace.dt)[kept].tolist()
+    data_l = [data[s] for s in kept]
+
+    bld = TraceBuilder(pad_nop=True)
+    anchor = 0
+    n_kept = len(cmd_l)
+
+    for k in range(n_kept):
+        c = cmd_l[k]
+        b = bank_l[k]
+        r = row_l[k]
+        if c == RD or c == WR:
+            # the moved refresh may have closed this bank (or left another
+            # row open): lazily re-open before replaying the access
+            bld.require_open(b, r)
+        if c == ACT:
+            if bld.open_row[b] == r:
+                continue  # bank already open at this row: redundant
+            if bld.open_row[b] >= 0:
+                bld.emit(PRE, b, dt=_T.tRP)
+        if c == PDE or c == PDE_SLOW:
+            # no refresh can be issued inside the power-down window: when
+            # dwelling through it would cross the deadline, refresh first
+            win = dt_l[k]
+            j = k + 1
+            while j < n_kept:
+                win += dt_l[j]
+                if cmd_l[j] == PDX:
+                    break
+                j += 1
+            if bld.t - anchor + win >= period:
+                if any(o >= 0 for o in bld.open_row):
+                    bld.emit(PREA, dt=_T.tRP)
+                bld.emit(REF, dt=_T.tRFC)
+                # re-state PREA so the [PREA, entry] adjacency every
+                # power-down consumer expects survives the inserted REF
+                bld.emit(PREA, dt=0)
+                anchor = bld.t
+        bld.emit(c, b, r, col_l[k], data_l[k], dt_l[k])
+        if c == SRX:
+            anchor = bld.t  # self-refresh restarted the deadline internally
+        if (c == RD or c == WR) and bld.t - anchor >= period:
+            bld.emit(PREA, dt=_T.tRP)
+            bld.emit(REF, dt=_T.tRFC)
+            anchor = bld.t
+
+    return bld.build("traces.reschedule_refresh")
+
+
+def refresh_deadline_overshoot(trace: CommandTrace,
+                               period: int = _T.tREFI) -> int:
+    """Worst-case cycles by which any refresh interval of the trace exceeds
+    the scheduling deadline (counted exactly as ``app_trace`` counts it: the
+    PREA+REF slots start a new interval). <= the final slot's dt when the
+    schedule conforms; large when refreshes have drifted."""
+    cmd = _host(trace.cmd)
+    dt = _host(trace.dt).astype(np.int64)
+    worst = 0
+    since = 0
+    for i in range(len(cmd)):
+        if cmd[i] == REF:
+            worst = max(worst, since - period)
+            since = 0
+            continue
+        if cmd[i] == dram.SRX:
+            since = 0  # self-refresh maintained the cells internally
+            continue
+        if cmd[i] == dram.PREA and i + 1 < len(cmd) and cmd[i + 1] == REF:
+            continue  # the refresh pair's own slots open the next interval
+        since += int(dt[i])
+    return int(max(worst, since - period))
+
+
+def trace_request_lines(trace: CommandTrace) -> np.ndarray:
+    """The (n_rw, 16) uint32 data lines of the RD/WR commands in a
+    trace."""
+    cmd = _host(trace.cmd)
+    mask = (cmd == RD) | (cmd == WR)
+    return _host(trace.data).astype(np.uint32)[mask]

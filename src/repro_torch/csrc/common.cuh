@@ -1,5 +1,6 @@
-// Shared constants of the estimation kernels (DDR3L-800 command codes and
-// timing, the per-command state packing, the reduction geometry).
+// Shared constants and helpers of the kernels (DDR3L-800 command codes and
+// timing, the per-command state packing, the reduction geometry, and the
+// per-line bit counts of the line kernels).
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,6 +62,21 @@ __device__ __forceinline__ void cell_sums(const float* scharge,
   if (threadIdx.x < N_CELLS)
     out[c] = ((squarter[c] + squarter[N_CELLS + c]) + squarter[2 * N_CELLS + c])
              + squarter[3 * N_CELLS + c];
+}
+
+// Per-line bit counts: four threads share a 64-byte line, each holding one
+// 16-byte uint4 of it; popc4 counts one quarter, quad_sum adds the four
+// quarters across the lanes (every lane must take part).
+__device__ __forceinline__ int popc4(uint4 v) {
+  return __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+}
+__device__ __forceinline__ uint4 xor4(uint4 a, uint4 b) {
+  return make_uint4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
+}
+__device__ __forceinline__ int quad_sum(int v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
 }
 
 }  // namespace repro

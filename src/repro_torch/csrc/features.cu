@@ -26,16 +26,12 @@ features_kernel(const uint4* __restrict__ data, const uint4* __restrict__ prev,
   int o = 0, t = 0;
   if (line < m) {
     const uint4 d = data[tid];
-    const uint4 p = prev[tid];
-    o = __popc(d.x) + __popc(d.y) + __popc(d.z) + __popc(d.w);
-    t = __popc(d.x ^ p.x) + __popc(d.y ^ p.y) + __popc(d.z ^ p.z) +
-        __popc(d.w ^ p.w);
+    o = repro::popc4(d);
+    t = repro::popc4(repro::xor4(d, prev[tid]));
   }
   // every lane takes part in the shuffles; the 4 lanes of a line share a warp
-  o += __shfl_xor_sync(0xffffffffu, o, 1);
-  o += __shfl_xor_sync(0xffffffffu, o, 2);
-  t += __shfl_xor_sync(0xffffffffu, t, 1);
-  t += __shfl_xor_sync(0xffffffffu, t, 2);
+  o = repro::quad_sum(o);
+  t = repro::quad_sum(t);
   if (line < m && (tid & 3) == 0) {
     ones[line] = (float)o;
     togg[line] = (float)t * tmask[line];

@@ -46,6 +46,16 @@ SIGNATURES = {
         f"repro_{kind}_charge{sfx}": [_P] * 8 + [_P, _I32, _I32, _I32, _P]
         for kind in ("micron", "drampower") for sfx in ("", "_surface")
     },
+    "line_bits": {
+        "repro_line_ones": [_P, _P, _I64, _P],
+        "repro_line_toggles": [_P, _P, _P, _I64, _P],
+    },
+    "byte_lut": {
+        "repro_apply_lut_lines": [_P, _P, _P, _I64, _P],
+    },
+    "bdi": {
+        "repro_bdi_sizes": [_P, _P, _P, _I64, _P],
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

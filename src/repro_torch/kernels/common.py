@@ -44,6 +44,14 @@ def require_cuda(tensors: dict, dtypes: dict, shapes: dict) -> torch.device:
     return dev
 
 
+def require_aligned(**tensors) -> None:
+    """Check that every tensor starts on a 16-byte boundary (the line
+    kernels load 16-byte ``uint4`` vectors)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
 def on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 

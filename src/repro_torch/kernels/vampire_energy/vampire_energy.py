@@ -24,8 +24,8 @@ from repro_torch.core.dram import (ACT, LINE_BITS, RD, REF, TIMING, WR,
                                    popcount_u32)
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (cell_index, on_cpu, partials,
-                                       reduce_charge, require_cuda,
-                                       sum_partials)
+                                       reduce_charge, require_aligned,
+                                       require_cuda, sum_partials)
 
 # layout of one vendor's packed parameter row (see ops.pack_param_blocks
 # and P_* in vampire_energy.cu)
@@ -58,8 +58,7 @@ def batched_features(data: torch.Tensor, prev: torch.Tensor,
         {"data": data, "prev": prev, "tmask": tmask},
         {"data": torch.int32, "prev": torch.int32, "tmask": torch.float32},
         {"data": (m, 16), "prev": (m, 16), "tmask": (m,)})
-    if data.data_ptr() % 16 or prev.data_ptr() % 16:
-        raise ValueError("data and prev must be 16-byte aligned")
+    require_aligned(data=data, prev=prev)
     ones = torch.empty(m, dtype=torch.float32, device=dev)
     togg = torch.empty(m, dtype=torch.float32, device=dev)
     lib = build.library("features")

@@ -1,0 +1,76 @@
+"""``chip_smoke.py``'s line-kernel, study and HBM phases rehearsed on the
+CPU at a tiny size: the same code that runs on the card, with the CUDA
+event timers and the device synchronisation stubbed, and the launch
+counts (which CPU tensors never raise) read as launched."""
+import json
+import pathlib
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture()
+def smoke(monkeypatch):
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+    monkeypatch.setattr(chip_smoke, "event_ms",
+                        lambda fn, iters, flush=None: (fn(), 1.0)[1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    real = chip_smoke.read_counters
+    monkeypatch.setattr(chip_smoke, "read_counters", lambda: {
+        k: max(v, 1) for k, v in real().items()})
+    return chip_smoke
+
+
+@pytest.fixture()
+def cpu_model(smoke):
+    from repro_torch.core import model_api
+    return model_api.load_estimator(str(smoke.MODEL_FILE), device="cpu")
+
+
+def test_line_kernel_phase_rows(smoke, capsys):
+    rows = smoke.line_kernel_phase(0, "cpu", device="cpu", shape=(64, 256))
+    assert [r["name"] for r in rows] == ["line_ones", "line_toggles",
+                                        "bdi_sizes", "apply_lut_lines"]
+    assert all(r["bound"][1] == "bytes" for r in rows)
+    assert [r["library_ms"] is None for r in rows] == [True] * 3 + [False]
+    assert set(rows[0]) >= {"source", "replaces", "ms", "plain_ms", "err"}
+    assert capsys.readouterr().out.count("[kernel]") == 4
+
+
+def test_study_and_hbm_phases(smoke, cpu_model, monkeypatch, capsys):
+    from repro_torch.core import traces
+    monkeypatch.setattr(traces, "SPEC_APPS", traces.SPEC_APPS[6:8])
+    launched = smoke.study_phase(0, cpu_model, "cpu", n_requests=200)
+    assert set(launched) == set(smoke.counters())
+    smoke.hbm_phase(0, cpu_model, "cpu", mib=1, ones_bytes=1 << 16)
+    out = capsys.readouterr().out
+    assert out.count("[study]") == 3 and "owi_mean_saving" in out
+    assert out.count("[hbm]") == 5
+    assert "ones_frac=1.0 toggle_frac=0.0" in out
+
+
+def test_exits_without_a_card(smoke, monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert smoke.main([]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+    assert "chip_smoke" in sys.modules
+
+
+def test_result_lines(smoke, capsys):
+    rows = smoke.line_kernel_phase(0, "cpu", device="cpu", shape=(64, 256))
+    capsys.readouterr()
+    launches = {r["name"]: 3 for r in rows}
+    smoke.print_result(rows, launches, "Card X, 700.00 W", "Card X", 1)
+    kernels, card, last = capsys.readouterr().out.splitlines()
+    assert card == "Card X, 700.00 W"
+    assert json.loads(last) == {"ok": True, "device": {
+        "platform": "gpu", "kind": "Card X", "count": 1}}
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    entries = json.loads(kernels)["kernels"]
+    assert [set(e) for e in entries] == [keys] * 4
+    assert all(e["launches"] == 3 and e["route"] == "cuda" for e in entries)

@@ -125,3 +125,47 @@ def test_cuda_impl_matches_vectorized_on_the_card(setup, kind):
         b = est.estimate(tb, mode=mode, impl="vectorized", **kw)
         for la, lb in zip(a, b):
             _close(la, lb)
+
+
+def _lines(device, n=4099, seed=7):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randint(-2**31, 2**31 - 1, (n, 16), generator=gen,
+                      dtype=torch.int32)
+    x[:64] &= 0x00FF00FF          # compressible and skewed lines
+    x[64:80] = 0
+    x[80:96] = -1
+    return x.to(device)
+
+
+def test_line_kernels_are_bit_exact(device):
+    from repro_torch.kernels.bdi import bdi, ref as bdi_ref
+    from repro_torch.kernels.byte_lut import byte_lut, ref as lut_ref
+    from repro_torch.kernels.popcount import popcount, ref as pc_ref
+    from repro_torch.kernels.toggle import ops as tops, ref as tg_ref, toggle
+    x = _lines(device)
+    prev = x.roll(5, 0).contiguous()
+    lut = torch.randperm(256, generator=torch.Generator().manual_seed(3)
+                         ).to(torch.int32).to(device)
+    cases = [
+        (popcount.line_ones, (x,), pc_ref.line_ones(x)),
+        (toggle.line_toggles, (x, prev), tg_ref.line_toggles(x, prev)),
+        (byte_lut.apply_lut_lines, (x, lut), lut_ref.apply_lut_lines(x, lut)),
+        (bdi.bdi_sizes, (x,), bdi_ref.bdi_sizes(x)),
+    ]
+    for fn, args, want in cases:
+        before = fn.launches
+        got = fn(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1, fn.__name__
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g, w), fn.__name__
+    seq = tops.line_toggles_seq(x)
+    assert int(seq[0]) == 0
+    assert torch.equal(seq, tg_ref.line_toggles_seq(x))
+
+
+def test_tensor_stats_on_the_card_matches_the_cpu(device):
+    from repro_torch.core import hbm
+    x = torch.randn(512, 1024).to(torch.bfloat16)
+    assert hbm.tensor_stats(x.to(device)) == hbm.tensor_stats(x)

@@ -1,11 +1,13 @@
 """Each kernel's plain PyTorch version against the reference's Pallas
 kernel run as the reference's own tests run it on the CPU (interpret
-mode): the feature kernel bit for bit, the VAMPIRE and baseline charge
-kernels (mean, surface, distribution) at rtol 1e-5.  Also: the wrappers
-take the plain version only for CPU tensors, count no launch there, and
-refuse to launch on anything that is not a CUDA tensor."""
+mode): the feature, popcount, toggle, byte-LUT and BDI kernels bit for
+bit, the VAMPIRE and baseline charge kernels (mean, surface,
+distribution) at rtol 1e-5.  Also: the wrappers take the plain version
+only for CPU tensors, count no launch there, and refuse to launch on
+anything that is not a CUDA tensor."""
 import pathlib
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -14,14 +16,31 @@ from repro.core import dram as rdram
 from repro.core import estimate_batch as rbatch
 from repro.core import idd_loops, model_api as rma
 from repro.core import traces as rtraces
+from repro.core import encodings as renc
 from repro.kernels.baseline_energy import ops as r_bops
+from repro.kernels.bdi import ops as r_bdi_ops
+from repro.kernels.bdi.bdi import bdi_sizes_pallas
+from repro.kernels.byte_lut import ref as r_lref
+from repro.kernels.byte_lut.byte_lut import byte_lut_pallas
+from repro.kernels.popcount.popcount import line_ones_pallas
+from repro.kernels.toggle import ops as r_tops
+from repro.kernels.toggle.toggle import line_toggles_pallas
 from repro.kernels.vampire_energy import ops as r_vops
 from repro.kernels.vampire_energy import vampire_energy as r_ve
 from repro_torch.core import dram as pdram
 from repro_torch.core import estimate_batch as pbatch
 from repro_torch.core import model_api as pma
 from repro_torch.kernels import build, common
+from repro_torch.core import encodings as penc
 from repro_torch.kernels.baseline_energy import baseline_energy as p_be
+from repro_torch.kernels.bdi import bdi as p_bdi
+from repro_torch.kernels.bdi import ops as p_bdi_ops
+from repro_torch.kernels.byte_lut import byte_lut as p_lut
+from repro_torch.kernels.byte_lut import ops as p_lut_ops
+from repro_torch.kernels.popcount import ops as p_pc_ops
+from repro_torch.kernels.popcount import popcount as p_pc
+from repro_torch.kernels.toggle import ops as p_tg_ops
+from repro_torch.kernels.toggle import toggle as p_tg
 from repro_torch.kernels.baseline_energy import ops as p_bops
 from repro_torch.kernels.vampire_energy import ops as p_vops
 from repro_torch.kernels.vampire_energy import ref as p_vref
@@ -187,7 +206,8 @@ def test_build_names_libraries_by_content_and_needs_nvcc(monkeypatch):
     assert a == build._target("features")
     assert a != build._target("vampire_energy")
     assert set(build.SIGNATURES) == {"features", "vampire_energy",
-                                     "baseline_energy"}
+                                     "baseline_energy", "line_bits",
+                                     "byte_lut", "bdi"}
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     monkeypatch.setattr(build.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc"):
@@ -215,3 +235,191 @@ def test_plain_reduction_layouts():
     part = common.partials(2, 3, 2048 + 1, True, "cpu")
     assert part.shape == (2, 3, 3, 64)
     assert common.sum_partials(torch.ones(2, 3, 3)).shape == (3, 2)
+
+
+# ---------------------------------------------------------------------------
+# The line kernels: popcount, toggle, byte LUT, BDI
+# ---------------------------------------------------------------------------
+def _t(lines_u32):
+    return torch.from_numpy(np.ascontiguousarray(lines_u32).view(np.int32))
+
+
+def _line_sets():
+    rng = np.random.default_rng(41)
+    rand = rng.integers(0, 1 << 32, size=(1500, 16),
+                        dtype=np.uint64).astype(np.uint32)
+    return {"random": rand, "zeros": np.zeros((37, 16), np.uint32),
+            "ones": np.full((37, 16), 0xFFFFFFFF, np.uint32),
+            "mixed": np.concatenate([rand[:20], np.zeros((5, 16), np.uint32),
+                                     np.full((5, 16), 0xFFFFFFFF, np.uint32),
+                                     rand[20:41]])}
+
+
+@pytest.mark.parametrize("which", ["random", "zeros", "ones", "mixed"])
+def test_popcount_and_toggle_plain_versions_match_pallas(which):
+    lines = _line_sets()[which]
+    prev = np.roll(lines, 3, axis=0) ^ np.uint32(0x0F0F0F0F)
+    before = (p_pc.line_ones.launches, p_tg.line_toggles.launches)
+    ones = p_pc_ops.line_ones(_t(lines))
+    togg = p_tg_ops.line_toggles(_t(lines), _t(prev))
+    seq = p_tg_ops.line_toggles_seq(_t(lines))
+    assert (p_pc.line_ones.launches, p_tg.line_toggles.launches) == before
+    assert ones.dtype == togg.dtype == seq.dtype == torch.int32
+    np.testing.assert_array_equal(
+        ones.numpy(), np.asarray(line_ones_pallas(lines, interpret=True)))
+    np.testing.assert_array_equal(
+        togg.numpy(),
+        np.asarray(line_toggles_pallas(lines, prev, interpret=True)))
+    np.testing.assert_array_equal(
+        seq.numpy(), np.asarray(r_tops.line_toggles_seq(lines)))
+    assert int(seq[0]) == 0
+
+
+def test_line_ops_keep_leading_axes():
+    lines = _line_sets()["random"][:60]
+    x = _t(lines).reshape(3, 20, 16)
+    np.testing.assert_array_equal(
+        p_pc_ops.line_ones(x).numpy().reshape(-1),
+        np.asarray(line_ones_pallas(lines, interpret=True)))
+    assert p_tg_ops.line_toggles(x, x.flip(0)).shape == (3, 20)
+    assert p_tg_ops.line_toggles_seq(_t(lines[:1])).tolist() == [0]
+    assert p_tg_ops.line_toggles_seq(_t(lines[:0])).shape == (0,)
+
+
+@pytest.mark.parametrize("table", ["permutation", "optimized"])
+def test_byte_lut_plain_version_matches_pallas(table):
+    rng = np.random.default_rng(43)
+    lines = rng.integers(0, 1 << 32, size=(300, 16),
+                         dtype=np.uint64).astype(np.uint32)
+    lines[:100] &= np.uint32(0x0303FF00)          # a skewed histogram
+    if table == "permutation":
+        lut = rng.permutation(256).astype(np.int32)
+    else:
+        lut = renc.optimized_lut(renc.byte_histogram(lines)).astype(np.int32)
+        np.testing.assert_array_equal(
+            lut, penc.optimized_lut(penc.byte_histogram(_t(lines))))
+    b = r_lref.words_to_bytes(lines).reshape(-1)
+    want = np.asarray(r_lref.bytes_to_words(
+        byte_lut_pallas(b, lut, interpret=True).reshape(-1, 64)))
+    before = p_lut.apply_lut_lines.launches
+    got = p_lut_ops.apply_lut_lines(_t(lines), lut)
+    assert p_lut.apply_lut_lines.launches == before
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  renc.apply_lut(lines, lut))
+
+
+def _from_u64(vals):
+    return np.asarray(vals, np.uint64).reshape(-1, 8).view(
+        np.uint32).reshape(-1, 16)
+
+
+def _from_u16(vals):
+    return np.asarray(vals, np.uint16).reshape(-1, 32).view(
+        np.uint32).reshape(-1, 16)
+
+
+def _line8(base, deltas):
+    return _from_u64([(base + d) % (1 << 64) for d in deltas])
+
+
+def _line4(vals):
+    return np.asarray([v % (1 << 32) for v in vals], np.uint32).reshape(1, 16)
+
+
+def bdi_corpus(rng):
+    """Lines for each of the 11 schemes, delta edges at +-2^7, +-2^15 and
+    +-2^31, 8-byte values wrapping across 2^63 and 2^64, 4-byte values
+    around INT32_MIN / INT32_MAX, and lines where several schemes fit."""
+    rows = [rng.integers(0, 1 << 32, size=(16, 16),
+                         dtype=np.uint64).astype(np.uint32),
+            np.zeros((2, 16), np.uint32)]
+    b64 = int(rng.integers(1, 1 << 62)) * 2 + 1
+    rows.append(_line8(b64, [0] * 8))                                # rep8
+    for lim in (1 << 7, 1 << 15, 1 << 31):                           # b8dX
+        for ds in ([0, -lim, lim - 1, 3, -1, 0, 2, 1],
+                   [0, lim, 1, 2, 3, 4, 5, 6],
+                   [0, -lim - 1, 1, 2, 3, 4, 5, 6]):
+            rows.append(_line8(b64, ds))
+    rows.append(_line8((1 << 63) - 5, [0, 10, 3, 4, 7, 1, 2, 9]))
+    rows.append(_line8((1 << 64) - 4, [0, 4, 5, -6, 100, 1, 2, 3]))
+    rows.append(_line8(1 << 63, [0, -1, -128, 127, 5, 0, 1, 2]))
+    rows.append(_line8((1 << 63) - 1, [0, 1, 2, 3, 1 << 31, 0, 0, 0]))
+    i32max, i32min = (1 << 31) - 1, -(1 << 31)
+    rows.append(_line4([i32max] + [i32min] * 15))     # wraps to +1 in int32
+    rows.append(_line4([i32min] + [i32max] * 15))
+    rows.append(_line4([i32min + k for k in range(16)]))
+    rows.append(_line4([i32max - k for k in range(16)]))
+    rows.append(_line4([i32max - 100 + 300 * k for k in range(16)]))
+    b32 = 0x12345678
+    rows.append(_line4([b32] * 16))                                  # rep4
+    for lim in (1 << 7, 1 << 15):                                    # b4dX
+        for ds in ([0, -lim, lim - 1] + [1] * 13, [0, lim] + [2] * 14,
+                   [0, -lim - 1] + [3] * 14):
+            rows.append(_line4([b32 + d for d in ds]))
+    rows.append(_from_u16([0xBEEF] * 32))                            # rep2
+    rows.append(_from_u16([0x7FFF] + [0x8000] * 31))
+    for ds in ([0, -128, 127] + [5] * 29, [0, 128] + [1] * 30):      # b2d1
+        rows.append(_from_u16([(0x1234 + d) % (1 << 16) for d in ds]))
+    # ties: several schemes fit, the smallest wins
+    rows.append(_from_u16([0xFFFF, 0x0000] * 16))           # rep4 over b8d1
+    rows.append(_line4([0x01010101] * 16))                  # rep2 over rep4
+    rows.append(_line8(0, range(8)))                        # b8d1 over b4d1
+    rows.append(np.full((1, 16), 0xFFFFFFFF, np.uint32))
+    rows.append(rng.integers(0, 5, size=(4, 16)).astype(np.uint32)
+                + np.uint32(0x7FFFFFF0))
+    return np.concatenate(rows).astype(np.uint32)
+
+
+def test_bdi_plain_version_matches_pallas_sizes_and_schemes():
+    lines = bdi_corpus(np.random.default_rng(47))
+    r_sizes, r_schemes = bdi_sizes_pallas(renc.words_to_bytes(
+        lines).astype(np.int32), interpret=True)
+    before = p_bdi.bdi_sizes.launches
+    sizes, schemes = p_bdi_ops.bdi_sizes(_t(lines))
+    assert p_bdi.bdi_sizes.launches == before
+    np.testing.assert_array_equal(sizes.numpy(), np.asarray(r_sizes))
+    np.testing.assert_array_equal(schemes.numpy(), np.asarray(r_schemes))
+    assert set(schemes.tolist()) == set(p_bdi.SCHEME_SIZES)   # all 11
+    assert all(p_bdi.SCHEME_SIZES[k] == v for k, v in
+               zip(schemes.tolist(), sizes.tolist()))
+    # the port's own offline encoder, and the reference's
+    p_lines, p_sizes = penc.bdi_encode_lines(_t(lines))
+    r_lines, r_sizes_off = renc.bdi_encode_lines(lines)
+    np.testing.assert_array_equal(sizes.numpy(), p_sizes)
+    np.testing.assert_array_equal(p_sizes, r_sizes_off)
+    np.testing.assert_array_equal(p_lines, r_lines)
+
+
+def test_bdi_compression_ratio_matches_reference():
+    rng = np.random.default_rng(53)
+    lines = np.concatenate([bdi_corpus(rng), rng.integers(
+        0, 300, size=(200, 16)).astype(np.uint32)])
+    want = float(r_bdi_ops.compression_ratio(jnp.asarray(lines)))
+    got = p_bdi_ops.compression_ratio(_t(lines))
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(float(got), want, rtol=1e-6)
+
+
+def test_kernel_data_ops_match_the_plain_feature_pass(batches):
+    from repro_torch.core.energy_model import (extract_structural_features,
+                                               kernel_data_ops)
+    _, ptb = batches
+    a = extract_structural_features(ptb.trace)
+    b = extract_structural_features(ptb.trace, data_ops=kernel_data_ops())
+    for name, x, y in zip(a._fields, a, b):
+        assert torch.equal(x, y), name
+    tr = _bridge(rtraces.app_trace(rtraces.SPEC_APPS[2], n_requests=60))
+    c = extract_structural_features(tr, data_ops=kernel_data_ops())
+    assert torch.equal(c.ones, extract_structural_features(tr).ones)
+
+
+def test_line_kernel_wrappers_refuse_non_cuda_tensors():
+    meta = torch.zeros(4, 16, dtype=torch.int32, device="meta")
+    lut = torch.zeros(256, dtype=torch.int32, device="meta")
+    for call in (lambda: p_pc.line_ones(meta),
+                 lambda: p_tg.line_toggles(meta, meta),
+                 lambda: p_lut.apply_lut_lines(meta, lut),
+                 lambda: p_bdi.bdi_sizes(meta)):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()

@@ -31,9 +31,19 @@ itself).  Phases, each printing its numbers:
    the mean OWI saving beside the paper's 12.2%;
 7. ``[hbm]``: ``tensor_stats``, BDI ``compression_ratio`` and the OWI
    energy ratio of four seeded 32 MiB tensor corpora made on the card,
-   and ``tensor_stats`` of a 1 GiB all-ones tensor (exactly 1.0).
+   and ``tensor_stats`` of a 1 GiB all-ones tensor (exactly 1.0);
+8. ``[serve]``: the LM serving entry point (``repro_torch.launch.serve.run``)
+   on qwen2.5-3b at full width (36 layers, random bf16 weights from
+   ``--seed``): batch 4, prompt 2048, 32 greedy decode tokens, the power
+   report through the estimation service with ``impl='cuda'``; then
+   teacher forcing (decode after a prefill of 2047 tokens against a
+   prefill of 2048), a prefill with the plain attention against the
+   kernel's, and the power report's ``'cuda'`` energies against
+   ``'vectorized'``.  The flash-attention kernel (its ``[kernel]`` row
+   at the prefill shape, with a ragged and a float32 case) must be
+   launched once per layer of the prefill.
 
-Each main path (5, 6, 7) runs with the kernels' launch counts set to 0
+Each main path (5, 6, 7, 8) runs with the kernels' launch counts set to 0
 just before it and read just after; every kernel must have been launched.
 Any failed check exits non-zero.  The last lines are one JSON object of
 per-kernel numbers, the card's ``name, power.limit`` line, and
@@ -55,6 +65,7 @@ sys.path.insert(0, str(ROOT / "src"))
 MODEL_FILE = ROOT / "src" / "repro_torch" / "data" / "vampire_quickfit_v2.npz"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 rate outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
 RTOL = 1e-5                   # the reference's energy bar (test_impl_registry)
 SPIN_CYCLES = 200_000         # ~0.1 ms of device clock before a timed window
 MODES = ("mean", "range", "distribution", "surface")
@@ -141,11 +152,13 @@ def wall_ms(fn, reps: int) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def bound(nbytes: float, nops: float) -> tuple[float, str]:
+def bound(nbytes: float, nops: float,
+          ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     """The least time the card could take: bytes over the memory rate or
-    float32 operations over the peak rate, whichever is larger (ms)."""
+    operations over the peak rate of their type (float32 by default),
+    whichever is larger (ms)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -336,17 +349,105 @@ def line_kernel_phase(seed: int, card: str, device="cuda",
     return rows
 
 
+FLASH_ATOL = {"bfloat16": 2e-2, "float32": 2e-5}   # the reference's bars
+
+
+def attention_flops(bh: int, sq: int, skv: int, d: int, causal: bool) -> int:
+    """Operations of Q K^T and P V over the (query, key) pairs the inputs
+    need: every pair, or for causal attention the pairs with key <= query
+    (top-left aligned)."""
+    if causal:
+        pairs = sum(min(i + 1, skv) for i in range(sq))
+    else:
+        pairs = sq * skv
+    return 4 * bh * pairs * d
+
+
+def flash_kernel_phase(seed: int, card: str, device="cuda",
+                       shape=(4, 16, 2, 2048, 128),
+                       ragged: int = 2000) -> list[dict]:
+    """Phase 4, third part: the flash-attention kernel at the serving
+    prefill shape ``(B, H, Kh, S, D)`` (qwen2.5-3b, batch 4, prompt 2048:
+    q ``(B*H, S, D)``, k and v ``(B*Kh, S, D)``), causal bf16, against its
+    plain version at atol 2e-2 and timed beside its bound and
+    ``scaled_dot_product_attention``; then a ragged length (S =
+    ``ragged``) in bf16 and the prefill shape in float32 (atol 2e-5),
+    checked only."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    b, h, kh, sq, d = shape
+    bh, bh_kv, skv = b * h, b * kh, sq
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
+
+    def inputs(s_q, s_kv, dtype):
+        return tuple(torch.randn(*dims, generator=gen, device=device,
+                                 dtype=dtype)
+                     for dims in ((bh, s_q, d), (bh_kv, s_kv, d),
+                                  (bh_kv, s_kv, d)))
+
+    errs = {}
+    for name, s_q, s_kv, dtype in (
+            ("prefill", sq, skv, torch.bfloat16),
+            ("ragged", ragged, ragged, torch.bfloat16),
+            ("float32", sq, skv, torch.float32)):
+        q, k, v = inputs(s_q, s_kv, dtype)
+        got = fa.flash_attention(q, k, v, causal=True)
+        want = fa_ref.attention_ref(q, k, v, causal=True)
+        atol = FLASH_ATOL[str(dtype).split(".")[-1]]
+        err = float((got.float() - want.float()).abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= atol,
+              f"flash_attention {name} (Sq={s_q}, Skv={s_kv}, {dtype}): max "
+              f"abs err {err:.3e} beyond atol {atol}")
+        errs[name] = err
+        del got, want
+    q, k, v = inputs(sq, skv, torch.bfloat16)
+    q4 = q.view(b, h, sq, d)
+    k4 = k.view(b, kh, skv, d).repeat_interleave(h // kh, dim=1)
+    v4 = v.view(b, kh, skv, d).repeat_interleave(h // kh, dim=1)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    row = dict(
+        name="flash_attention", fn=lambda: fa.flash_attention(q, k, v),
+        plain=lambda: fa_ref.attention_ref(q, k, v),
+        library=lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                       is_causal=True),
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:73",
+        err=errs["prefill"],
+        bound=bound(nbytes, attention_flops(bh, sq, skv, d, True),
+                    BF16_OPS_PER_S))
+    flush_buf = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+    flush = flush_buf.zero_
+    row["ms"] = event_ms(row["fn"], 20, flush)
+    row["plain_ms"] = event_ms(row["plain"], 3, flush)
+    row["library_ms"] = event_ms(row["library"], 20, flush)
+    print(f"[kernel] flash_attention: ms={row['ms']:.4f} "
+          f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound'][0]:.4f} "
+          f"({row['bound'][1]}) share_of_bound="
+          f"{row['bound'][0] / row['ms']:.3f} library_ms="
+          f"{row['library_ms']:.4f} (sdpa, k/v expanded) max_abs_err="
+          f"{errs['prefill']:.3e} ragged_err={errs['ragged']:.3e} "
+          f"f32_err={errs['float32']:.3e} shape=(BH={bh}, S={sq}, "
+          f"BH_kv={bh_kv}, D={d}, causal, bf16) card=\"{card}\"",
+          flush=True)
+    del flush_buf, q4, k4, v4
+    return [row]
+
+
 def counters():
     from repro_torch.kernels.baseline_energy import baseline_energy as be
     from repro_torch.kernels.bdi import bdi
     from repro_torch.kernels.byte_lut import byte_lut
+    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.popcount import popcount
     from repro_torch.kernels.toggle import toggle
     from repro_torch.kernels.vampire_energy import vampire_energy as ve
     wrappers = [ve.batched_features, ve.vampire_charge,
                 ve.vampire_charge_surface, *be.WRAPPERS.values(),
                 popcount.line_ones, toggle.line_toggles,
-                byte_lut.apply_lut_lines, bdi.bdi_sizes]
+                byte_lut.apply_lut_lines, bdi.bdi_sizes, fa.flash_attention]
     return {w.__name__: w for w in wrappers}
 
 
@@ -452,36 +553,46 @@ def e2e_phase(tb, trs, models, kernel_ms: dict[str, float], card: str):
     return total, times
 
 
-def profile_phase(tb, models, estimate_ms: float, card: str) -> None:
-    """Where one ``vampire`` mean estimate spends its device time: every
-    kernel the profiler records, summed by name, against the host-clock
-    time of the same call (the rest is the device's idle share)."""
+def device_profile(fn, what: str, wall: float, card: str,
+                   tag: str = "[profile]", top: int = 8) -> None:
+    """Where one call of ``fn`` spends its device time: every kernel the
+    profiler records, summed by name, against ``wall``, the host-clock ms
+    of the same call measured without the profiler (the rest is the
+    device's idle share)."""
     import collections
 
     import torch
     from torch.profiler import ProfilerActivity, profile
-    est = models["vampire"]
-    est.estimate(tb, impl="cuda")
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        est.estimate(tb, impl="cuda")
+        fn()
         torch.cuda.synchronize()
     by_name = collections.Counter()
+    launches = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] += e.device_time_total / 1e3
+            launches += 1
     busy = sum(by_name.values())
     if not by_name:
-        print("[profile] vampire/mean: device time not measured (the "
-              "profiler recorded no kernel)", flush=True)
+        print(f"{tag} {what}: device time not measured (the profiler "
+              "recorded no kernel)", flush=True)
         return
-    print(f"[profile] vampire/mean: device_busy_ms={busy:.3f} of "
-          f"estimate_ms={estimate_ms:.3f} (idle share "
-          f"{max(0.0, 1 - busy / estimate_ms):.3f}) kernels={len(by_name)} "
-          f"card=\"{card}\"", flush=True)
-    for name, ms in by_name.most_common(8):
-        print(f"[profile]   {ms:8.3f} ms  {name[:90]}", flush=True)
+    print(f"{tag} {what}: device_busy_ms={busy:.3f} of wall_ms={wall:.3f} "
+          f"(idle share {max(0.0, 1 - busy / wall):.3f}) "
+          f"device_ops={launches} distinct={len(by_name)} card=\"{card}\"",
+          flush=True)
+    for name, ms in by_name.most_common(top):
+        print(f"{tag}   {ms:8.3f} ms  {name[:90]}", flush=True)
+
+
+def profile_phase(tb, models, estimate_ms: float, card: str) -> None:
+    """The device time of one ``vampire`` mean estimate."""
+    est = models["vampire"]
+    device_profile(lambda: est.estimate(tb, impl="cuda"), "vampire/mean",
+                   estimate_ms, card)
 
 
 def oracle_phase(models, trs) -> None:
@@ -659,6 +770,147 @@ def hbm_phase(seed: int, model, card: str, mib: int = 32,
     return read_counters()
 
 
+def vocab_bar(got, want, vocab: int) -> tuple[float, float]:
+    """Max abs difference of two logit arrays over the real vocabulary, and
+    the reference's teacher-forcing bar for it (0.15 std + 0.05,
+    ``tests/test_models.py``)."""
+    g, w = got[..., :vocab].double(), want[..., :vocab].double()
+    return (float((g - w).abs().max()),
+            0.15 * (float(w.std()) + 1e-6) + 0.05)
+
+
+def prefill_work(cfg, batch: int, seq: int, weight_bytes: int
+                 ) -> tuple[float, str]:
+    """The least time one prefill could take: the bf16 matrix products of
+    every layer over ``batch * seq`` tokens, causal attention, and the
+    last position's unembedding, against reading every weight once."""
+    d, f, dh = cfg.d_model, cfg.d_ff, cfg.d_head
+    layer = (d * (cfg.n_heads + 2 * cfg.n_kv) * dh + cfg.n_heads * dh * d
+             + 3 * d * f)
+    ops = (2 * batch * seq * layer * cfg.n_layers
+           + cfg.n_layers * attention_flops(batch * cfg.n_heads, seq, seq,
+                                            dh, True)
+           + 2 * batch * d * cfg.vocab_padded)
+    return bound(weight_bytes, ops, BF16_OPS_PER_S)
+
+
+def serve_phase(seed: int, card: str, device="cuda", arch="qwen2.5-3b",
+                smoke=False, batch=4, prompt_len=2048,
+                decode_tokens=32) -> dict[str, int]:
+    """Phase 8: the serving entry point at full width through the entry point a
+    user calls, then its checks on weights drawn again from the same seed.
+    Returns the launches of the ``run``."""
+    import dataclasses
+    import functools
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import LM
+    cfg = registry.get_config(arch, smoke=smoke)
+    job = serve.ServeJob(arch=arch, smoke=smoke, batch=batch,
+                         prompt_len=prompt_len, decode_tokens=decode_tokens,
+                         seed=seed, power_report=True, power_impl="cuda",
+                         device=device)
+    reset_counters()
+    t0 = time.perf_counter()
+    res = serve.run(job)
+    run_s = time.perf_counter() - t0
+    launched = read_counters()
+    check(launched["flash_attention"] == cfg.n_layers,
+          f"serve: {launched['flash_attention']} flash-attention launches in "
+          f"one prefill of {cfg.n_layers} layers")
+    pw = res["power"]
+    traffic = pw["traffic_bytes_per_step"]
+    check(res["tokens"].shape == (batch, decode_tokens),
+          f"serve: tokens of shape {res['tokens'].shape}")
+    check(bool((pw["ddr_energy_pj_per_seq_step"] > 0).all())
+          and pw["hbm_step_energy_uj"] > 0, "serve: energy not positive")
+
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=device).manual_seed(seed))
+    weight_bytes = serve.tree_nbytes(params)
+    decode_bound = traffic / HBM_BYTES_PER_S * 1e3
+    prefill_bound = prefill_work(cfg, batch, prompt_len, weight_bytes)
+    print(f"[serve] {cfg.name}: layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"heads={cfg.n_heads} kv={cfg.n_kv} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab} dtype={cfg.dtype} weight_bytes={weight_bytes} "
+          f"batch={batch} prompt={prompt_len} decode_tokens={decode_tokens} "
+          f"run_s={run_s:.3f} card=\"{card}\"", flush=True)
+    print(f"[serve] prefill_s={res['prefill_s']:.4f} prefill_bound_ms="
+          f"{prefill_bound[0]:.3f} ({prefill_bound[1]}) decode_p50_ms="
+          f"{res['decode_p50_ms']:.3f} decode_p99_ms="
+          f"{res['decode_p99_ms']:.3f} tokens_per_s="
+          f"{res['tokens_per_s']:.1f} traffic_bytes_per_step={traffic:.0f} "
+          f"decode_bound_ms={decode_bound:.3f} decode_share_of_bound="
+          f"{decode_bound / max(res['decode_p50_ms'], 1e-9):.3f} "
+          f"flash_launches_per_prefill={launched['flash_attention']} "
+          f"card=\"{card}\"", flush=True)
+    svc = pw["serving"]
+    print(f"[serve] power[{pw['power_model']}] impl=cuda "
+          f"ddr_uj_per_token_mean={pw['ddr_energy_uj_per_token_mean']:.4f} "
+          f"hbm_step_uj={pw['hbm_step_energy_uj']:.2f} "
+          f"hbm_ones_frac={pw['hbm_ones_frac']:.6f} "
+          f"hbm_toggle_frac={pw['hbm_toggle_frac']:.6f} "
+          f"vendors={pw['vendors']} service: admitted={svc['admitted']} "
+          f"dispatches={svc['dispatches']} batch_fill={svc['batch_fill']} "
+          f"dispatch_p50_ms={svc['dispatch_p50_ms']:.3f} "
+          f"engine_programs={svc['engine_programs']}", flush=True)
+
+    # checks: teacher forcing, plain attention, the report's impls
+    rng = np.random.default_rng(seed)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                           size=(batch, prompt_len)),
+                              dtype=torch.long, device=device)
+    s = prompt_len - 1
+    full, _ = lm.prefill(params, prompts)
+    _, caches = lm.prefill(params, prompts[:, :s], max_len=prompt_len)
+    step, _ = lm.decode_step(params, caches, prompts[:, s:])
+    tf_err, tf_bar = vocab_bar(step, full, cfg.vocab)
+    check(tf_err < tf_bar, f"serve: decode after a prefill of {s} differs "
+                           f"from the prefill of {s + 1} by {tf_err:.4f} "
+                           f"(bar {tf_bar:.4f})")
+    plain_fn = functools.partial(fa_ops.flash_attention, use_kernel=False)
+    with mock.patch.object(fa_ops, "flash_attention", plain_fn):
+        plain, _ = lm.prefill(params, prompts)
+    pl_err, pl_bar = vocab_bar(full, plain, cfg.vocab)
+    check(pl_err < pl_bar, f"serve: the kernel's prefill differs from the "
+                           f"plain attention's by {pl_err:.4f} "
+                           f"(bar {pl_bar:.4f})")
+    # where the time goes: a warm prefill and one decode step, profiled
+    prefill_ms = wall_ms(lambda: lm.prefill(params, prompts), 3)
+    device_profile(lambda: lm.prefill(params, prompts), "prefill (warm)",
+                   prefill_ms, card, tag="[serve]", top=6)
+    step_ms = wall_ms(lambda: lm.decode_step(params, caches,
+                                             prompts[:, s:]), 5)
+    device_profile(lambda: lm.decode_step(params, caches, prompts[:, s:]),
+                   "decode_step", step_ms, card, tag="[serve]", top=6)
+    tokens = torch.from_numpy(res["tokens"])
+    step_s = max(res["decode_p50_ms"], 1e-3) * 1e-3
+    reports = {impl: serve.power_report(
+        dataclasses.replace(job, power_impl=impl), traffic, step, tokens,
+        step_seconds=step_s) for impl in ("cuda", "vectorized")}
+    got, want = (torch.from_numpy(reports[i]["ddr_energy_pj_per_seq_step"])
+                 for i in ("cuda", "vectorized"))
+    check(bool((got > 0).all()), "serve: power report energy not positive")
+    err = assert_close(got, want, RTOL, "serve: power report cuda vs "
+                                        "vectorized")
+    check(reports["cuda"]["hbm_step_energy_uj"]
+          == reports["vectorized"]["hbm_step_energy_uj"],
+          "serve: HBM step energy differs between impls")
+    print(f"[serve] checks: teacher_forcing_err={tf_err:.4f} (bar "
+          f"{tf_bar:.4f}) plain_vs_kernel_err={pl_err:.4f} (bar "
+          f"{pl_bar:.4f}) power cuda vs vectorized max_abs_err={err:.3e} "
+          f"pJ (rtol {RTOL}) launches="
+          f"{ {k: v for k, v in launched.items() if v} }", flush=True)
+    del params, caches
+    return launched
+
+
 def print_result(rows: list[dict], launches: dict[str, int], card: str,
                  device_name: str, count: int) -> None:
     """The last three lines: the per-kernel JSON object, the card's
@@ -722,6 +974,7 @@ def main(argv=None) -> int:
     # phase 4: kernels against their plain versions
     rows = kernel_phase(tb, models, card)
     rows += line_kernel_phase(args.seed, card)
+    rows += flash_kernel_phase(args.seed, card)
 
     # phase 5: the estimation path end to end
     launches, times = e2e_phase(tb, trs, models,
@@ -730,9 +983,10 @@ def main(argv=None) -> int:
     oracle_phase(models, trs)
     del tb
 
-    # phases 6 and 7: the encoding study and the HBM statistics
+    # phases 6, 7 and 8: the encoding study, the HBM statistics, serving
     for path in (study_phase(args.seed, models["vampire"], card),
-                 hbm_phase(args.seed, models["vampire"], card)):
+                 hbm_phase(args.seed, models["vampire"], card),
+                 serve_phase(args.seed, card)):
         for name, c in path.items():
             launches[name] += c
     for r in rows:

@@ -1,20 +1,21 @@
 """Declarative JEDEC-style DRAM protocol linter over command traces.
 
 Every timing and state rule a trace generator must obey is a registered
-:class:`TimingRule`, evaluated by two interchangeable single-trace
-engines:
+:class:`TimingRule`, evaluated by three interchangeable engines:
 
 * :func:`lint_trace` — vectorized numpy over one trace, the
   construction-time hook the generators call through
   :func:`check_generated`;
+* :func:`lint_batch` / :func:`lint_traces` — a whole padded ``(T, N)``
+  batch in one pass of the same rule formulas over torch tensors on the
+  traces' device (the reference's jitted ``vmap``), for serving
+  admission (:func:`lint_ingested`);
 * :func:`reference_lint` — an independent per-command Python walk kept as
   the parity oracle.
 
-Both return structured :class:`Diagnostic` records (rule id, command
+All return structured :class:`Diagnostic` records (rule id, command
 index, bank, severity, deficit in cycles) instead of a bare raise.  A port
 of ``repro.analysis.trace_lint``: the same rules, the same diagnostics.
-The linter works on host arrays; a trace on the card is copied to the
-host first.
 
 Rule semantics
 --------------
@@ -36,6 +37,7 @@ import warnings
 from typing import Callable, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.dram import (ACT, CMD_NAMES, NOP, N_BANKS, PDE,
                                    PDE_SLOW, PDX, PRE, PREA, RD, REF, SRE,
@@ -108,30 +110,119 @@ def rule(rule_id: str, description: str, severity: str = ERROR):
 
 
 # ---------------------------------------------------------------------------
-# Backend adapter (the primitives an array library spells its own way)
+# Backend adapters: the array primitives numpy and torch spell apart.  Every
+# engine works on a batch: scalars per command are (T, N), per-bank tables
+# (T, N, N_BANKS); the command axis is axis 1, the bank axis the last.
 # ---------------------------------------------------------------------------
 class _NumpyBackend:
     name = "numpy"
+    xp = np
 
     @staticmethod
-    def xp():
-        return np
+    def arange(n):
+        return np.arange(n)
+
+    @staticmethod
+    def cumsum(x):
+        return np.cumsum(x, axis=1)
+
+    @staticmethod
+    def astype(x, like):
+        return x.astype(like.dtype)
+
+    @staticmethod
+    def take_last(tbl, idx):
+        """``tbl[..., idx]`` per element: gather along the last axis."""
+        return np.take_along_axis(tbl, idx, axis=-1)
+
+    @staticmethod
+    def reduce_last(x, op: str):
+        """``any``, ``max`` or ``argmax`` (first on ties) over the last
+        axis."""
+        return getattr(x, op)(axis=-1)
 
     @staticmethod
     def exclusive_cummax(x):
-        c = np.maximum.accumulate(x, axis=0)
+        c = np.maximum.accumulate(x, axis=1)
         out = np.empty_like(c)
-        out[:1] = NEG
-        out[1:] = c[:-1]
+        out[:, :1] = NEG
+        out[:, 1:] = c[:, :-1]
         return out
 
     @staticmethod
     def scatter_times(size: int, slot, times):
-        """``arr = full(size, NEG); arr[slot] = times`` with slot
+        """Per trace ``arr = full(size, NEG); arr[slot] = times`` with slot
         ``size - 1`` reserved as a guaranteed-NEG dump index."""
-        arr = np.full(size, NEG, dtype=np.asarray(times).dtype)
-        arr[slot] = times
-        arr[size - 1] = NEG
+        arr = np.full((times.shape[0], size), NEG, dtype=times.dtype)
+        np.put_along_axis(arr, slot, times, axis=1)
+        arr[:, size - 1] = NEG
+        return arr
+
+
+class _TorchXp:
+    """The few numpy-namespace functions the rules call, over tensors."""
+
+    @staticmethod
+    def where(cond, a, b):
+        return torch.where(cond, a, b)
+
+    @staticmethod
+    def maximum(a, b):
+        return torch.maximum(a, b)
+
+    @staticmethod
+    def zeros_like(x):
+        return torch.zeros_like(x)
+
+    @staticmethod
+    def stack(xs, axis=0):
+        return torch.stack(xs, dim=axis)
+
+
+class _TorchBackend:
+    """The batched engine's backend: int64 tensors on the traces' device
+    (the reference's ``jit(vmap(...))`` becomes a batch axis written
+    out)."""
+    name = "torch"
+    xp = _TorchXp
+
+    def __init__(self, device):
+        self.device = device
+
+    def arange(self, n):
+        return torch.arange(n, device=self.device)
+
+    @staticmethod
+    def cumsum(x):
+        return torch.cumsum(x, dim=1)
+
+    @staticmethod
+    def astype(x, like):
+        return x.to(like.dtype)
+
+    @staticmethod
+    def take_last(tbl, idx):
+        return torch.gather(tbl, -1, idx)
+
+    @staticmethod
+    def reduce_last(x, op: str):
+        if op == "any":
+            return x.any(dim=-1)
+        if op == "max":
+            return x.amax(dim=-1)
+        return x.argmax(dim=-1)
+
+    @staticmethod
+    def exclusive_cummax(x):
+        c = torch.cummax(x, dim=1).values
+        return torch.cat([torch.full_like(c[:, :1], NEG), c[:, :-1]], dim=1)
+
+    @staticmethod
+    def scatter_times(size: int, slot, times):
+        arr = torch.full((times.shape[0], size), NEG, dtype=times.dtype,
+                         device=times.device)
+        arr.scatter_(1, slot, times)
+        arr[:, size - 1] = NEG
         return arr
 
 
@@ -139,19 +230,21 @@ class _NumpyBackend:
 # Context: every derived table the rules read, built in one vectorized pass
 # ---------------------------------------------------------------------------
 class _Ctx:
-    """Per-trace rule-evaluation context (plain attribute bag)."""
+    """Rule-evaluation context of a (T, N) batch (plain attribute bag)."""
 
     def __init__(self, cmd, bank, dt, backend):
-        xp = backend.xp()
+        B = backend
+        xp = B.xp
+        self.B = B
         self.xp = xp
         self.T = TIMING
-        n = cmd.shape[0]
+        n = cmd.shape[1]
         self.n = n
         self.cmd = cmd
         self.bank = bank
         self.dt = dt
-        idx = xp.arange(n)
-        self.t = xp.cumsum(dt, axis=0) - dt           # issue time of slot i
+        idx = B.arange(n)
+        self.t = B.cumsum(dt) - dt                    # issue time of slot i
 
         self.is_act = cmd == ACT
         self.is_pre = cmd == PRE
@@ -162,28 +255,27 @@ class _Ctx:
         self.is_ref = cmd == REF
         self.nonnop = cmd != NOP
 
-        onehot = bank[:, None] == xp.arange(N_BANKS)[None, :]
-        act_b = self.is_act[:, None] & onehot
-        close_b = (self.is_pre[:, None] & onehot) | self.is_prea[:, None]
-        wr_b = self.is_wr[:, None] & onehot
-        rd_b = self.is_rd[:, None] & onehot
+        onehot = bank[..., None] == B.arange(N_BANKS)
+        act_b = self.is_act[..., None] & onehot
+        close_b = (self.is_pre[..., None] & onehot) | self.is_prea[..., None]
+        wr_b = self.is_wr[..., None] & onehot
+        rd_b = self.is_rd[..., None] & onehot
         self.close_b = close_b
 
         def last_t(ev):
-            return backend.exclusive_cummax(xp.where(ev, self.t, NEG))
+            return B.exclusive_cummax(xp.where(ev, self.t, NEG))
 
         def last_t_b(ev_b):
-            return backend.exclusive_cummax(
-                xp.where(ev_b, self.t[:, None], NEG))
+            return B.exclusive_cummax(xp.where(ev_b, self.t[..., None], NEG))
 
         def last_i(ev):
-            return backend.exclusive_cummax(xp.where(ev, idx, -1))
+            return B.exclusive_cummax(xp.where(ev, idx, -1))
 
         def last_i_b(ev_b):
-            return backend.exclusive_cummax(xp.where(ev_b, idx[:, None], -1))
+            return B.exclusive_cummax(xp.where(ev_b, idx[:, None], -1))
 
         def own(tbl):
-            return xp.take_along_axis(tbl, bank[:, None], axis=1)[:, 0]
+            return B.take_last(tbl, bank[..., None])[..., 0]
 
         # per-bank last-event time tables (strictly before i) + own gathers
         self.t_act_b = last_t_b(act_b)
@@ -217,11 +309,11 @@ class _Ctx:
         self.t_pdx_slow = last_t(is_pdx & slow_entry)
 
         # tFAW: time of the 4th-previous ACT (rolling four-activate window)
-        k = xp.cumsum(self.is_act.astype(self.t.dtype), axis=0)
+        k = B.cumsum(B.astype(self.is_act, self.t))
         slot = xp.where(self.is_act, k - 1, n)
-        act_times = backend.scatter_times(n + 1, slot, self.t)
+        act_times = B.scatter_times(n + 1, slot, self.t)
         gather = xp.where(self.is_act & (k >= 5), k - 5, n)
-        self.t_act_4ago = act_times[gather]
+        self.t_act_4ago = B.take_last(act_times, gather)
 
 
 # ---------------------------------------------------------------------------
@@ -238,8 +330,9 @@ def _per_bank(ctx, viol_b, deficit_b):
     """Helper for close-side rules that can violate on any bank at once:
     report the worst-deficit bank (first such bank on ties)."""
     deficit_b = ctx.xp.where(viol_b, deficit_b, 0)
-    return (viol_b.any(axis=1), deficit_b.max(axis=1),
-            deficit_b.argmax(axis=1).astype(ctx.bank.dtype))
+    B = ctx.B
+    return (B.reduce_last(viol_b, "any"), B.reduce_last(deficit_b, "max"),
+            B.astype(B.reduce_last(deficit_b, "argmax"), ctx.bank))
 
 
 @rule("tRCD", "RD/WR before the bank's activate completed (tRCD)")
@@ -256,8 +349,8 @@ def _r_trp(c):
 @rule("tRAS", "precharge before the bank's row was open tRAS cycles")
 def _r_tras(c):
     req = c.t_act_b + c.T.tRAS
-    viol = c.close_b & c.open_b & (c.t[:, None] < req)
-    return _per_bank(c, viol, req - c.t[:, None])
+    viol = c.close_b & c.open_b & (c.t[..., None] < req)
+    return _per_bank(c, viol, req - c.t[..., None])
 
 
 @rule("tRC", "ACT-to-ACT on one bank inside tRC")
@@ -278,15 +371,15 @@ def _r_tfaw(c):
 @rule("tWR", "precharge inside the write-recovery window (tWR)")
 def _r_twr(c):
     req = c.t_wr_b + c.T.tBURST + c.T.tWR
-    viol = c.close_b & c.open_b & (c.t[:, None] < req)
-    return _per_bank(c, viol, req - c.t[:, None])
+    viol = c.close_b & c.open_b & (c.t[..., None] < req)
+    return _per_bank(c, viol, req - c.t[..., None])
 
 
 @rule("tRTP", "precharge inside the read-to-precharge window (tRTP)")
 def _r_trtp(c):
     req = c.t_rd_b + c.T.tRTP
-    viol = c.close_b & c.open_b & (c.t[:, None] < req)
-    return _per_bank(c, viol, req - c.t[:, None])
+    viol = c.close_b & c.open_b & (c.t[..., None] < req)
+    return _per_bank(c, viol, req - c.t[..., None])
 
 
 @rule("tWTR", "read inside the write-to-read turnaround (tWTR)")
@@ -334,7 +427,7 @@ def _r_act_open(c):
 
 @rule("REF_BANK_OPEN", "REF issued with banks still open")
 def _r_ref_open(c):
-    viol = c.is_ref[:, None] & c.open_b
+    viol = c.is_ref[..., None] & c.open_b
     return _per_bank(c, viol, c.xp.where(viol, 1, 0))
 
 
@@ -379,7 +472,8 @@ _RULE_ORDER: tuple[str, ...] = tuple(RULES)
 # Engines
 # ---------------------------------------------------------------------------
 def _eval_rules(cmd, bank, dt, backend):
-    """(R, n) stacked (mask, deficit, bank) over every registered rule."""
+    """(T, R, N) stacked (mask, deficit, bank) over every registered rule
+    for a (T, N) batch."""
     ctx = _Ctx(cmd, bank, dt, backend)
     xp = ctx.xp
     masks, deficits, banks = [], [], []
@@ -388,7 +482,8 @@ def _eval_rules(cmd, bank, dt, backend):
         masks.append(m)
         deficits.append(xp.where(m, d, 0))
         banks.append(b)
-    return xp.stack(masks), xp.stack(deficits), xp.stack(banks)
+    return (xp.stack(masks, axis=1), xp.stack(deficits, axis=1),
+            xp.stack(banks, axis=1))
 
 
 def _extract(mask, deficit, bank, cmd, trace_index: int) -> list[Diagnostic]:
@@ -409,8 +504,53 @@ def _extract(mask, deficit, bank, cmd, trace_index: int) -> list[Diagnostic]:
 def lint_trace(trace: CommandTrace, trace_index: int = 0) -> list[Diagnostic]:
     """Lint one trace with the numpy engine (the construction-time hook)."""
     cmd, bank, dt = _host(trace.cmd), _host(trace.bank), _host(trace.dt)
-    mask, deficit, bank_r = _eval_rules(cmd, bank, dt, _NumpyBackend)
-    return _extract(mask, deficit, bank_r, cmd, trace_index)
+    mask, deficit, bank_r = _eval_rules(cmd[None], bank[None], dt[None],
+                                        _NumpyBackend)
+    return _extract(mask[0], deficit[0], bank_r[0], cmd, trace_index)
+
+
+def lint_arrays_batched(cmd, bank, dt) -> list[Diagnostic]:
+    """Lint a padded (T, N) command batch in one pass of the torch engine
+    on the tensors' device (numpy arrays run on the CPU)."""
+    cmd, bank, dt = (torch.as_tensor(x).to(torch.int64)
+                     for x in (cmd, bank, dt))
+    mask, deficit, bank_r = _eval_rules(cmd, bank, dt,
+                                        _TorchBackend(cmd.device))
+    mask, deficit, bank_r, cmd = (x.cpu().numpy()
+                                  for x in (mask, deficit, bank_r, cmd))
+    out = []
+    for ti in range(mask.shape[0]):
+        out.extend(_extract(mask[ti], deficit[ti], bank_r[ti], cmd[ti], ti))
+    return out
+
+
+def lint_batch(tb) -> list[Diagnostic]:
+    """Lint a prebuilt :class:`~repro_torch.core.estimate_batch.TraceBatch`
+    in one batched pass.  NOP/dt=0 padding is inert under every rule, so
+    no weight masking is needed — pad rows simply cannot violate
+    anything."""
+    return lint_arrays_batched(tb.trace.cmd, tb.trace.bank, tb.trace.dt)
+
+
+def lint_traces(traces: Sequence[CommandTrace]) -> list[Diagnostic]:
+    """Lint a sequence of ragged traces through the batched engine on the
+    first trace's device, padding the length to the next power of two (the
+    reference's shape vocabulary).
+
+    Only the three fields the rules read are padded (one allocation each):
+    the NOP/dt=0 pad rows are inert under every rule."""
+    traces = list(traces)
+    if not traces:
+        return []
+    longest = max(int(tr.n) for tr in traces)
+    length = 1 << max(longest - 1, 1).bit_length()
+    dev = traces[0].device
+    fields = [torch.zeros((len(traces), length), dtype=torch.int64,
+                          device=dev) for _ in range(3)]   # NOP == 0
+    for i, tr in enumerate(traces):
+        for buf, x in zip(fields, (tr.cmd, tr.bank, tr.dt)):
+            buf[i, :int(tr.n)] = x.to(dev)
+    return lint_arrays_batched(*fields)
 
 
 # ---------------------------------------------------------------------------
@@ -598,3 +738,13 @@ def check_trace(trace: CommandTrace, origin: str = "make_trace",
     for d in diags:
         warnings.warn(f"[{origin}] {d.message}", stacklevel=3)
     return diags
+
+
+def lint_ingested(traces: Sequence[CommandTrace],
+                  origin: str = "ingestion") -> None:
+    """Strict batched gate for externally ingested traces (the serving
+    ``--power-report`` path): one batched lint over the whole sequence,
+    raising with rule id + command index on any ERROR."""
+    errors = errors_of(lint_traces(traces))
+    if errors:
+        raise TraceProtocolError(errors, origin)

@@ -9,6 +9,10 @@ file) into the port's tensors.
   the neutral all-ones surface when absent, and the low-power LUT entries
   defaulting to the fast power-down current ``i_pd``.
 * :func:`fleet_model_from_numpy` — a whole ``FleetModel``.
+* :func:`lm_params_from_jax` / :func:`lm_caches_from_jax` — the dense
+  decoder's parameters (``repro.models.lm.LM.init``'s tree, stacked on a
+  leading layer axis) and a prefill's decode cache, as numpy arrays, into
+  the port's per-layer parameter dicts and stacked cache tensors.
 """
 from __future__ import annotations
 
@@ -79,3 +83,38 @@ def fleet_model_from_numpy(params: dict, band, idd_datasheet, vendor_ids,
                                       device=device),
         vendor_ids=torch.as_tensor(np.asarray(vendor_ids, np.int32),
                                    device=device))
+
+
+def _tensor(a, device="cpu") -> torch.Tensor:
+    """A numpy array (bfloat16 ones included, as JAX hands them over) as a
+    tensor of the same type."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def lm_params_from_jax(params_np: dict, cfg, device="cpu") -> dict:
+    """The reference LM's parameter tree (numpy leaves: ``embed``,
+    ``final_norm``, optional ``unembed``, and ``layers/sub0/{mixer,mlp}/*``
+    stacked on a leading layer axis) -> the port's ``LM`` parameters: one
+    dict per layer."""
+    stacked = params_np["layers"]["sub0"]
+    out = {name: _tensor(params_np[name], device)
+           for name in ("embed", "final_norm", "unembed")
+           if name in params_np}
+    out["layers"] = [
+        {part: {name: _tensor(np.asarray(x)[i], device)
+                for name, x in stacked[part].items()}
+         for part in ("mixer", "mlp")}
+        for i in range(cfg.n_layers)]
+    return out
+
+
+def lm_caches_from_jax(caches_np: dict, device="cpu") -> dict:
+    """A reference prefill's decode cache (numpy leaves) -> the port's:
+    the same stacked K/V (and scale) tensors, ``pos`` as an int."""
+    return {"sub0": {name: _tensor(x, device)
+                     for name, x in caches_np["sub0"].items()},
+            "pos": int(np.asarray(caches_np["pos"]))}

@@ -66,6 +66,15 @@ class Vampire(model_api.StackedEstimatorMixin):
     def vendors(self) -> tuple[int, ...]:
         return tuple(int(v) for v in self.fleet.vendor_ids.tolist())
 
+    def params(self, vendor: int) -> PowerParams:
+        """One vendor's fitted parameters (its row of the stacked
+        leaves)."""
+        try:
+            i = self.vendors.index(int(vendor))
+        except ValueError:
+            raise KeyError(vendor) from None
+        return self.fleet.params.select(i)
+
     def to(self, device) -> "Vampire":
         return Vampire(self.fleet.to(model_api.resolve_device(device)),
                        self.idd_keys, self.datadep_r2)

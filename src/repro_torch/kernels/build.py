@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
+_F32 = ctypes.c_float
 
 # exported C functions of each source -> their argument types
 SIGNATURES = {
@@ -55,6 +56,10 @@ SIGNATURES = {
     },
     "bdi": {
         "repro_bdi_sizes": [_P, _P, _P, _I64, _P],
+    },
+    "flash_attention": {
+        "repro_flash_attention": [_P] * 4 + [_I32] * 5 + [_F32]
+        + [_I32] * 3 + [_P],
     },
 }
 

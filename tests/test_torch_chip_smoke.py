@@ -1,5 +1,5 @@
-"""``chip_smoke.py``'s line-kernel, study and HBM phases rehearsed on the
-CPU at a tiny size: the same code that runs on the card, with the CUDA
+"""``chip_smoke.py``'s line-kernel, flash-attention, study, HBM and serve
+phases rehearsed on the CPU at a tiny size: the same code that runs on the card, with the CUDA
 event timers and the device synchronisation stubbed, and the launch
 counts (which CPU tensors never raise) read as launched."""
 import json
@@ -74,3 +74,49 @@ def test_result_lines(smoke, capsys):
     entries = json.loads(kernels)["kernels"]
     assert [set(e) for e in entries] == [keys] * 4
     assert all(e["launches"] == 3 and e["route"] == "cuda" for e in entries)
+
+
+def test_attention_flops_count_the_causal_pairs(smoke):
+    assert smoke.attention_flops(2, 4, 4, 8, causal=False) == 4 * 2 * 16 * 8
+    # causal, top-left: query i sees keys 0..i -> 1 + 2 + 3 + 4 pairs
+    assert smoke.attention_flops(2, 4, 4, 8, causal=True) == 4 * 2 * 10 * 8
+    # the serving prefill: 68.75 GFLOP, bound by operations at 0.0695 ms
+    ops = smoke.attention_flops(64, 2048, 2048, 128, causal=True)
+    assert ops == 4 * 64 * 2048 * 2049 // 2 * 128
+    ms, by = smoke.bound(2 * (2 * 64 + 2 * 8) * 2048 * 128, ops,
+                         smoke.BF16_OPS_PER_S)
+    assert by == "operations" and abs(ms - 0.0695) < 1e-3
+
+
+def test_flash_kernel_phase_row(smoke, capsys):
+    (row,) = smoke.flash_kernel_phase(0, "cpu", device="cpu",
+                                      shape=(2, 4, 2, 48, 16), ragged=40)
+    assert row["name"] == "flash_attention" and row["err"] == 0.0
+    assert row["source"] == "src/repro_torch/csrc/flash_attention.cu"
+    assert row["replaces"].endswith("flash_attention.py:73")
+    assert row["library_ms"] == 1.0
+    out = capsys.readouterr().out
+    assert out.count("[kernel] flash_attention") == 1
+    assert "ragged_err=0.000e+00" in out and "f32_err=0.000e+00" in out
+
+
+def test_vocab_bar_ignores_the_padded_vocabulary(smoke):
+    a = torch.zeros(2, 8)
+    b = torch.zeros(2, 8)
+    b[:, 6:] = -1e30
+    err, bar = smoke.vocab_bar(a, b, vocab=6)
+    assert err == 0.0 and bar == pytest.approx(0.05, abs=1e-5)
+
+
+def test_serve_phase_at_smoke_size(smoke, monkeypatch, capsys):
+    real = smoke.read_counters
+    monkeypatch.setattr(smoke, "read_counters", lambda: {
+        k: (2 if k == "flash_attention" else max(v, 1))
+        for k, v in real().items()})
+    launched = smoke.serve_phase(0, "cpu", device="cpu", smoke=True,
+                                 batch=2, prompt_len=40, decode_tokens=4)
+    assert launched["flash_attention"] == 2       # one per layer
+    out = capsys.readouterr().out
+    assert out.count("[serve]") == 6
+    assert "flash_launches_per_prefill=2" in out
+    assert "power[vampire] impl=cuda" in out and "teacher_forcing_err" in out

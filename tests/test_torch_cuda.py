@@ -169,3 +169,51 @@ def test_tensor_stats_on_the_card_matches_the_cpu(device):
     from repro_torch.core import hbm
     x = torch.randn(512, 1024).to(torch.bfloat16)
     assert hbm.tensor_stats(x.to(device)) == hbm.tensor_stats(x)
+
+
+# (BH, Sq, BH_kv, Skv, D): the reference's kernel sweep (test_kernels.py),
+# ragged lengths, and the serving prefill (qwen2.5-3b, B=4, S=2048)
+FLASH_SHAPES = [(4, 256, 2, 256, 32), (2, 512, 2, 512, 64),
+                (8, 256, 2, 512, 16), (8, 40, 2, 40, 16), (4, 200, 2, 200, 64),
+                (16, 2000, 2, 2000, 128), (6, 77, 3, 77, 24),
+                (64, 2048, 8, 2048, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain(device, dtype, shape):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    bh, sq, bh_kv, skv, d = shape
+    gen = torch.Generator().manual_seed(sum(shape))
+    q, k, v = (torch.randn(*s, generator=gen).to(device, dtype)
+               for s in ((bh, sq, d), (bh_kv, skv, d), (bh_kv, skv, d)))
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    for causal, q_offset in ((True, 0), (False, 0), (True, skv - sq + 3)):
+        if causal and sq > skv:
+            continue
+        before = fa.flash_attention.launches
+        got = fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches == before + 1
+        want = fa_ref.attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+        assert got.dtype == dtype and got.shape == q.shape
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), atol=atol,
+                                   err_msg=f"causal={causal} off={q_offset}")
+
+
+def test_flash_attention_wrapper_checks_its_inputs(device):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    q = torch.randn(4, 64, 32, device=device, dtype=torch.bfloat16)
+    k = torch.randn(2, 64, 32, device=device, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fa.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(0, 1).contiguous().transpose(0, 1), k,
+                           k)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.flash_attention(q[..., :30].contiguous(), k[..., :30].contiguous(),
+                           k[..., :30].contiguous())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa.flash_attention(q, k.cpu(), k)

@@ -173,3 +173,23 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert pattern.search("from repro.core import dram")
     assert pattern.search("import jax.numpy as jnp")
     assert not pattern.search("from repro_torch.core import dram")
+
+
+def test_vampire_params_per_vendor_equal_the_reference(quick_vampire,
+                                                       tmp_path):
+    """``Vampire.params(vendor)`` (what the HBM extrapolation reads) gives
+    the reference's fitted leaves for every vendor of the quick fit, and of
+    the committed file; an unknown vendor raises ``KeyError`` as the
+    reference's dict lookup does."""
+    path = tmp_path / "fit.npz"
+    rma.save_estimator(quick_vampire, str(path))
+    for ref, port in ((quick_vampire, Vampire.load(str(path), device="cpu")),
+                      (rma.load_estimator(str(MODEL)),
+                       pma.load_estimator(str(MODEL), device="cpu"))):
+        for v in ref.vendors:
+            want, got = ref.params(v), port.params(v)
+            for name, a, b in zip(want._fields, want, got):
+                np.testing.assert_array_equal(
+                    b.numpy(), np.asarray(a, np.float32), err_msg=name)
+        with pytest.raises(KeyError):
+            port.params(max(port.vendors) + 1)

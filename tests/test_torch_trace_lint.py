@@ -3,7 +3,10 @@
 same ``(rule, severity, cmd_index, bank, margin)`` diagnostics as
 ``repro.analysis.trace_lint`` on the seeded broken streams of
 ``tests/test_analysis.py`` (one per rule), on seeded random streams and on
-generated traces; ``check_generated`` raises where the reference's does."""
+generated traces; ``check_generated`` raises where the reference's does;
+and the batched torch engine (``lint_traces`` / ``lint_batch`` /
+``lint_ingested``) gives the reference's batched diagnostics, trace index
+included, on ragged batches of those streams."""
 import warnings
 
 import jax.numpy as jnp
@@ -177,3 +180,65 @@ def test_builder_lints_when_given_an_origin(monkeypatch):
     assert bld.build().n == 1                 # no origin: no lint
     with pytest.raises(plint.TraceProtocolError, match="unit-test"):
         bld.build("unit-test")
+
+
+# ---------------------------------------------------------------------------
+# The batched engine (serving admission)
+# ---------------------------------------------------------------------------
+def batch_key(diags):
+    return sorted((d.trace_index, d.rule, d.severity, d.cmd_index, d.bank,
+                   d.margin) for d in diags)
+
+
+def test_batched_lint_of_the_seeded_streams_matches_the_reference():
+    pairs = [raw_pair(SEEDED[rid][0]) for rid in sorted(SEEDED)]
+    ref_trs, port_trs = zip(*pairs)
+    want = batch_key(rlint.lint_traces(ref_trs))
+    assert batch_key(plint.lint_traces(port_trs)) == want
+    # each trace alone, as trace 0
+    for ti, (r, p) in enumerate(pairs):
+        single = [d for d in want if d[0] == ti]
+        assert [(0,) + d[1:] for d in single] == \
+            batch_key(plint.lint_traces([p]))
+    msgs = [d.message for d in plint.lint_traces(port_trs)]
+    assert sorted(msgs) == sorted(d.message
+                                  for d in rlint.lint_traces(ref_trs))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_batched_lint_of_ragged_random_batches(seed):
+    rng = np.random.default_rng([37, seed])
+    ref_trs, port_trs = [], []
+    for _ in range(int(rng.integers(3, 9))):
+        n = int(rng.integers(1, 70))
+        script = list(zip(rng.choice(_CMDS, n).tolist(),
+                          rng.integers(0, 8, n).tolist(),
+                          rng.integers(0, 2 * T.tRC + 1, n).tolist()))
+        r, p = raw_pair(script)
+        ref_trs.append(r)
+        port_trs.append(p)
+    want = batch_key(rlint.lint_traces(ref_trs))
+    assert want
+    assert batch_key(plint.lint_traces(port_trs)) == want
+    # the same batch through lint_batch on a prebuilt TraceBatch
+    from repro_torch.core.estimate_batch import as_trace_batch
+    assert batch_key(plint.lint_batch(as_trace_batch(port_trs))) == want
+
+
+def test_batched_lint_of_generated_traces_is_clean():
+    trs = [ptraces.app_trace(ptraces.SPEC_APPS[i], n_requests=n)
+           for i, n in ((0, 300), (7, 600), (3, 40))]
+    assert plint.lint_traces(trs) == []
+    assert plint.lint_traces([]) == []
+
+
+def test_lint_ingested_raises_with_structured_diagnostics():
+    good = pdram.make_trace(*[np.asarray(f)
+                              for f in idd_loops.idd0(reps=2)])
+    _, corrupt = raw_pair(SEEDED["tRCD"][0])
+    plint.lint_ingested([good])
+    with pytest.raises(plint.TraceProtocolError) as ei:
+        plint.lint_ingested([good, corrupt], origin="serve.power_report")
+    (d,) = ei.value.diagnostics
+    assert (d.rule, d.trace_index, d.cmd_index, d.bank) == ("tRCD", 1, 1, 0)
+    assert ei.value.origin == "serve.power_report" and "tRCD" in str(ei.value)

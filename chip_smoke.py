@@ -365,14 +365,16 @@ def attention_flops(bh: int, sq: int, skv: int, d: int, causal: bool) -> int:
 
 def flash_kernel_phase(seed: int, card: str, device="cuda",
                        shape=(4, 16, 2, 2048, 128),
-                       ragged: int = 2000) -> list[dict]:
+                       ragged: int = 2000,
+                       wide=(4, 28, 4, 2048, 128)) -> list[dict]:
     """Phase 4, third part: the flash-attention kernel at the serving
     prefill shape ``(B, H, Kh, S, D)`` (qwen2.5-3b, batch 4, prompt 2048:
     q ``(B*H, S, D)``, k and v ``(B*Kh, S, D)``), causal bf16, against its
     plain version at atol 2e-2 and timed beside its bound and
-    ``scaled_dot_product_attention``; then a ragged length (S =
-    ``ragged``) in bf16 and the prefill shape in float32 (atol 2e-5),
-    checked only."""
+    ``scaled_dot_product_attention``, with its rate in TFLOP/s; then, checked
+    only, a ragged length (S = ``ragged``) in bf16, the prefill shape in
+    float32 (atol 2e-5) and ``wide``, a group of 7 q heads per kv head
+    (qwen2-7b's 28 and 4 heads at batch 4) in bf16."""
     import torch
     import torch.nn.functional as F
 
@@ -382,28 +384,31 @@ def flash_kernel_phase(seed: int, card: str, device="cuda",
     bh, bh_kv, skv = b * h, b * kh, sq
     gen = torch.Generator(device=device).manual_seed(seed + 7)
 
-    def inputs(s_q, s_kv, dtype):
+    def inputs(rows, kv_rows, s_q, s_kv, dim, dtype):
         return tuple(torch.randn(*dims, generator=gen, device=device,
                                  dtype=dtype)
-                     for dims in ((bh, s_q, d), (bh_kv, s_kv, d),
-                                  (bh_kv, s_kv, d)))
+                     for dims in ((rows, s_q, dim), (kv_rows, s_kv, dim),
+                                  (kv_rows, s_kv, dim)))
 
+    wb, wh, wkh, ws, wd = wide
+    cases = {"prefill": (bh, bh_kv, sq, skv, d, torch.bfloat16),
+             "ragged": (bh, bh_kv, ragged, ragged, d, torch.bfloat16),
+             "float32": (bh, bh_kv, sq, skv, d, torch.float32),
+             "group7": (wb * wh, wb * wkh, ws, ws, wd, torch.bfloat16)}
     errs = {}
-    for name, s_q, s_kv, dtype in (
-            ("prefill", sq, skv, torch.bfloat16),
-            ("ragged", ragged, ragged, torch.bfloat16),
-            ("float32", sq, skv, torch.float32)):
-        q, k, v = inputs(s_q, s_kv, dtype)
+    for name, case in cases.items():
+        q, k, v = inputs(*case)
         got = fa.flash_attention(q, k, v, causal=True)
         want = fa_ref.attention_ref(q, k, v, causal=True)
-        atol = FLASH_ATOL[str(dtype).split(".")[-1]]
+        atol = FLASH_ATOL[str(case[-1]).split(".")[-1]]
         err = float((got.float() - want.float()).abs().max())
         check(bool(torch.isfinite(got).all()) and err <= atol,
-              f"flash_attention {name} (Sq={s_q}, Skv={s_kv}, {dtype}): max "
+              f"flash_attention {name} (BH={case[0]}, BH_kv={case[1]}, "
+              f"Sq={case[2]}, Skv={case[3]}, D={case[4]}, {case[5]}): max "
               f"abs err {err:.3e} beyond atol {atol}")
         errs[name] = err
         del got, want
-    q, k, v = inputs(sq, skv, torch.bfloat16)
+    q, k, v = inputs(*cases["prefill"])
     q4 = q.view(b, h, sq, d)
     k4 = k.view(b, kh, skv, d).repeat_interleave(h // kh, dim=1)
     v4 = v.view(b, kh, skv, d).repeat_interleave(h // kh, dim=1)
@@ -423,13 +428,16 @@ def flash_kernel_phase(seed: int, card: str, device="cuda",
     row["ms"] = event_ms(row["fn"], 20, flush)
     row["plain_ms"] = event_ms(row["plain"], 3, flush)
     row["library_ms"] = event_ms(row["library"], 20, flush)
+    tflops = attention_flops(bh, sq, skv, d, True) / row["ms"] / 1e9
     print(f"[kernel] flash_attention: ms={row['ms']:.4f} "
           f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound'][0]:.4f} "
           f"({row['bound'][1]}) share_of_bound="
-          f"{row['bound'][0] / row['ms']:.3f} library_ms="
-          f"{row['library_ms']:.4f} (sdpa, k/v expanded) max_abs_err="
-          f"{errs['prefill']:.3e} ragged_err={errs['ragged']:.3e} "
-          f"f32_err={errs['float32']:.3e} shape=(BH={bh}, S={sq}, "
+          f"{row['bound'][0] / row['ms']:.3f} tflops={tflops:.1f} "
+          f"library_ms={row['library_ms']:.4f} (sdpa, k/v expanded) "
+          f"max_abs_err={errs['prefill']:.3e} "
+          f"ragged_err={errs['ragged']:.3e} f32_err={errs['float32']:.3e} "
+          f"group7_err={errs['group7']:.3e} (BH={wb * wh}, "
+          f"BH_kv={wb * wkh}, S={ws}) shape=(BH={bh}, S={sq}, "
           f"BH_kv={bh_kv}, D={d}, causal, bf16) card=\"{card}\"",
           flush=True)
     del flush_buf, q4, k4, v4

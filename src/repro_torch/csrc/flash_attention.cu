@@ -1,41 +1,72 @@
 // Causal / non-causal grouped-query attention with an online softmax.
 //
-// Replaces: repro/kernels/flash_attention/flash_attention.py
+// Replaces: src/repro/kernels/flash_attention/flash_attention.py:73
 //   flash_attention_pallas (its _kernel).
 // Computes: q (BH, Sq, D), k and v (BH_kv, Skv, D), BH % BH_kv == 0, q row bh
 //   reading kv row bh / group.  out[bh, i] = softmax_j(q_i . k_j * scale)
 //   v_j over the keys j < Skv, and for causal attention only those with
 //   q_offset + i >= j (top-left alignment, positions counted from 0).  The
-//   softmax runs in float32 with the reference's NEG_INF = -1e30 mask and
-//   max(l, 1e-30) guard; the output is written in q's type.  Sq and Skv are
-//   any lengths: the kernel masks the ragged kv tile and drops rows past Sq.
+//   softmax runs in float32 with the reference's NEG_INF = -1e30 start and
+//   max(l, 1e-30) guard (masked keys weigh exactly 0, as there); the output
+//   is written in q's type.  Sq and Skv are any lengths: the kernel masks
+//   the ragged kv tile and drops rows past Sq.
 // Bound on the H100 at the serving prefill (B=4, H=16, Kh=2, S=2048, D=128,
 //   causal, bf16): 2 * 2 * B*H * S^2 * D / 2 = 68.7 GFLOP, 0.0695 ms at
 //   989 TFLOP/s; q, k, v and out are 75.5 MB, 0.0225 ms at 3.35 TB/s.  It is
-//   bound by operations.
-// Design: one CTA owns one kv head and BM = 64 consecutive rows of the
-//   flattened (position, q-head-of-the-group) space: all `group` q heads that
-//   share a kv head sit in one CTA, so each K/V tile is loaded from device
-//   memory once per group, not once per q head (the Pallas index map's
-//   `b // group`).  The TPU walked kv blocks as a sequential grid axis with
-//   m, l and acc in VMEM scratch; here the CTA loops over kv tiles itself
-//   and keeps m, l and the output accumulator in registers, writing the
-//   output once after the loop.  The causal loop stops at the CTA's last
-//   diagonal tile and only tiles that cross the diagonal (or the end of
-//   the keys) are masked.  bf16 runs on the tensor cores: ldmatrix +
-//   mma.sync m16n8k16 with float32 accumulation for Q K^T and P V, four
-//   warps of 16 rows each, K/V tiles double-buffered through cp.async so
-//   the next tile loads while this one computes.  float32 inputs (the
-//   reference's tolerance case) take a plain FMA kernel.  Heaviest causal
-//   tiles are scheduled first.  wgmma, TMA and warp specialisation are
-//   later work.
+//   bound by operations, so the design is about keeping the tensor cores fed.
+// Design (bf16, Hopper).  A work item is one kv head and BM = 128 rows of
+//   the flattened (position, q-head-of-the-group) space, so all `group` q
+//   heads that share a kv head read each K/V tile from one copy in shared
+//   memory (the Pallas index map's `b // group`); it walks the kv tiles of
+//   BN = 128 keys up to its last diagonal tile (the TPU's sequential grid
+//   axis becomes this loop; m, l and the output stay in registers).  One
+//   persistent CTA per SM takes items heaviest first, dealt out in bands
+//   that alternate direction.  Three warpgroups:
+//   - warpgroup 0 is the producer: it gives registers back
+//     (setmaxnreg.dec 24) and one thread streams through TMA the item's Q
+//     (a 4-D map (D, Sq, group, BH_kv) when the group divides 128: the
+//     item's rows are then 128 / group positions x group heads) and its K
+//     and V tiles (3-D maps (D, Skv, BH_kv), so a ragged Skv zero-fills at
+//     each head's end) into a 2-stage ring that runs on across items, all
+//     in 128-byte swizzled 64-column boxes, with a full and an empty
+//     mbarrier per stage for K and for V (V is needed later than K) and a
+//     pair for Q;
+//   - warpgroups 1 and 2 are consumers of 64 rows each (setmaxnreg.inc
+//     240).  For a group that does not divide 128 each loads its Q rows
+//     with 16-byte loads into the same swizzled layout.  Per tile: S = Q
+//     K^T with wgmma m64n128k16 from shared memory (both K-major); the
+//     online softmax in registers (row max and sum over the quad, exp2 with
+//     scale * log2(e) folded into one FMA, masks only on tiles that cross
+//     the diagonal or the end of the keys); O += P V with wgmma taking P
+//     from registers (the bf16-packed score accumulators) and V from shared
+//     memory as an MN-major operand (transpose bit set).  Phase j issues
+//     S(j) together with P(j-1) V(j-1); the two consumers take turns to
+//     issue (named barriers), so one's softmax runs under the other's
+//     products, and inside a consumer the softmax of tile j overlaps P(j-1)
+//     V(j-1).  A stage is released only after wgmma.wait_group has retired
+//     the products that read it.  The epilogue divides by max(l, 1e-30) and
+//     stores bf16 pairs straight to the rows' places in `out`.
+//   Head dims up to 64 run the D = 64 instance (128 keys a tile, 80 KB of
+//   shared memory), head dims up to 128 the D = 128 one (160 KB); a head
+//   dim below the instance's width is padded with zeros by the TMA boxes'
+//   out-of-bounds fill and the Q loads, so D <= 32 pays for 64 columns.
+//   float32 inputs (the reference's tolerance case) take a plain FMA
+//   kernel.
+// Left on the table: the output is not staged through shared memory for a
+//   TMA store; the diagonal tile computes all of its 128 x 128 scores; the
+//   exp2 of every score runs on the MUFU unit (16 a clock per SM), none on
+//   the FMA pipes; items are dealt out statically, not by an atomic
+//   counter; K/V are not multicast across a cluster; no fp8.
+#include <cuda.h>  // CUtensorMap and its enums (the encoder comes at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Shape {
   int group;      // q heads per kv head
@@ -43,59 +74,8 @@ struct Shape {
   int q_offset;   // position of q row 0 (causal alignment)
   int causal;
   float scale;
+  int q_tma;      // bf16 kernel: Q comes by TMA (group divides 128, scale >= 0)
 };
-
-// ---------------------------------------------------------------------------
-// PTX helpers
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; zero-fills the destination when !pred
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // rows of the flattened (position, head) space of one kv head -> q/out row
 __device__ __forceinline__ size_t q_row(const Shape& s, int bkv, int r) {
@@ -104,7 +84,7 @@ __device__ __forceinline__ size_t q_row(const Shape& s, int bkv, int r) {
   return (size_t)head * s.sq + pos;
 }
 
-// kv tiles the CTA of rows [row0, row0 + bm) must visit
+// kv tiles that rows [row0, row0 + bm) must visit
 __device__ __forceinline__ int kv_tiles(const Shape& s, int row0, int bm,
                                         int bn) {
   const int last = min(row0 + bm, s.group * s.sq) - 1;
@@ -114,186 +94,568 @@ __device__ __forceinline__ int kv_tiles(const Shape& s, int row0, int bm,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// PTX helpers: shared memory, mbarriers, TMA, wgmma
 // ---------------------------------------------------------------------------
-constexpr int BM = 64;        // flattened rows per CTA (4 warps x 16)
-constexpr int BN = 64;        // keys per tile
-constexpr int THREADS = 128;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-template <int DP>             // head dim padded to 16, 32, 64 or 128
-__global__ void __launch_bounds__(THREADS)
-flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ o, Shape s) {
-  constexpr int LD = DP + 8;  // smem row stride: 16-byte pad, no conflicts
-  constexpr int CPR = DP / 8; // 16-byte chunks per smem row
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// one arrival that also announces `bytes` of TMA traffic
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// spin until the phase of parity `parity` has completed.  (No trap after a
+// bound on the spins: a __trap() anywhere in the kernel caps ptxas's
+// register allocation near 176 and serialises the wgmma.)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// box (64 columns, 128 rows, 1 head) at (c0, c1, c2) -> shared memory
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// box (64 columns, 128 / group positions, group heads, 1 kv head) of q
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand (layout
+// type 1); byte offsets: lbo between 64-column blocks of an MN-major
+// operand, sbo between groups of 8 rows.  Bases are 1024-byte aligned.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups of products are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving reads or writes of registers that an
+// asynchronous product uses across its wait
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// the consumers' turns (named barriers 3 and 4 over both consumers): wait
+// for consumer w's turn, or hand the turn to consumer w
+__device__ __forceinline__ void turn_wait(int w) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(3 + w) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int w) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(3 + w) : "memory");
+}
+
+#define F8(a, i)                                                     \
+  "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3]),        \
+      "+f"(a[i + 4]), "+f"(a[i + 5]), "+f"(a[i + 6]), "+f"(a[i + 7])
+#define F32(a, i) F8(a, i), F8(a, i + 8), F8(a, i + 16), F8(a, i + 24)
+
+#define W8(a, i)                                                     \
+  "=f"(a[i]), "=f"(a[i + 1]), "=f"(a[i + 2]), "=f"(a[i + 3]),        \
+      "=f"(a[i + 4]), "=f"(a[i + 5]), "=f"(a[i + 6]), "=f"(a[i + 7])
+#define W32(a, i) W8(a, i), W8(a, i + 8), W8(a, i + 16), W8(a, i + 24)
+
+// d (64 x 128 f32) (+)= A (64 x 16, K-major, smem) * B (16 x 128, K-major,
+// smem): the first step of a product overwrites d (its old value is dead),
+// the others accumulate
+template <bool FIRST>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db) {
+#define SS_N128                                                             \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, " \
+  "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
+  "%57, %58, %59, %60, %61, %62, %63}, "                                    \
+  "%64, %65, p, 1, 1, 0, 0;\n"
+  if constexpr (FIRST)
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" SS_N128
+                 "}\n"
+                 : W32(d, 0), W32(d, 32)
+                 : "l"(da), "l"(db), "r"(0));
+  else
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" SS_N128
+                 "}\n"
+                 : F32(d, 0), F32(d, 32)
+                 : "l"(da), "l"(db), "r"(1));
+#undef SS_N128
+}
+
+// d (64 x 128 f32) += A (64 x 16 bf16, registers) * B (16 x 128, MN-major
+// smem)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : F32(d, 0), F32(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64 f32) += A (64 x 16 bf16, registers) * B (16 x 64, MN-major
+// smem)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : F32(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef W32
+#undef W8
+#undef F32
+#undef F8
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA, warp-specialised
+// ---------------------------------------------------------------------------
+constexpr int BM = 128;        // flattened rows a work item (2 consumers x 64)
+constexpr int BN = 128;        // keys per K/V tile
+constexpr int STAGES = 2;      // K/V ring depth
+constexpr int THREADS = 384;   // producer + 2 consumer warpgroups
+constexpr int ROW_BYTES = 128; // one swizzled row of a 64-column block
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+
+// Shared memory of the DP-wide instance, from a 1024-byte aligned base.
+// Q, and each K or V tile, is DP / 64 blocks of [rows][64 columns] with
+// 128-byte rows in TMA's 128-byte swizzle; then the 4 x STAGES K/V
+// mbarriers and Q's.
+template <int DP>
+struct Layout {
+  static constexpr int NB = DP / 64;
+  static constexpr int Q_BLOCK = BM * ROW_BYTES;   // one Q column block
+  static constexpr int KV_BLOCK = BN * ROW_BYTES;  // one K/V column block
+  static constexpr int KV_TILE = NB * KV_BLOCK;    // one K or V tile
+  static constexpr int K_OFF = NB * Q_BLOCK;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_TILE;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_TILE;
+  static constexpr int Q_BAR_OFF = BAR_OFF + 4 * STAGES * 8;
+  static constexpr int BYTES = Q_BAR_OFF + 2 * 8;
+};
+
+// Work items are (row tile, kv head) pairs, numbered heaviest first (row
+// tiles descending).  The persistent CTAs deal them out in bands of
+// gridDim.x, alternating direction band by band, so that every CTA gets a
+// similar sum of causal work: the CTA's k-th item is item_index(k).
+__device__ __forceinline__ int item_index(int k) {
+  return k * gridDim.x +
+         ((k & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+}
+struct Item {
+  int bkv, row0, n_tiles;
+};
+__device__ __forceinline__ Item work_item(const Shape& s, int n_row_tiles,
+                                          int bh_kv, int i) {
+  Item it;
+  it.bkv = i % bh_kv;
+  it.row0 = (n_row_tiles - 1 - i / bh_kv) * BM;
+  it.n_tiles = kv_tiles(s, it.row0, BM, BN);
+  return it;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  const __nv_bfloat16* __restrict__ q,
+                  __nv_bfloat16* __restrict__ o, Shape s, int n_row_tiles,
+                  int bh_kv) {
+  using L = Layout<DP>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BM * LD;       // two buffers
-  __nv_bfloat16* Vs = Ks + 2 * BN * LD;   // two buffers
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  // mbarriers of stage st: full_k + 8 st, ...
+  const uint32_t full_k = base + L::BAR_OFF, full_v = full_k + 8 * STAGES;
+  const uint32_t empty_k = full_v + 8 * STAGES, empty_v = empty_k + 8 * STAGES;
+  const uint32_t full_q = base + L::Q_BAR_OFF, empty_q = full_q + 8;
+  const int n_items = n_row_tiles * bh_kv;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;        // mma fragment coordinates
-  const int mi = lane >> 3, mr = lane & 7;       // ldmatrix matrix / row
-  const int bkv = blockIdx.y;
-  const int rows = s.group * s.sq;
-  const int row0 = (gridDim.x - 1 - blockIdx.x) * BM;  // heavy tiles first
-  const int chunks = s.d / 8;
-  const int n_tiles = kv_tiles(s, row0, BM, BN);
-  const __nv_bfloat16* kb = k + (size_t)bkv * s.skv * s.d;
-  const __nv_bfloat16* vb = v + (size_t)bkv * s.skv * s.d;
-
-  for (int i = tid; i < BM * CPR; i += THREADS) {
-    const int r = i / CPR, c = i % CPR;
-    const bool ok = row0 + r < rows && c < chunks;
-    const __nv_bfloat16* src =
-        ok ? q + q_row(s, bkv, row0 + r) * s.d + c * 8 : q;
-    cp_async16(Qs + r * LD + c * 8, src, ok);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full_k + 8 * st, 1);
+      mbar_init(full_v + 8 * st, 1);
+      mbar_init(empty_k + 8 * st, 2 * 128);  // every consumer thread
+      mbar_init(empty_v + 8 * st, 2 * 128);
+    }
+    mbar_init(full_q, 1);
+    mbar_init(empty_q, 2 * 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  auto load_kv = [&](int j, int buf) {
-    __nv_bfloat16* kd = Ks + buf * BN * LD;
-    __nv_bfloat16* vd = Vs + buf * BN * LD;
-    for (int i = tid; i < BN * CPR; i += THREADS) {
-      const int r = i / CPR, c = i % CPR;
-      const int key = j * BN + r;
-      const bool ok = key < s.skv && c < chunks;
-      const size_t off = ok ? (size_t)key * s.d + c * 8 : 0;
-      cp_async16(kd + r * LD + c * 8, kb + off, ok);
-      cp_async16(vd + r * LD + c * 8, vb + off, ok);
-    }
-  };
-  if (n_tiles > 0) load_kv(0, 0);
-  cp_async_commit();
+  __syncthreads();
 
-  const int wr = warp * 16;  // the warp's first row in the tile
-  int pos[2];                // q positions of this thread's rows g, g + 8
-  pos[0] = (row0 + wr + g) / s.group + s.q_offset;
-  pos[1] = (row0 + wr + g + 8) / s.group + s.q_offset;
-  const int first_pos = row0 / s.group + s.q_offset;
-
-  uint32_t qf[DP / 16][4];
-  float acc[DP / 8][4];
-  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+  if (threadIdx.x < 128) {
+    // ---- producer: one thread keeps Q and the K/V ring filled ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      int tile = 0;  // K/V tiles loaded so far: the ring position
+      for (int k = 0; item_index(k) < n_items; ++k) {
+        const Item it = work_item(s, n_row_tiles, bh_kv, item_index(k));
+        if (s.q_tma) {
+          // the item's 128 rows are 128 / group positions x group heads;
+          // the buffer is free once both consumers' last Q K^T retired
+          if (k > 0) mbar_wait(empty_q, (k - 1) & 1);
+          mbar_expect_tx(full_q, L::NB * L::Q_BLOCK);
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) load_kv(j + 1, (j + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk)
-        ldmatrix_x4(qf[kk],
-                    Qs + (wr + (mi & 1) * 8 + mr) * LD + kk * 16 + (mi >> 1) * 8);
-    }
-    const __nv_bfloat16* Kt = Ks + (j & 1) * BN * LD;
-    const __nv_bfloat16* Vt = Vs + (j & 1) * BN * LD;
-
-    // S = Q K^T (16 rows x 64 keys per warp)
-    float sc[BN / 8][4];
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-#pragma unroll
-      for (int nn = 0; nn < BN / 16; ++nn) {
-        uint32_t b[4];
-        ldmatrix_x4(b, Kt + (nn * 16 + (mi >> 1) * 8 + mr) * LD + kk * 16 +
-                           (mi & 1) * 8);
-        mma_bf16(sc[2 * nn], qf[kk], b[0], b[1]);
-        mma_bf16(sc[2 * nn + 1], qf[kk], b[2], b[3]);
-      }
-    }
-
-    // scale, mask, online softmax (rows g and g + 8 of the warp)
-    const int key0 = j * BN;
-    const bool need_mask = key0 + BN > s.skv ||
-                           (s.causal && key0 + BN - 1 > first_pos);
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = sc[n][e] * s.scale;
-        if (need_mask) {
-          const int key = key0 + n * 8 + 2 * t4 + (e & 1);
-          if (key >= s.skv || (s.causal && key > pos[e >> 1])) x = NEG_INF;
+          for (int b = 0; b < L::NB; ++b)
+            tma_load_4d(base + b * L::Q_BLOCK, &tm_q, full_q, 64 * b,
+                        it.row0 / s.group, 0, it.bkv);
         }
-        sc[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        for (int j = 0; j < it.n_tiles; ++j, ++tile) {
+          const int st = tile % STAGES;
+          // the consumers' release of tile `tile - STAGES`
+          const uint32_t parity = ((tile / STAGES) & 1) ^ 1;
+          const uint32_t k_dst = base + L::K_OFF + st * L::KV_TILE;
+          const uint32_t v_dst = base + L::V_OFF + st * L::KV_TILE;
+          if (tile >= STAGES) mbar_wait(empty_k + 8 * st, parity);
+          mbar_expect_tx(full_k + 8 * st, L::KV_TILE);
+#pragma unroll
+          for (int b = 0; b < L::NB; ++b)
+            tma_load_3d(k_dst + b * L::KV_BLOCK, &tm_k, full_k + 8 * st,
+                        64 * b, j * BN, it.bkv);
+          if (tile >= STAGES) mbar_wait(empty_v + 8 * st, parity);
+          mbar_expect_tx(full_v + 8 * st, L::KV_TILE);
+#pragma unroll
+          for (int b = 0; b < L::NB; ++b)
+            tma_load_3d(v_dst + b * L::KV_BLOCK, &tm_v, full_v + 8 * st,
+                        64 * b, j * BN, it.bkv);
+        }
       }
     }
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m_run[h], mx[h]);
-      alpha[h] = __expf(m_run[h] - m_new);
-      m_run[h] = m_new;
-    }
-    float lsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(sc[n][e] - m_run[e >> 1]);
-        sc[n][e] = p;
-        lsum[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) l_run[h] = l_run[h] * alpha[h] + lsum[h];
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
+  } else {
+    // ---- consumers: 64 rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int w = threadIdx.x / 128 - 1;  // consumer 0 or 1
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32;
+    const int g = lane / 4, t4 = lane % 4;  // accumulator fragment coordinates
+    const uint32_t q_base = base + 64 * w * ROW_BYTES;
+    const int qp = s.q_tma ? BM / s.group : 0;
+    // log2 domain: p = 2^(s * sl2 - m * sl2); the floor keeps a zero scale
+    // finite on masked (-inf) scores
+    const float sl2 = fmaxf(fabsf(s.scale) * LOG2E, 1e-30f);
 
-    // O += P V: the score accumulators are the A fragments of P
+    float acc[DP / 2];        // O: DP / 8 column blocks of 8 x 4 values
+    float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+    float sc[64];             // S of the current tile, then its p values
+    uint32_t pa[BN / 16][4];  // P of the previous tile as A fragments
+    float alpha[2], lsum[2];  // the current tile's rescale and row sums
+    int pos[2];               // the positions of this thread's two rows
+    int first_pos;            // the least position among the consumer's rows
+
+    auto k_tile = [&](int tile) {
+      return base + L::K_OFF + (tile % STAGES) * L::KV_TILE;
+    };
+    auto v_tile = [&](int tile) {
+      return base + L::V_OFF + (tile % STAGES) * L::KV_TILE;
+    };
+    auto parity = [](int tile) { return (uint32_t)((tile / STAGES) & 1); };
+    // S = Q K^T: 64 rows x 128 keys, DP / 16 steps of 16 dims
+    auto issue_s = [&](int tile) {
+      auto desc_q = [&](int kk) {  // kk: steps of 16 dims (32 bytes)
+        return sw128_desc(q_base + (kk / 4) * L::Q_BLOCK + (kk % 4) * 32, 16,
+                          1024);
+      };
+      auto desc_k = [&](int kk) {
+        return sw128_desc(
+            k_tile(tile) + (kk / 4) * L::KV_BLOCK + (kk % 4) * 32, 16, 1024);
+      };
+      wgmma_ss_n128<true>(sc, desc_q(0), desc_k(0));
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
-      a[1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
-      a[2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-      a[3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+      for (int kk = 1; kk < DP / 16; ++kk)
+        wgmma_ss_n128<false>(sc, desc_q(kk), desc_k(kk));
+      wgmma_commit();
+    };
+    // O += P V: V is keys x DP row-major, an MN-major B operand
+    auto issue_pv = [&](int tile) {
 #pragma unroll
-      for (int nn = 0; nn < DP / 16; ++nn) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, Vt + (kk * 16 + (mi & 1) * 8 + mr) * LD +
-                                 nn * 16 + (mi >> 1) * 8);
-        mma_bf16(acc[2 * nn], a, b[0], b[1]);
-        mma_bf16(acc[2 * nn + 1], a, b[2], b[3]);
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_rs(acc, pa[kk],
+                 sw128_desc(v_tile(tile) + kk * 16 * ROW_BYTES, L::KV_BLOCK,
+                            1024));
+      wgmma_commit();
+    };
+    // the online softmax of key tile j on its retired S (rows g and g + 8
+    // of the warp): masks only tiles crossing the diagonal or the end of
+    // the keys; leaves p in sc, the rescale in alpha and the row sums in
+    // lsum
+    auto softmax = [&](int j) {
+      const int key0 = j * BN;
+      if (key0 + BN > s.skv || (s.causal && key0 + BN - 1 > first_pos)) {
+#pragma unroll
+        for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = key0 + n * 8 + 2 * t4 + (e & 1);
+            if (key >= s.skv || (s.causal && key > pos[e >> 1]))
+              sc[4 * n + e] = -INFINITY;
+          }
       }
-    }
-    __syncthreads();  // every warp is done with this buffer
-  }
+      float mx[2] = {m_run[0], m_run[1]}, neg_m[2];
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        alpha[h] = fast_exp2((m_run[h] - mx[h]) * sl2);
+        m_run[h] = mx[h];
+        neg_m[h] = -mx[h] * sl2;
+        lsum[h] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int h = (i >> 1) & 1;
+        sc[i] = fast_exp2(fmaf(sc[i], sl2, neg_m[h]));
+        lsum[h] += sc[i];
+      }
+    };
+    // once the product that read the last P has retired: rescale O and the
+    // sums by this tile's alpha, and pack its P (the accumulator layout of
+    // n-blocks 2kk and 2kk + 1 is the A layout of step kk)
+    auto rescale_and_pack = [&]() {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l_run[h] = l_run[h] * alpha[h] + lsum[h];
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+    };
+
+    int tile = 0;                 // K/V tiles consumed so far
+    if (w == 1) turn_pass(0);     // consumer 0 goes first
+    for (int k = 0; item_index(k) < n_items; ++k) {
+      const Item it = work_item(s, n_row_tiles, bh_kv, item_index(k));
+      const int n = it.n_tiles;   // >= 1: key 0 is visible to every row
+      const bool last_item = item_index(k + 1) >= n_items;
+      const int wrow0 = it.row0 + 64 * w;  // the consumer's first row
+
+      // This thread's rows of the item, rl = 64 w + 16 warp + g + 8 h:
+      // their positions and q/out rows.  By TMA the item's rows are
+      // head-major (row = head * P + position, P = 128 / group); otherwise
+      // they are the flattened rows row0 + rl (position-major).
+      const int p0 = it.row0 / s.group;
+      bool valid[2];
+      size_t orow[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rl = 64 * w + 16 * warp + g + 8 * h;
+        const int p = s.q_tma ? p0 + rl % qp : (it.row0 + rl) / s.group;
+        const int head = s.q_tma ? rl / qp : (it.row0 + rl) % s.group;
+        pos[h] = p + s.q_offset;
+        valid[h] = p < s.sq;
+        orow[h] = (size_t)(it.bkv * s.group + head) * s.sq + p;
+      }
+      first_pos = (s.q_tma ? p0 + (qp > 64 ? 64 * w : 0) : wrow0 / s.group) +
+                  s.q_offset;
+
+      if (s.q_tma) {
+        mbar_wait(full_q, k & 1);
+      } else {
+        // Q rows [wrow0, wrow0 + 64) into the consumer's slice of each
+        // column block, in TMA's 128-byte swizzle (16-byte chunk c of row r
+        // sits at chunk c ^ (r % 8)); zeros past the rows and the head dim.
+        // A negative scale is carried by negating Q, so the softmax scale
+        // is |scale|.
+        const int rows = s.group * s.sq;
+        const uint32_t sign = s.scale < 0.f ? 0x80008000u : 0u;
+        constexpr int CPR = DP / 8;            // 16-byte chunks per row
+        constexpr int PER = 64 * CPR / 128;    // chunks per thread
+        uint4 qv[PER];                         // all loads in flight at once
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+          const int c4 = t + 128 * i, r = c4 / CPR, c = c4 % CPR;
+          qv[i] = make_uint4(0u, 0u, 0u, 0u);
+          if (wrow0 + r < rows && c * 8 < s.d)
+            qv[i] = *reinterpret_cast<const uint4*>(
+                q + q_row(s, it.bkv, wrow0 + r) * s.d + c * 8);
+        }
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+          const int c4 = t + 128 * i, r = c4 / CPR, c = c4 % CPR;
+          const uint32_t dst = q_base + (c / 8) * L::Q_BLOCK + r * ROW_BYTES +
+                               (((c % 8) ^ (r % 8)) * 16);
+          asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+                       "r"(qv[i].x ^ sign), "r"(qv[i].y ^ sign),
+                       "r"(qv[i].z ^ sign), "r"(qv[i].w ^ sign)
+                       : "memory");
+        }
+        // generic-proxy stores -> visible to wgmma; then the consumer's
+        // threads
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
+      }
 
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float l = l_run[h];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const int r = row0 + wr + g + 8 * h;
-    if (r >= rows) continue;
-    const float den = fmaxf(l, 1e-30f);
-    __nv_bfloat16* dst = o + q_row(s, bkv, r) * s.d;
+      for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int col = n * 8 + 2 * t4;
-      if (col < s.d)
-        *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
-            acc[n][2 * h] / den, acc[n][2 * h + 1] / den);
+      for (int h = 0; h < 2; ++h) {
+        m_run[h] = NEG_INF;
+        l_run[h] = 0.f;
+      }
+
+      // Phase j issues S(j) and P(j-1) V(j-1) together, and the two
+      // consumers take turns to issue theirs (named barriers 3 and 4), so
+      // one's softmax runs under the other's products.  Inside a phase the
+      // softmax of tile j starts as soon as S(j) is retired, while P(j-1)
+      // V(j-1) still runs; O is rescaled and P(j) packed only after that
+      // product has retired too.  The first and last phases are peeled off
+      // so that no product is issued under a branch (ptxas would serialise
+      // them).  Q is released after the item's last S.
+      turn_wait(w);
+      mbar_wait(full_k + 8 * (tile % STAGES), parity(tile));
+      wgmma_fence();
+      issue_s(tile);
+      turn_pass(1 - w);
+      wgmma_wait<0>();
+      pin(sc);
+      mbar_arrive(empty_k + 8 * (tile % STAGES));
+      if (n == 1 && s.q_tma) mbar_arrive(empty_q);
+      softmax(0);
+      rescale_and_pack();
+      for (int j = 1; j < n; ++j) {
+        const int cur = tile + j, prev = cur - 1;
+        turn_wait(w);
+        mbar_wait(full_k + 8 * (cur % STAGES), parity(cur));
+        mbar_wait(full_v + 8 * (prev % STAGES), parity(prev));
+        wgmma_fence();
+        issue_s(cur);
+        issue_pv(prev);
+        turn_pass(1 - w);
+        wgmma_wait<1>();
+        pin(sc);
+        mbar_arrive(empty_k + 8 * (cur % STAGES));
+        if (j == n - 1 && s.q_tma) mbar_arrive(empty_q);
+        softmax(j);
+        wgmma_wait<0>();
+        pin(acc);
+        pin(pa);  // P(j-1) is retired before P(j) takes its registers
+        mbar_arrive(empty_v + 8 * (prev % STAGES));
+        rescale_and_pack();
+      }
+      const int last = tile + n - 1;
+      turn_wait(w);
+      mbar_wait(full_v + 8 * (last % STAGES), parity(last));
+      wgmma_fence();
+      issue_pv(last);
+      if (w == 0 || !last_item) turn_pass(1 - w);
+      wgmma_wait<0>();
+      pin(acc);
+      mbar_arrive(empty_v + 8 * (last % STAGES));
+      tile += n;
+
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float l = l_run[h];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        if (!valid[h]) continue;
+        const float inv = 1.f / fmaxf(l, 1e-30f);
+        __nv_bfloat16* dst = o + orow[h] * s.d;
+#pragma unroll
+        for (int c = 0; c < DP / 8; ++c) {
+          const int col = c * 8 + 2 * t4;
+          if (col < s.d)
+            *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+                __floats2bfloat162_rn(acc[4 * c + 2 * h] * inv,
+                                      acc[4 * c + 2 * h + 1] * inv);
+        }
+      }
     }
   }
 }
@@ -399,20 +761,109 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
+// cuTensorMapEncodeTiled from the driver through the runtime, so the library
+// links against nothing but the runtime
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a bf16 tensor of `rank` dims (innermost first, the innermost contiguous)
+// in 128-byte-swizzled boxes; out-of-bounds elements read as zeros
+bool tensor_map(CUtensorMap* map, const void* ptr, int rank,
+                const cuuint64_t* dims, const cuuint32_t* box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  cuuint64_t strides[3];
+  cuuint64_t stride = dims[0] * 2;
+  for (int i = 0; i + 1 < rank; ++i) {
+    strides[i] = stride;
+    stride *= dims[i + 1];
+  }
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Once per instance: check that the entry register count covers the
+// producer's and the consumers' setmaxnreg shares (else the consumers would
+// wait for registers forever), allow its shared memory, and count the SMs
+// (one card).  Returns the SM count, or minus a CUDA error.
+template <int DP>
+int prepare_bf16() {
+  static int sms = 0;
+  if (sms > 0) return sms;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, flash_bf16_kernel<DP>);
+  if (err != cudaSuccess) return -err;
+  if (attr.numRegs * THREADS < 128 * (PRODUCER_REGS + 2 * CONSUMER_REGS))
+    return -cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(flash_bf16_kernel<DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Layout<DP>::BYTES + 1024);  // + the alignment
+  int dev = 0, n = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return -err;
+  sms = n;
+  return sms;
+}
+
 template <int DP>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                const Shape& s, int bh_kv, cudaStream_t st) {
-  const int smem = (BM + 4 * BN) * (DP + 8) * (int)sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((s.group * s.sq + BM - 1) / BM, bh_kv);
-  flash_bf16_kernel<DP><<<grid, THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      s);
+                Shape s, int bh_kv, cudaStream_t st) {
+  const int sms = prepare_bf16<DP>();
+  if (sms < 0) return -sms;
+  // K and V (D, Skv, BH_kv) in boxes of (64 columns, BN keys, 1 head);
+  // Q as (D, Sq, group, BH_kv) in boxes of one work item's rows when the
+  // group divides BM (a negative scale needs Q negated on the way in, which
+  // the per-thread loads do)
+  const cuuint64_t kv_dims[3] = {(cuuint64_t)s.d, (cuuint64_t)s.skv,
+                                 (cuuint64_t)bh_kv};
+  const cuuint32_t kv_box[3] = {64, BN, 1};
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!tensor_map(&tm_k, k, 3, kv_dims, kv_box) ||
+      !tensor_map(&tm_v, v, 3, kv_dims, kv_box))
+    return cudaErrorInvalidValue;
+  s.q_tma = BM % s.group == 0 && s.scale >= 0.f;
+  tm_q = tm_k;
+  if (s.q_tma) {
+    const cuuint64_t q_dims[4] = {(cuuint64_t)s.d, (cuuint64_t)s.sq,
+                                  (cuuint64_t)s.group, (cuuint64_t)bh_kv};
+    const cuuint32_t q_box[4] = {64, (cuuint32_t)(BM / s.group),
+                                 (cuuint32_t)s.group, 1};
+    if (!tensor_map(&tm_q, q, 4, q_dims, q_box)) return cudaErrorInvalidValue;
+  }
+  // one persistent CTA per SM (at most one per work item)
+  const int n_row_tiles = (s.group * s.sq + BM - 1) / BM;
+  const int grid = n_row_tiles * bh_kv < sms ? n_row_tiles * bh_kv : sms;
+  flash_bf16_kernel<DP><<<grid, THREADS, Layout<DP>::BYTES + 1024, st>>>(
+      tm_q, tm_k, tm_v, static_cast<const __nv_bfloat16*>(q),
+      static_cast<__nv_bfloat16*>(o), s, n_row_tiles, bh_kv);
   return cudaGetLastError();
 }
 
@@ -444,17 +895,12 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   if (bh_kv <= 0 || bh % bh_kv != 0 || sq <= 0 || skv <= 0 || d <= 0 ||
       d > 128 || d % 8 != 0 || q_offset < 0)
     return cudaErrorInvalidValue;
-  const Shape s{bh / bh_kv, sq, skv, d, q_offset, causal, scale};
+  const Shape s{bh / bh_kv, sq, skv, d, q_offset, causal, scale, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return d <= 64 ? launch_bf16<64>(q, k, v, out, s, bh_kv, st)
+                   : launch_bf16<128>(q, k, v, out, s, bh_kv, st);
   const int dp = d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : 128;
-  if (is_bf16) {
-    switch (dp) {
-      case 16: return launch_bf16<16>(q, k, v, out, s, bh_kv, st);
-      case 32: return launch_bf16<32>(q, k, v, out, s, bh_kv, st);
-      case 64: return launch_bf16<64>(q, k, v, out, s, bh_kv, st);
-      default: return launch_bf16<128>(q, k, v, out, s, bh_kv, st);
-    }
-  }
   switch (dp) {
     case 16: return launch_f32<16>(q, k, v, out, s, bh_kv, st);
     case 32: return launch_f32<32>(q, k, v, out, s, bh_kv, st);

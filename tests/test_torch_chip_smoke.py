@@ -90,7 +90,8 @@ def test_attention_flops_count_the_causal_pairs(smoke):
 
 def test_flash_kernel_phase_row(smoke, capsys):
     (row,) = smoke.flash_kernel_phase(0, "cpu", device="cpu",
-                                      shape=(2, 4, 2, 48, 16), ragged=40)
+                                      shape=(2, 4, 2, 48, 16), ragged=40,
+                                      wide=(1, 7, 1, 40, 16))
     assert row["name"] == "flash_attention" and row["err"] == 0.0
     assert row["source"] == "src/repro_torch/csrc/flash_attention.cu"
     assert row["replaces"].endswith("flash_attention.py:73")
@@ -98,6 +99,9 @@ def test_flash_kernel_phase_row(smoke, capsys):
     out = capsys.readouterr().out
     assert out.count("[kernel] flash_attention") == 1
     assert "ragged_err=0.000e+00" in out and "f32_err=0.000e+00" in out
+    assert "group7_err=0.000e+00 (BH=7, BH_kv=1, S=40)" in out
+    flops = smoke.attention_flops(8, 48, 48, 16, True)
+    assert f"tflops={flops / 1.0 / 1e9:.1f}" in out      # stubbed 1 ms
 
 
 def test_vocab_bar_ignores_the_padded_vocabulary(smoke):

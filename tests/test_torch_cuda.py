@@ -172,11 +172,19 @@ def test_tensor_stats_on_the_card_matches_the_cpu(device):
 
 
 # (BH, Sq, BH_kv, Skv, D): the reference's kernel sweep (test_kernels.py),
-# ragged lengths, and the serving prefill (qwen2.5-3b, B=4, S=2048)
+# ragged lengths, the serving prefill (qwen2.5-3b, B=4, S=2048), and the
+# edges of the kernel's 128-row, 128-key tiles: groups of 7 and 4 and 1 at
+# D=128 with group * Sq not a multiple of 128, fewer keys than one tile,
+# D=64 with one row past a tile, D=8 padded to the 64-column instance, and
+# a group of 7 with more work items than the card has SMs
 FLASH_SHAPES = [(4, 256, 2, 256, 32), (2, 512, 2, 512, 64),
                 (8, 256, 2, 512, 16), (8, 40, 2, 40, 16), (4, 200, 2, 200, 64),
                 (16, 2000, 2, 2000, 128), (6, 77, 3, 77, 24),
-                (64, 2048, 8, 2048, 128)]
+                (64, 2048, 8, 2048, 128),
+                (14, 300, 2, 300, 128), (8, 333, 2, 333, 128),
+                (3, 257, 3, 257, 128), (8, 50, 2, 13, 128),
+                (4, 129, 2, 129, 64), (4, 100, 2, 100, 8),
+                (28, 1000, 4, 1000, 64)]   # more work items than SMs
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -201,6 +209,26 @@ def test_flash_attention_kernel_matches_plain(device, dtype, shape):
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    want.float().cpu().numpy(), atol=atol,
                                    err_msg=f"causal={causal} off={q_offset}")
+
+
+@pytest.mark.parametrize("sm_scale", [-0.3, 0.0])
+@pytest.mark.parametrize("shape", [(16, 100, 2, 100, 128), (14, 90, 2, 90, 64)])
+def test_flash_attention_kernel_takes_any_scale(device, sm_scale, shape):
+    """A negative scale (carried by negating Q on its way in) and a zero
+    scale (uniform weights over the visible keys) match the plain version,
+    for a group that divides the kernel's 128 rows and one that does not."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    bh, sq, bh_kv, skv, d = shape
+    gen = torch.Generator().manual_seed(bh + d)
+    q, k, v = (torch.randn(*s, generator=gen).to(device, torch.bfloat16)
+               for s in ((bh, sq, d), (bh_kv, skv, d), (bh_kv, skv, d)))
+    for causal in (True, False):
+        got = fa.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+        want = fa_ref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), atol=2e-2,
+                                   err_msg=f"causal={causal}")
 
 
 def test_flash_attention_wrapper_checks_its_inputs(device):

@@ -36,7 +36,8 @@ def _close(port, ref, atol):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("sq,skv,h,kh,d", [
-    (256, 256, 4, 2, 32), (512, 512, 2, 2, 64), (256, 512, 8, 2, 16)])
+    (256, 256, 4, 2, 32), (512, 512, 2, 2, 64), (256, 512, 8, 2, 16),
+    (256, 256, 16, 2, 128)])     # the serving geometry (qwen2.5-3b's heads)
 def test_plain_version_matches_pallas_kernel(dtype, sq, skv, h, kh, d):
     (q, k, v), (pq, pk, pv) = _inputs(
         sq + d, (h, sq, d), (kh, skv, d), (kh, skv, d), dtype=dtype)

@@ -16,14 +16,16 @@ itself).  Phases, each printing its numbers:
    (3 vendors);
 4. every kernel against its plain PyTorch version, timed with CUDA events
    beside its bound: the charge-path kernels on the estimation inputs
-   (features bit-exact, charge at rtol 1e-5), the line kernels (popcount,
+   (features bit-exact; charge at rtol 1e-5, the same bits on a second
+   call, and GB/s beside the time), the line kernels (popcount,
    toggle, byte LUT, BDI) bit-exact on a seeded 32 MiB bf16 tensor, with
    ``torch.take`` timed beside the byte LUT;
 5. ``estimate`` end to end for 3 kinds x 4 modes through ``impl='cuda'``
    against ``impl='vectorized'`` (rtol 1e-5), surface summing to mean, pad
    rows and pad commands adding zero, every kernel of the path launched;
-   the device time of one estimate by kernel (``torch.profiler``); and a
-   small input against the command-by-command oracle on the CPU;
+   the device time of one estimate by kernel (``torch.profiler``), one
+   device operation per call of each charge wrapper; and a small input
+   against the command-by-command oracle on the CPU;
 6. ``[study]``: the paper's Section 10 encoding study at full size — all
    23 synthetic SPEC apps x 4 encodings (92 traces of 6000 requests),
    scored by ``encoding_energy_study`` on the card, the same encoded
@@ -196,21 +198,64 @@ def kernel_inputs(tb, models):
         table=models["micron"].idd_table)
 
 
+def charge_rows(tb, models, x=None) -> list[dict]:
+    """The six charge kernels' rows on the estimation batch: each
+    wrapper, its plain version, and the bytes and operations of its
+    bound; ``x`` is ``kernel_inputs``'s dict (made here when omitted)."""
+    from repro_torch.kernels.baseline_energy import baseline_energy as be
+    from repro_torch.kernels.vampire_energy import vampire_energy as ve
+    x = kernel_inputs(tb, models) if x is None else x
+    tr = tb.trace
+    t, n = tr.cmd.shape
+    m = t * n
+    v = x["params"].shape[0]
+    ones, togg = ve.batched_features(x["data"], x["prev"], x["tmask"])
+    vargs = (ones.reshape(t, n), togg.reshape(t, n), tr.cmd, tr.bank, tr.row,
+             tr.dt, x["state"], x["w"], x["params"])
+    rows = []
+    for surface, fn, line in ((False, ve.vampire_charge, 220),
+                              (True, ve.vampire_charge_surface, 179)):
+        out_bytes = t * v * (64 if surface else 1) * 4
+        rows.append(dict(
+            name=fn.__name__, fn=lambda fn=fn: fn(*vargs),
+            plain=lambda s=surface: ve.vampire_charge_plain(*vargs,
+                                                            surface=s),
+            args=vargs, kind="vampire", surface=surface,
+            source="src/repro_torch/csrc/vampire_energy.cu",
+            replaces=("src/repro/kernels/vampire_energy/vampire_energy.py:"
+                      f"{line}"),
+            nbytes=m * 8 * 4 + v * 123 * 4 + out_bytes, nops=m * v * 45))
+
+    bargs = (tr.cmd, tr.bank, tr.row, tr.dt, x["state"], x["w"],
+             x["any_act"], x["table"])
+    for (kind, surface), fn in be.WRAPPERS.items():
+        planes = 6 if surface else 4     # + bank, row for the cell index
+        out_bytes = t * v * (64 if surface else 1) * 4
+        rows.append(dict(
+            name=fn.__name__, fn=lambda fn=fn: fn(*bargs),
+            plain=lambda k=kind, s=surface:
+                be.baseline_charge_plain(k, *bargs, surface=s),
+            args=bargs, kind=kind, surface=surface,
+            source="src/repro_torch/csrc/baseline_energy.cu",
+            replaces=("src/repro/kernels/baseline_energy/baseline_energy.py:"
+                      + ("81" if surface else "97")),
+            nbytes=m * planes * 4 + t * 4 + v * 40 + out_bytes,
+            nops=m * v * 20))
+    return rows
+
+
 def kernel_phase(tb, models, card: str) -> list[dict]:
     """Phase 4: every kernel against its plain version at the path's
     shapes, timed beside its bound."""
     import torch
 
-    from repro_torch.kernels.baseline_energy import baseline_energy as be
     from repro_torch.kernels.vampire_energy import vampire_energy as ve
     x = kernel_inputs(tb, models)
-    tr = tb.trace
-    t, n = tr.cmd.shape
+    t, n = tb.trace.cmd.shape
     m = t * n
     v = x["params"].shape[0]
     flush_buf = torch.empty(96 << 20, dtype=torch.uint8, device=tb.device)
     flush = flush_buf.zero_
-    rows = []
 
     # features: exact
     ones, togg = ve.batched_features(x["data"], x["prev"], x["tmask"])
@@ -219,62 +264,65 @@ def kernel_phase(tb, models, card: str) -> list[dict]:
     check(torch.equal(ones, p_ones) and torch.equal(togg, p_togg),
           "features kernel differs from its plain version")
     nbytes = m * (64 + 64 + 4) + 2 * m * 4
-    rows.append(dict(
+    rows = [dict(
         name="batched_features", fn=lambda: ve.batched_features(
             x["data"], x["prev"], x["tmask"]),
         plain=lambda: ve.batched_features_plain(x["data"], x["prev"],
                                                 x["tmask"]),
         source="src/repro_torch/csrc/features.cu",
         replaces="src/repro/kernels/vampire_energy/vampire_energy.py:90",
-        err=0.0, bound=bound(nbytes, m * 64)))
+        err=0.0, bound=bound(nbytes, m * 64))]
+    rows += charge_rows(tb, models, x)
 
-    ones, togg = ones.reshape(t, n), togg.reshape(t, n)
-    vargs = (ones, togg, tr.cmd, tr.bank, tr.row, tr.dt, x["state"], x["w"],
-             x["params"])
-    for surface, fn, line in ((False, ve.vampire_charge, 220),
-                              (True, ve.vampire_charge_surface, 179)):
-        got = fn(*vargs)
-        want = ve.vampire_charge_plain(*vargs, surface=surface)
-        err = assert_close(got, want, RTOL, fn.__name__)
-        out_bytes = t * v * (64 if surface else 1) * 4
-        rows.append(dict(
-            name=fn.__name__, fn=lambda fn=fn: fn(*vargs),
-            plain=lambda s=surface: ve.vampire_charge_plain(*vargs,
-                                                            surface=s),
-            source="src/repro_torch/csrc/vampire_energy.cu",
-            replaces=("src/repro/kernels/vampire_energy/vampire_energy.py:"
-                      f"{line}"),
-            err=err, bound=bound(m * 8 * 4 + v * 123 * 4 + out_bytes,
-                                 m * v * 45)))
-
-    for (kind, surface), fn in be.WRAPPERS.items():
-        bargs = (tr.cmd, tr.bank, tr.row, tr.dt, x["state"], x["w"],
-                 x["any_act"], x["table"])
-        got = fn(*bargs)
-        want = be.baseline_charge_plain(kind, *bargs, surface=surface)
-        err = assert_close(got, want, RTOL, fn.__name__)
-        planes = 6 if surface else 4     # + bank, row for the cell index
-        out_bytes = t * v * (64 if surface else 1) * 4
-        rows.append(dict(
-            name=fn.__name__, fn=lambda fn=fn, b=bargs: fn(*b),
-            plain=lambda k=kind, s=surface, b=bargs:
-                be.baseline_charge_plain(k, *b, surface=s),
-            source="src/repro_torch/csrc/baseline_energy.cu",
-            replaces=("src/repro/kernels/baseline_energy/baseline_energy.py:"
-                      + ("81" if surface else "97")),
-            err=err, bound=bound(m * planes * 4 + t * 4 + v * 40 + out_bytes,
-                                 m * v * 20)))
+    for r in rows[1:]:           # the charge kernels
+        got = r["fn"]()
+        r["err"] = assert_close(got, r["plain"](), RTOL, r["name"])
+        check(torch.equal(got, r["fn"]()),
+              f"{r['name']}: two calls give different bits")
+        r["bound"] = bound(r["nbytes"], r["nops"])
 
     for r in rows:
         r["ms"] = event_ms(r["fn"], 20, flush)
         r["plain_ms"] = event_ms(r["plain"], 5, flush)
+        rate = ("" if r is rows[0] else
+                f" gb_per_s={r['nbytes'] / r['ms'] / 1e6:.1f}")
         print(f"[kernel] {r['name']}: ms={r['ms']:.4f} "
               f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
               f"({r['bound'][1]}) share_of_bound="
-              f"{r['bound'][0] / r['ms']:.3f} max_abs_err={r['err']:.3e} "
+              f"{r['bound'][0] / r['ms']:.3f}{rate} "
+              f"max_abs_err={r['err']:.3e} "
               f"shape=(T={t}, N={n}, V={v}) card=\"{card}\"", flush=True)
     del flush_buf
     return rows
+
+
+def one_kernel_phase(rows: list[dict]) -> None:
+    """Each charge wrapper's call runs one device operation, its kernel:
+    no reduction or fill after it (``torch.profiler``; run after the
+    timed phases, so the profiler is not attached while they run)."""
+    for r in rows:
+        if "nbytes" not in r:
+            continue
+        ops = device_kernels(r["fn"])
+        check(len(ops) == 1, f"{r['name']}: one call runs {len(ops)} device "
+                             f"operations ({ops}), not one kernel")
+        print(f"[profile] {r['name']}: one call runs one device operation, "
+              f"{ops[0][:70]}", flush=True)
+
+
+def device_kernels(fn) -> list[str]:
+    """The device operations (kernels, copies, fills) that one call of
+    ``fn`` runs, as ``torch.profiler`` records them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def line_kernel_phase(seed: int, card: str, device="cuda",
@@ -988,6 +1036,7 @@ def main(argv=None) -> int:
     launches, times = e2e_phase(tb, trs, models,
                                 {r["name"]: r["ms"] for r in rows}, card)
     profile_phase(tb, models, times["vampire", "mean"], card)
+    one_kernel_phase(rows)
     oracle_phase(models, trs)
     del tb
 

@@ -1,5 +1,5 @@
 // The datasheet-baseline (Micron calculator, DRAMPower) charge kernel,
-// mean and surface variants, templated on the baseline KIND.
+// mean and surface instances, templated on the baseline KIND.
 //
 // Replaces: repro/kernels/baseline_energy/baseline_energy.py
 //   baseline_energy_pallas with _make_kernel(kind) (mean/range/distribution)
@@ -13,13 +13,23 @@
 //   drampower: IDD2N + (IDD3N - IDD2N) * open / 8, the ACT pair charge per
 //              ACT, (IDD4R/W - bg) per burst;
 //   both: REF (IDD5B - IDD2N) * tRFC, times the weight.  q_act is
-//   act_pair_charge, worked out once per block.  Outputs as in
-//   vampire_energy.cu: (V, T, chunks) or (V, T, chunks, 64) partials.
-// Bound on the H100: bytes (7 words per command in, ~15 flops per vendor).
-// Design: as vampire_energy.cu.  The IDD row and q_act sit in shared
-//   memory, any_act is one float per trace, the open-bank count is the
-//   popcount of the packed state word's mask.
-#include "common.cuh"
+//   act_pair_charge, worked out once per vendor and block.  Outputs: the
+//   (T, V) sums, or the (T, V, 64) sums per (bank, row-band) cell.
+// Bound on the H100: bytes.  Per command it reads 4 words (cmd, dt, state,
+//   w), 6 for the surface (+ bank, row), and does ~15 flops per vendor.
+//   What holds it back on the card: as vampire_energy.cu, the launch
+//   floor and the cluster's start and finish are half of the time at the
+//   estimation batch's 16 MB.
+// Design: charge.cuh's kernel, as vampire_energy.cu: each command is read
+//   once (cp.async, staged two steps ahead for the mean, one for the
+//   surface) for a group of up to 32 vendors (16 floats each in shared
+//   memory: the IDD row, act_pair_charge and the background current by
+//   state), decoded once and charged without branches; the tiles of a
+//   trace are one cluster's blocks and their partials are summed in rank
+//   order inside the kernel; the surface adds into per-warp cell bins,
+//   O(1) per command per vendor.  The open-bank count is the popcount of
+//   the packed state word's mask.
+#include "charge.cuh"
 
 namespace {
 
@@ -29,119 +39,165 @@ constexpr int MICRON = 0, DRAMPOWER = 1;
 constexpr int N_IDD = 10;
 enum { IDD0, IDD2N, IDD2P1, IDD3N, IDD4R, IDD4W, IDD5B, IDD2P0, IDD3P, IDD6 };
 
+// each vendor's shared-memory row: the IDD row, act_pair_charge, then the
+// background current by state (micron: IDD3N in state 0), as the LUT of
+// the low-power states reads it
+constexpr int P_QACT = N_IDD;
+constexpr int P_BG = N_IDD + 1;
+constexpr int P_SMEM = P_BG + 5;
+
+// One command as every vendor sees it, worked out once per command.
+struct Command {
+  float dt, w, open;
+  int bgi, cmd, cell;
+  bool spec;      // micron: powered up in a trace with an ACT
+};
+
+struct Scalars {
+  float idd2n, idd3n, idd4r, idd4w, idd5b, q_act;
+};
+
+// The masked charge of one command for the vendor row at idd: the
+// arithmetic of the TPU kernel's _masked_charge, each class worked out
+// and the command's kept, so the lanes of a warp do not diverge.
 template <int KIND>
-__device__ __forceinline__ float masked_charge(const float* idd, float q_act,
-                                               float any_act, int c, int dti,
-                                               int st, float w) {
-  const int bg = bg_state(st);
-  const float dt = (float)dti;
-  const float i_low = bg == 1 ? idd[IDD2P1]
-                              : bg == 2 ? idd[IDD2P0]
-                                        : bg == 3 ? idd[IDD3P] : idd[IDD6];
+__device__ __forceinline__ float masked_charge(const float* idd,
+                                               const Scalars& u,
+                                               const Command& d) {
+  const float dt = d.dt;
+  const float i_low = idd[P_BG + d.bgi];
   const float burst = fminf(dt, T_BURST);
   float charge;
   if (KIND == MICRON) {
-    const float i_bg = bg == 0 ? idd[IDD3N] : i_low;
+    const float i_bg = i_low;     // IDD3N in state 0
     charge = i_bg * dt;
-    if (bg == 0 && any_act != 0.0f) charge = charge + q_act * dt / T_RC;
-    if (c == RD) charge = charge + idd[IDD4R] * burst;
-    if (c == WR) charge = charge + idd[IDD4W] * burst;
+    const float spec = charge + u.q_act * dt / T_RC;
+    charge = d.spec ? spec : charge;
+    const float rd = charge + u.idd4r * burst;
+    const float wr = charge + u.idd4w * burst;
+    charge = d.cmd == RD ? rd : d.cmd == WR ? wr : charge;
   } else {
-    const float open = (float)__popc(open_mask(st));
     const float i_bg =
-        bg == 0 ? idd[IDD2N] + (idd[IDD3N] - idd[IDD2N]) * open / 8.0f : i_low;
+        d.bgi == 0 ? u.idd2n + (u.idd3n - u.idd2n) * d.open / 8.0f : i_low;
     charge = i_bg * dt;
-    if (c == ACT) charge = charge + q_act;
-    if (c == RD) charge = charge + (idd[IDD4R] - i_bg) * burst;
-    if (c == WR) charge = charge + (idd[IDD4W] - i_bg) * burst;
+    const float act = charge + u.q_act;
+    const float rd = charge + (u.idd4r - i_bg) * burst;
+    const float wr = charge + (u.idd4w - i_bg) * burst;
+    charge = d.cmd == ACT ? act : d.cmd == RD ? rd : d.cmd == WR ? wr : charge;
   }
-  if (c == REF) charge = charge + (idd[IDD5B] - idd[IDD2N]) * T_RFC;
-  return charge * w;
+  const float ref = charge + (u.idd5b - u.idd2n) * T_RFC;
+  return (d.cmd == REF ? ref : charge) * d.w;
 }
 
-template <int KIND, bool SURFACE>
-__global__ void __launch_bounds__(THREADS)
-baseline_charge_kernel(const int* __restrict__ cmd,
-                       const int* __restrict__ bank,
-                       const int* __restrict__ row, const int* __restrict__ dt,
-                       const int* __restrict__ state,
-                       const float* __restrict__ w,
-                       const float* __restrict__ any_act,
-                       const float* __restrict__ table, float* __restrict__ out,
-                       int n_traces, int n_cmds, int n_chunks) {
-  __shared__ float idd[N_IDD + 1];
-  __shared__ float sred[SURFACE ? CHUNK : THREADS];
-  __shared__ unsigned char scell[SURFACE ? CHUNK : 1];
-  __shared__ float squarter[SURFACE ? THREADS : 1];
-  const int chunk = blockIdx.x, t = blockIdx.y, v = blockIdx.z;
-  if (threadIdx.x < N_IDD) idd[threadIdx.x] = table[v * N_IDD + threadIdx.x];
-  __syncthreads();
-  if (threadIdx.x == 0)  // act_pair_charge (baselines_power.py)
-    idd[N_IDD] = fmaxf((idd[IDD0] - (idd[IDD3N] * T_RAS + idd[IDD2N] * T_RP) /
-                                        T_RC) * T_RC,
-                       0.0f);
-  __syncthreads();
-  const float q_act = idd[N_IDD];
-  const float act = any_act[t];
-
-  const long long base = (long long)t * n_cmds;
-  float acc = 0.0f;
-#pragma unroll
-  for (int k = 0; k < PER_THREAD; ++k) {
-    const int slot = k * THREADS + threadIdx.x;
-    const int j = chunk * CHUNK + slot;
-    float cw = 0.0f;
-    int cell = 0;
-    if (j < n_cmds) {
-      const long long g = base + j;
-      cw = masked_charge<KIND>(idd, q_act, act, cmd[g], dt[g], state[g], w[g]);
-      if (SURFACE) cell = cell_of(bank[g], row[g]);
-    }
-    if (SURFACE) {
-      sred[slot] = cw;
-      scell[slot] = (unsigned char)cell;
-    } else {
-      acc += cw;
-    }
-  }
-  const long long o = ((long long)v * n_traces + t) * n_chunks + chunk;
-  if (SURFACE) {
+// The baseline side of charge.cuh's kernel: the group's IDD rows,
+// act_pair_charge (baselines_power.py) and background currents in shared
+// memory, any_act per trace; bank and row are read only when CELLS (the
+// surface).
+template <int KIND, bool CELLS>
+struct Baseline {
+  static constexpr int P = P_SMEM;
+  // cmd, dt, state, w (+ bank, row); the mean stages 2 steps (32 KB)
+  static constexpr int PLANES = CELLS ? 6 : 4;
+  using Dec = Command;
+  using Vend = Scalars;
+  struct Args {
+    const int *cmd, *bank, *row, *dt, *state;
+    const float *w, *any_act, *table;
+  };
+  struct Cmds {
+    float w[4];
+    int cmd[4], bank[4], row[4], dt[4], st[4];
+  };
+  __device__ static void load_params(float* sp, const Args& a, int g0,
+                                     int vg) {
+    for (int i = threadIdx.x; i < vg * N_IDD; i += CT)
+      sp[(i / N_IDD) * P + i % N_IDD] = a.table[(long long)g0 * N_IDD + i];
     __syncthreads();
-    cell_sums(sred, scell, squarter, out + o * N_CELLS);
-  } else {
-    const float total = block_sum(acc, sred);
-    if (threadIdx.x == 0) out[o] = total;
+    for (int v = threadIdx.x; v < vg; v += CT) {
+      float* idd = sp + v * P;
+      idd[P_QACT] = fmaxf((idd[IDD0] - (idd[IDD3N] * T_RAS +
+                                         idd[IDD2N] * T_RP) / T_RC) * T_RC,
+                          0.0f);
+      idd[P_BG] = KIND == MICRON ? idd[IDD3N] : 0.0f;
+      idd[P_BG + 1] = idd[IDD2P1];
+      idd[P_BG + 2] = idd[IDD2P0];
+      idd[P_BG + 3] = idd[IDD3P];
+      idd[P_BG + 4] = idd[IDD6];
+    }
+    __syncthreads();
   }
-}
+  __device__ static float trace_scalar(const Args& a, int t) {
+    return a.any_act[t];
+  }
+  __device__ static const int* plane(const Args& a, int p) {
+    switch (p) {
+      case 0: return a.cmd;
+      case 1: return a.dt;
+      case 2: return a.state;
+      case 3: return reinterpret_cast<const int*>(a.w);
+      case 4: return a.bank;
+      default: return a.row;
+    }
+  }
+  __device__ static void unpack(Cmds& c, int p, const int4 v) {
+    switch (p) {
+      case 0: unpack4(v, c.cmd); break;
+      case 1: unpack4(v, c.dt); break;
+      case 2: unpack4(v, c.st); break;
+      case 3: unpack4(v, c.w); break;
+      case 4: unpack4(v, c.bank); break;
+      default: unpack4(v, c.row); break;
+    }
+  }
+  __device__ static Dec decode(const Cmds& c, int k, float any_act) {
+    Dec d;
+    const int bg = bg_state(c.st[k]);
+    d.dt = (float)c.dt[k];
+    d.w = c.w[k];
+    d.open = (float)__popc(open_mask(c.st[k]));
+    d.bgi = min(bg, 4);
+    d.cmd = c.cmd[k];
+    d.cell = CELLS ? cell_of(c.bank[k], c.row[k]) : 0;
+    d.spec = bg == 0 && any_act != 0.0f;
+    return d;
+  }
+  __device__ static int cell(const Dec& d) { return d.cell; }
+  __device__ static Vend vendor(const float* idd) {
+    return Vend{idd[IDD2N], idd[IDD3N], idd[IDD4R], idd[IDD4W], idd[IDD5B],
+                idd[P_QACT]};
+  }
+  __device__ static float charge(const float* idd, const Vend& u,
+                                 const Dec& d) {
+    return masked_charge<KIND>(idd, u, d);
+  }
+};
 
 template <int KIND, bool SURFACE>
 int launch(const void* cmd, const void* bank, const void* row, const void* dt,
            const void* state, const void* w, const void* any_act,
            const void* table, void* out, int n_traces, int n_cmds,
-           int n_vendors, void* stream) {
-  const int n_chunks = (n_cmds + CHUNK - 1) / CHUNK;
-  if (n_traces > 0 && n_vendors > 0 && n_chunks > 0) {
-    dim3 grid(n_chunks, n_traces, n_vendors);
-    baseline_charge_kernel<KIND, SURFACE>
-        <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-            (const int*)cmd, (const int*)bank, (const int*)row,
-            (const int*)dt, (const int*)state, (const float*)w,
-            (const float*)any_act, (const float*)table, (float*)out,
-            n_traces, n_cmds, n_chunks);
-  }
-  return (int)cudaGetLastError();
+           int n_vendors, int cluster, int group, int phase,
+           void* stream) {
+  using Pol = Baseline<KIND, SURFACE>;
+  const typename Pol::Args a{(const int*)cmd,   (const int*)bank,
+                             (const int*)row,   (const int*)dt,
+                             (const int*)state, (const float*)w,
+                             (const float*)any_act, (const float*)table};
+  return launch_charge<Pol, SURFACE>(a, out, n_traces, n_cmds, n_vendors,
+                                     cluster, group, phase, stream);
 }
 
 }  // namespace
 
-#define REPRO_BASELINE_ENTRY(NAME, KIND, SURFACE)                             \
-  extern "C" int NAME(const void* cmd, const void* bank, const void* row,     \
-                      const void* dt, const void* state, const void* w,       \
-                      const void* any_act, const void* table, void* out,      \
-                      int n_traces, int n_cmds, int n_vendors, void* stream) { \
-    return launch<KIND, SURFACE>(cmd, bank, row, dt, state, w, any_act,       \
-                                 table, out, n_traces, n_cmds, n_vendors,     \
-                                 stream);                                     \
+#define REPRO_BASELINE_ENTRY(NAME, KIND, SURFACE)                          \
+  extern "C" int NAME(const void* cmd, const void* bank, const void* row,  \
+                      const void* dt, const void* state, const void* w,    \
+                      const void* any_act, const void* table, void* out,   \
+                      int n_traces, int n_cmds, int n_vendors, int cluster, \
+                      int group, int phase, void* stream) {                \
+    return launch<KIND, SURFACE>(cmd, bank, row, dt, state, w, any_act,    \
+                                 table, out, n_traces, n_cmds, n_vendors,  \
+                                 cluster, group, phase, stream);           \
   }
 
 REPRO_BASELINE_ENTRY(repro_micron_charge, MICRON, false)

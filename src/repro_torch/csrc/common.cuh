@@ -1,5 +1,5 @@
 // Shared constants and helpers of the kernels (DDR3L-800 command codes and
-// timing, the per-command state packing, the reduction geometry, and the
+// timing, the per-command state packing and (bank, row-band) cell, and the
 // per-line bit counts of the line kernels).
 #pragma once
 #include <cuda_runtime.h>
@@ -24,44 +24,6 @@ __device__ __forceinline__ int bg_state(int st) { return (st >> 2) & 7; }
 __device__ __forceinline__ int open_mask(int st) { return (st >> 8) & 0xff; }
 __device__ __forceinline__ int cell_of(int bank, int row) {
   return ((bank & 7) << 3) | ((row >> ROW_BAND_SHIFT) & 7);
-}
-
-// One block covers CHUNK commands of one (trace, vendor) pair with
-// THREADS threads, PER_THREAD commands each (strided, so loads coalesce).
-constexpr int THREADS = 256;
-constexpr int CHUNK = 1024;
-constexpr int PER_THREAD = CHUNK / THREADS;
-
-// Deterministic block reductions of the per-command masked charges.
-// Mean: each thread sums its commands in order, then a fixed tree.
-__device__ __forceinline__ float block_sum(float acc, float* sred) {
-  sred[threadIdx.x] = acc;
-  __syncthreads();
-  for (int s = THREADS / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) sred[threadIdx.x] += sred[threadIdx.x + s];
-    __syncthreads();
-  }
-  return sred[0];
-}
-
-// Surface: thread (cell c, quarter q) sums, in index order, the charges of
-// cell c among commands [q*CHUNK/4, (q+1)*CHUNK/4) of the chunk; the four
-// quarters are then added in order.  Needs scharge/scell filled for the
-// whole chunk and THREADS == 4 * N_CELLS.
-static_assert(THREADS == 4 * N_CELLS, "surface reduction geometry");
-__device__ __forceinline__ void cell_sums(const float* scharge,
-                                          const unsigned char* scell,
-                                          float* squarter, float* out) {
-  const int c = threadIdx.x & (N_CELLS - 1);
-  const int q = threadIdx.x / N_CELLS;
-  float s = 0.0f;
-  for (int i = q * (CHUNK / 4); i < (q + 1) * (CHUNK / 4); ++i)
-    if (scell[i] == c) s += scharge[i];
-  squarter[threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.x < N_CELLS)
-    out[c] = ((squarter[c] + squarter[N_CELLS + c]) + squarter[2 * N_CELLS + c])
-             + squarter[3 * N_CELLS + c];
 }
 
 // Per-line bit counts: four threads share a 64-byte line, each holding one

@@ -17,8 +17,8 @@ import torch
 from repro_torch.core.baselines_power import act_pair_charge
 from repro_torch.core.dram import ACT, RD, REF, TIMING, WR
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (on_cpu, partials, reduce_charge,
-                                       require_cuda, sum_partials)
+from repro_torch.kernels.common import (launch_charge, on_cpu,
+                                       reduce_charge, require_cuda)
 
 KINDS = ("micron", "drampower")
 N_IDD = 10
@@ -78,21 +78,19 @@ def _make_wrapper(kind: str, surface: bool):
         t, n = cmd.shape
         v = table.shape[0]
         f32, i32 = torch.float32, torch.int32
-        dev = require_cuda(
+        require_cuda(
             dict(cmd=cmd, bank=bank, row=row, dt=dt, state=state, w=w,
                  any_act=any_act, table=table),
             dict(cmd=i32, bank=i32, row=i32, dt=i32, state=i32, w=f32,
                  any_act=f32, table=f32),
             dict(cmd=(t, n), bank=(t, n), row=(t, n), dt=(t, n),
                  state=(t, n), w=(t, n), any_act=(t,), table=(v, N_IDD)))
-        out = partials(v, t, n, surface, dev)
         fn = getattr(build.library("baseline_energy"), symbol)
-        rc = fn(*(build.ptr(x) for x in (cmd, bank, row, dt, state, w,
-                                         any_act, table, out)),
-                t, n, v, build.stream(dev))
-        build.check(rc, f"{kind} charge kernel")
+        planes = dict(cmd=cmd, bank=bank, row=row, dt=dt, state=state, w=w)
+        out = launch_charge(fn, (*planes.values(), any_act, table), planes,
+                            t, n, v, surface, f"{kind} charge kernel")
         wrapper.launches += 1
-        return sum_partials(out)
+        return out
 
     wrapper.__name__ = wrapper.__qualname__ = symbol[len("repro_"):]
     wrapper.__doc__ = (

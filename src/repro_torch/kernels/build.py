@@ -3,8 +3,9 @@
 Each ``repro_torch/csrc/*.cu`` source is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface under
 ``<checkout>/build/repro_torch/`` at first use, and loaded with
-``ctypes``.  A library's file name carries a hash of its source and of
-the flags, so an edited source is rebuilt and an unchanged one is reused.
+``ctypes``.  A library's file name carries a hash of its source, of the
+shared headers and of the flags, so an edited source is rebuilt and an
+unchanged one is reused.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Calling convention of every exported function: pointers and the CUDA
@@ -39,12 +40,14 @@ SIGNATURES = {
     "features": {
         "repro_features": [_P, _P, _P, _P, _P, _I64, _P],
     },
+    # charge kernels: the planes, the output, then (n_traces, n_cmds,
+    # n_vendors, cluster, group, phase) and the stream
     "vampire_energy": {
-        name: [_P] * 9 + [_P, _I32, _I32, _I32, _P]
+        name: [_P] * 10 + [_I32] * 6 + [_P]
         for name in ("repro_vampire_charge", "repro_vampire_charge_surface")
     },
     "baseline_energy": {
-        f"repro_{kind}_charge{sfx}": [_P] * 8 + [_P, _I32, _I32, _I32, _P]
+        f"repro_{kind}_charge{sfx}": [_P] * 9 + [_I32] * 6 + [_P]
         for kind in ("micron", "drampower") for sfx in ("", "_surface")
     },
     "line_bits": {
@@ -79,8 +82,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    common = (CSRC / "common.cuh").read_bytes()
-    digest = hashlib.sha1(src + common + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 

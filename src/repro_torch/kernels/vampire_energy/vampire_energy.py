@@ -8,9 +8,9 @@ does:
    toggle popcount.  Replaces ``batched_features_pallas``.
 2. :func:`vampire_charge` / :func:`vampire_charge_surface`
    (``vampire_energy.cu``) — the per-vendor charge kernel over compact
-   per-command inputs, reduced to a ``(T, V)`` matrix or to the
-   ``(T, V, 64)`` structural surface.  Replace ``batched_energy_pallas``
-   (``_energy_kernel`` / ``_surface_kernel``).
+   per-command inputs, reduced inside the kernel to a ``(T, V)`` matrix or
+   to the ``(T, V, 64)`` structural surface.  Replace
+   ``batched_energy_pallas`` (``_energy_kernel`` / ``_surface_kernel``).
 
 Each wrapper launches its kernel for CUDA tensors (and raises on anything
 it cannot take) and uses the plain PyTorch version beside it only for
@@ -23,9 +23,9 @@ import torch
 from repro_torch.core.dram import (ACT, LINE_BITS, RD, REF, TIMING, WR,
                                    popcount_u32)
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (cell_index, on_cpu, partials,
+from repro_torch.kernels.common import (cell_index, launch_charge, on_cpu,
                                        reduce_charge, require_aligned,
-                                       require_cuda, sum_partials)
+                                       require_cuda)
 
 # layout of one vendor's packed parameter row (see ops.pack_param_blocks
 # and P_* in vampire_energy.cu)
@@ -132,21 +132,20 @@ def _launch_vampire(surface: bool, ones, togg, cmd, bank, row, dt, state, w,
     t, n = cmd.shape
     v = params.shape[0]
     f32, i32 = torch.float32, torch.int32
-    dev = require_cuda(
+    require_cuda(
         dict(ones=ones, togg=togg, cmd=cmd, bank=bank, row=row, dt=dt,
              state=state, w=w, params=params),
         dict(ones=f32, togg=f32, cmd=i32, bank=i32, row=i32, dt=i32,
              state=i32, w=f32, params=f32),
         dict(ones=(t, n), togg=(t, n), cmd=(t, n), bank=(t, n), row=(t, n),
              dt=(t, n), state=(t, n), w=(t, n), params=(v, P_SIZE)))
-    out = partials(v, t, n, surface, dev)
-    fn = (build.library("vampire_energy").repro_vampire_charge_surface
-          if surface else build.library("vampire_energy").repro_vampire_charge)
-    rc = fn(*(build.ptr(x) for x in (ones, togg, cmd, bank, row, dt, state,
-                                     w, params, out)),
-            t, n, v, build.stream(dev))
-    build.check(rc, "vampire charge kernel")
-    return sum_partials(out)
+    lib = build.library("vampire_energy")
+    fn = (lib.repro_vampire_charge_surface if surface
+          else lib.repro_vampire_charge)
+    planes = dict(ones=ones, togg=togg, cmd=cmd, bank=bank, row=row, dt=dt,
+                  state=state, w=w)
+    return launch_charge(fn, (*planes.values(), params), planes, t, n, v,
+                         surface, "vampire charge kernel")
 
 
 def vampire_charge(ones, togg, cmd, bank, row, dt, state, w, params):

@@ -1,7 +1,8 @@
-"""``chip_smoke.py``'s line-kernel, flash-attention, study, HBM and serve
-phases rehearsed on the CPU at a tiny size: the same code that runs on the card, with the CUDA
-event timers and the device synchronisation stubbed, and the launch
-counts (which CPU tensors never raise) read as launched."""
+"""``chip_smoke.py``'s charge-kernel, line-kernel, flash-attention,
+study, HBM and serve phases rehearsed on the CPU at a tiny size: the
+same code that runs on the card, with the CUDA event timers and the
+device synchronisation stubbed, and the launch counts (which CPU tensors
+never raise) read as launched."""
 import json
 import pathlib
 import sys
@@ -102,6 +103,32 @@ def test_flash_kernel_phase_row(smoke, capsys):
     assert "group7_err=0.000e+00 (BH=7, BH_kv=1, S=40)" in out
     flops = smoke.attention_flops(8, 48, 48, 16, True)
     assert f"tflops={flops / 1.0 / 1e9:.1f}" in out      # stubbed 1 ms
+
+
+def test_charge_kernel_rows_and_the_one_kernel_check(smoke, cpu_model,
+                                                    monkeypatch, capsys):
+    """The charge kernels' rows on a small batch: each checked against its
+    plain version and timed with its GB/s; the profiler check passes a
+    call that runs one device operation and fails one that runs two."""
+    from repro_torch.core import model_api
+    _, tb = smoke.build_workload(0, 3, 150, 2048, "cpu")
+    models = {k: model_api.make_estimator(k, cpu_model) for k in smoke.KINDS}
+    rows = smoke.kernel_phase(tb, models, "cpu")
+    names = [r["name"] for r in rows]
+    assert names == ["batched_features", "vampire_charge",
+                     "vampire_charge_surface", "micron_charge",
+                     "micron_charge_surface", "drampower_charge",
+                     "drampower_charge_surface"]
+    assert all(r["bound"][1] == "bytes" for r in rows)
+    out = capsys.readouterr().out
+    assert out.count("[kernel]") == 7 and out.count("gb_per_s=") == 6
+    monkeypatch.setattr(smoke, "device_kernels", lambda fn: ["kernel"])
+    smoke.one_kernel_phase(rows)
+    assert capsys.readouterr().out.count("one device operation") == 6
+    monkeypatch.setattr(smoke, "device_kernels",
+                        lambda fn: ["kernel", "reduce"])
+    with pytest.raises(smoke.CheckFailed, match="2 device operations"):
+        smoke.one_kernel_phase(rows)
 
 
 def test_vocab_bar_ignores_the_padded_vocabulary(smoke):

@@ -99,6 +99,115 @@ def test_baseline_charge_kernel_matches_plain(setup, kind, surface):
     _close(got, be.baseline_charge_plain(kind, *args, surface=surface))
 
 
+def _charge_inputs(device, params3, table3, t, n, v, offset, seed):
+    """Seeded per-command planes that use every command, background state,
+    interleave mode and open-bank mask, starting ``offset`` elements past
+    a 16-byte boundary; ``v`` vendors: the three fitted ones repeated with
+    small seeded perturbations."""
+    rng = np.random.default_rng(seed)
+
+    def plane(values, dtype):
+        buf = torch.zeros(t * n + offset, dtype=dtype, device=device)
+        x = buf[offset:].view(t, n)
+        x.copy_(torch.as_tensor(values, dtype=dtype))
+        return x
+
+    shape = (t, n)
+    bg = np.arange(t * n).reshape(shape) % 5            # every bg state
+    state = (rng.integers(0, 4, shape) | (bg << 2)
+             | (rng.integers(0, 256, shape) << 8))
+    ones = rng.integers(0, 513, shape).astype(np.float32)
+    planes = dict(
+        ones=plane(ones, torch.float32),
+        togg=plane(np.minimum(rng.integers(0, 513, shape), ones),
+                   torch.float32),
+        cmd=plane(rng.integers(0, 6, shape), torch.int32),
+        bank=plane(rng.integers(0, 8, shape), torch.int32),
+        row=plane(rng.integers(0, 1 << 15, shape), torch.int32),
+        dt=plane(rng.integers(0, 40, shape), torch.int32),
+        state=plane(state, torch.int32),
+        w=plane((rng.random(shape) < 0.9).astype(np.float32), torch.float32))
+    reps = -(-v // 3)
+    jitter = 1 + 0.01 * rng.standard_normal((reps * 3, 1))
+    params = (params3.cpu().repeat(reps, 1).double().numpy() * jitter)[:v]
+    table = (table3.cpu().repeat(reps, 1).double().numpy() * jitter)[:v]
+    any_act = (rng.random(t) < 0.8).astype(np.float32)
+    return (planes,
+            torch.as_tensor(params, dtype=torch.float32, device=device),
+            torch.as_tensor(table, dtype=torch.float32, device=device),
+            torch.as_tensor(any_act, device=device))
+
+
+def _charge_calls(planes, params, table, any_act):
+    """(wrapper, args, plain) for the six charge wrappers."""
+    p = planes
+    vargs = (p["ones"], p["togg"], p["cmd"], p["bank"], p["row"], p["dt"],
+             p["state"], p["w"], params)
+    bargs = (p["cmd"], p["bank"], p["row"], p["dt"], p["state"], p["w"],
+             any_act, table)
+    calls = [(ve.vampire_charge, vargs,
+              lambda: ve.vampire_charge_plain(*vargs)),
+             (ve.vampire_charge_surface, vargs,
+              lambda: ve.vampire_charge_plain(*vargs, surface=True))]
+    for (kind, surface), fn in be.WRAPPERS.items():
+        calls.append((fn, bargs, lambda k=kind, s=surface:
+                      be.baseline_charge_plain(k, *bargs, surface=s)))
+    return calls
+
+
+# (T, N, V, element offset of the planes): N shorter than one tile and not
+# a multiple of 4, one trace, vendor counts past one group of 32, and two
+# full groups (the largest shared memory a block takes)
+CHARGE_EDGES = [(1, 5, 3, 0), (1, 1000, 3, 1), (3, 2053, 3, 3),
+                (1, 2053, 40, 2), (5, 9001, 3, 0), (2, 2053, 67, 1),
+                (130, 64, 3, 0), (2, 2053, 64, 2)]
+
+
+@pytest.mark.parametrize("t,n,v,offset", CHARGE_EDGES)
+def test_charge_kernels_at_the_edges(device, setup, t, n, v, offset):
+    """Each charge wrapper against its plain version (rtol 1e-5) at edge
+    shapes and alignments, with every background state, one launch per
+    call, and the same bits from a second call."""
+    _, _, models = setup
+    planes, params, table, any_act = _charge_inputs(
+        device, vops.pack_param_blocks(
+            models["vampire"].fleet.params), models["micron"].idd_table,
+        t, n, v, offset, seed=t * 1000 + n + v)
+    assert set(((planes["state"] >> 2) & 7).unique().tolist()) == set(
+        range(5))
+    for fn, args, plain in _charge_calls(planes, params, table, any_act):
+        before = fn.launches
+        got = fn(*args)
+        assert fn.launches == before + 1, fn.__name__
+        assert got.shape == ((t, v, 64) if "surface" in fn.__name__
+                             else (t, v))
+        _close(got, plain())
+        assert torch.equal(got, fn(*args)), fn.__name__
+
+
+def test_charge_kernels_add_nothing_for_pad_rows_and_commands(device,
+                                                               setup):
+    """Zero-weight rows and NOP / dt = 0 pad commands add exactly zero;
+    a batch padded with them matches the unpadded one."""
+    _, _, models = setup
+    t, n, pad = 4, 2053, 3000
+    planes, params, table, any_act = _charge_inputs(
+        device, vops.pack_param_blocks(
+            models["vampire"].fleet.params), models["micron"].idd_table,
+        t, n + pad, 3, 0, seed=11)
+    planes["w"][1] = 0.0                               # a zero-weight row
+    for name in ("cmd", "dt", "w"):                    # NOP / dt=0 padding
+        planes[name][:, n:] = 0
+    short = {k: x[:, :n].contiguous() for k, x in planes.items()}
+    full = _charge_calls(planes, params, table, any_act)
+    cut = _charge_calls(short, params, table, any_act)
+    for (fn, args, _), (_, sargs, plain) in zip(full, cut):
+        got = fn(*args)
+        assert bool((got[1] == 0).all()), fn.__name__
+        _close(got, fn(*sargs))
+        _close(got, plain())
+
+
 def test_wrappers_check_their_inputs(setup):
     _, tb, models = setup
     tr = tb.trace
@@ -112,6 +221,9 @@ def test_wrappers_check_their_inputs(setup):
         ve.vampire_charge(good[0].cpu(), *good[1:])
     with pytest.raises(ValueError, match="contiguous"):
         ve.vampire_charge(*good[:2], tr.cmd.t().contiguous().t(), *good[3:])
+    shifted = torch.zeros(t * n + 1, device=tr.device)[1:].view(t, n)
+    with pytest.raises(ValueError, match="16-byte alignment"):
+        ve.vampire_charge(shifted, *good[1:])
 
 
 @pytest.mark.parametrize("kind", model_api.ESTIMATOR_KINDS)

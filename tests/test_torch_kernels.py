@@ -216,7 +216,9 @@ def test_build_names_libraries_by_content_and_needs_nvcc(monkeypatch):
 
 def test_plain_reduction_layouts():
     """The plain versions' (V, T, N) -> (T, V) / (T, V, 64) reduction and
-    the kernels' partial-sum layout agree on a hand-made case."""
+    the kernels' launch layout (one cluster of tiles per trace, every
+    vendor in one group, the output written whole) agree on a hand-made
+    case."""
     cw = torch.arange(2 * 3 * 5, dtype=torch.float32).reshape(2, 3, 5)
     bank = torch.tensor([[0, 1, 0, 7, 7]] * 3, dtype=torch.int32)
     row = torch.tensor([[0, 4096, 8191, 0, 32767]] * 3, dtype=torch.int32)
@@ -232,9 +234,61 @@ def test_plain_reduction_layouts():
     assert bool((padded[..., 5:] == -1.0).all())
     assert common.pad_to(cw, 5, axis=2)[0] is cw
     assert common.cdiv(2049, 1024) == 3
-    part = common.partials(2, 3, 2048 + 1, True, "cpu")
-    assert part.shape == (2, 3, 3, 64)
-    assert common.sum_partials(torch.ones(2, 3, 3)).shape == (3, 2)
+    geo = common.charge_geometry(3, 2048 + 1, 2, 132)
+    assert (geo.cluster, geo.group, geo.n_groups) == (3, 2, 1)
+    assert geo.cluster * geo.tile >= 2048 + 1
+    assert geo.vendor_groups(2) == [range(0, 2)]
+
+
+# (T, N, V): the estimation batch, the study's, the serving report's,
+# short and ragged rows, one trace, and vendor counts past one group
+GEOMETRY_CASES = [(64, 16384, 3), (92, 15237, 3), (8, 2053, 3), (1, 5, 3),
+                  (2, 1000, 1), (1, 1 << 20, 3), (6, 2053, 40), (3, 7, 97),
+                  (4096, 128, 3), (1, 0, 2)]
+
+
+@pytest.mark.parametrize("n_sms", [132, 114, 16, 1])
+@pytest.mark.parametrize("t,n,v", GEOMETRY_CASES)
+def test_charge_launch_geometry(t, n, v, n_sms):
+    """The charge kernels' launch geometry on a card of ``n_sms`` SMs
+    (an H100 SXM, an H100 PCIe, small parts): every vendor in exactly
+    one group of at most 32, the clusters' tiles cover every command
+    with no rank left idle, and a grid past one trace a wave stops at
+    one block a trace.  (``charge.cuh`` sizes the shared memory and
+    asserts at compile time that a full group of 32 fits a block.)"""
+    geo = common.charge_geometry(t, n, v, n_sms)
+    groups = geo.vendor_groups(v)
+    assert len(groups) == geo.n_groups
+    assert sorted(i for g in groups for i in g) == list(range(v))
+    assert all(0 < len(g) <= common.MAX_GROUP for g in groups)
+    assert geo.group == common.cdiv(v, geo.n_groups)   # as even as a stride
+    assert 1 <= geo.cluster <= common.MAX_CLUSTER
+    assert geo.tile % (4 * common.THREADS) == 0
+    assert geo.cluster * geo.tile >= n
+    steps = common.cdiv(n, 4 * common.THREADS)
+    assert geo.cluster <= max(1, steps)               # every rank has work
+    assert geo.tile == 4 * common.THREADS * common.cdiv(max(steps, 1),
+                                                        geo.cluster)
+    if t * geo.n_groups >= common.BLOCKS_PER_SM * n_sms:
+        assert geo.cluster == 1
+    widest = common.charge_geometry(t, n, 32, n_sms)
+    assert widest.group == 32 and widest.n_groups == 1
+
+
+def test_charge_geometry_fills_the_card_at_the_estimation_shape():
+    """At (T=64, N=16384, V=3) the grid is one wave of 4-block clusters
+    of 4096-command tiles: 256 blocks for 2 x 132 slots."""
+    geo = common.charge_geometry(64, 16384, 3, 132)
+    assert (geo.cluster, geo.tile, geo.n_groups) == (4, 4096, 1)
+    assert 64 * geo.cluster <= common.BLOCKS_PER_SM * 132
+
+
+def test_charge_planes_share_one_alignment():
+    x = torch.zeros(4, 9, dtype=torch.int32)
+    assert common.plane_phase(a=x, b=torch.zeros(4, 9)) == 0
+    assert common.plane_phase(a=x.view(-1)[1:], b=x.view(-1)[5:]) == 1
+    with pytest.raises(ValueError, match="16-byte alignment"):
+        common.plane_phase(a=x.view(-1)[1:], b=x.view(-1)[2:])
 
 
 # ---------------------------------------------------------------------------

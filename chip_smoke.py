@@ -19,13 +19,16 @@ itself).  Phases, each printing its numbers:
    (features bit-exact; charge at rtol 1e-5, the same bits on a second
    call, and GB/s beside the time), the line kernels (popcount,
    toggle, byte LUT, BDI) bit-exact on a seeded 32 MiB bf16 tensor, with
-   ``torch.take`` timed beside the byte LUT;
+   ``torch.take`` timed beside the byte LUT (run after phase 5);
 5. ``estimate`` end to end for 3 kinds x 4 modes through ``impl='cuda'``
    against ``impl='vectorized'`` (rtol 1e-5), surface summing to mean, pad
    rows and pad commands adding zero, every kernel of the path launched;
    the device time of one estimate by kernel (``torch.profiler``), one
-   device operation per call of each charge wrapper; and a small input
-   against the command-by-command oracle on the CPU;
+   device operation per call of each charge wrapper; then the line
+   kernels of phase 4 (the sequential toggles also on 1 GiB, and one
+   device operation a call); a small input against the command-by-command
+   oracle on the CPU; and the refusal of out-of-range banks and rows and
+   the zeros of a batch of empty traces, in every kind, impl and mode;
 6. ``[study]``: the paper's Section 10 encoding study at full size — all
    23 synthetic SPEC apps x 4 encodings (92 traces of 6000 requests),
    scored by ``encoding_energy_study`` on the card, the same encoded
@@ -329,7 +332,8 @@ def line_kernel_phase(seed: int, card: str, device="cuda",
                       shape=(4096, 4096)) -> list[dict]:
     """Phase 4, second half: the line kernels of the study and HBM paths
     on 32 MiB — 524,288 lines of a seeded bf16 (4096, 4096) tensor —
-    bit-exact against their plain versions, timed beside their bounds."""
+    bit-exact against their plain versions, timed beside their bounds;
+    the sequential toggles' call must run one device operation."""
     import torch
 
     from repro_torch.core import hbm
@@ -386,15 +390,47 @@ def line_kernel_phase(seed: int, card: str, device="cuda",
         r["plain_ms"] = event_ms(r["plain"], 5, flush)
         r["library_ms"] = (None if r["library"] is None
                            else event_ms(r["library"], 20, flush))
+    # the sequential toggles are one device operation a call (profiled
+    # after every row is timed)
+    ops = device_kernels(rows[1]["fn"])
+    check(len(ops) == 1, f"line_toggles: one call runs {len(ops)} device "
+                         f"operations ({ops}), not one kernel")
+    for r in rows:
         lib = ("" if r["library_ms"] is None
                else f" library_ms={r['library_ms']:.4f} (torch.take)")
+        dev_ops = f" device_ops={len(ops)}" if r is rows[1] else ""
         print(f"[kernel] {r['name']}: ms={r['ms']:.4f} "
               f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
               f"({r['bound'][1]}) share_of_bound="
-              f"{r['bound'][0] / r['ms']:.3f}{lib} max_abs_err=0 "
+              f"{r['bound'][0] / r['ms']:.3f}{lib}{dev_ops} max_abs_err=0 "
               f"shape=(lines={n}, 16) card=\"{card}\"", flush=True)
     del flush_buf, idx
     return rows
+
+
+def toggles_gib_phase(seed: int, card: str, device="cuda",
+                      n_lines: int = 1 << 24) -> None:
+    """The sequential toggle kernel on 1 GiB of seeded random lines
+    (16,777,216), where the timer's ~5 us floor no longer matters:
+    bit-exact against its plain version, timed beside its bound."""
+    import torch
+
+    from repro_torch.kernels.toggle import ops as tops, ref as tg_ref
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    lines = torch.randint(-2**31, 2**31 - 1, (n_lines, 16), generator=gen,
+                          device=device, dtype=torch.int32)
+    check(torch.equal(tops.line_toggles_seq(lines),
+                      tg_ref.line_toggles_seq(lines)),
+          f"line_toggles on {n_lines} lines differs from its plain version")
+    nbytes = n_lines * (64 + 4)
+    b_ms, b_by = bound(nbytes, n_lines * 47)
+    flush_buf = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+    ms = event_ms(lambda: tops.line_toggles_seq(lines), 20, flush_buf.zero_)
+    print(f"[kernel] line_toggles (1 GiB): ms={ms:.4f} bound_ms={b_ms:.4f} "
+          f"({b_by}) share_of_bound={b_ms / ms:.3f} gb_per_s="
+          f"{nbytes / ms / 1e6:.1f} max_abs_err=0 shape=(lines={n_lines}, "
+          f"16) card=\"{card}\"", flush=True)
+    del flush_buf, lines
 
 
 FLASH_ATOL = {"bfloat16": 2e-2, "float32": 2e-5}   # the reference's bars
@@ -577,7 +613,7 @@ def e2e_phase(tb, trs, models, kernel_ms: dict[str, float], card: str):
             vec_ms = wall_ms(lambda: est.estimate(tb, mode=mode,
                                                   impl="vectorized", **kw), 3)
             times[kind, mode] = ms
-            kern = sum(kernel_ms[k] * c for k, c in launched.items())
+            kern = sum(kernel_ms[k] * c for k, c in launched.items() if c)
             print(f"[e2e] {kind}/{mode}: estimate_ms={ms:.3f} "
                   f"traces_per_s={t / ms * 1e3:.1f} "
                   f"vectorized_ms={vec_ms:.3f} bookkeeping_ms={book_ms:.3f} "
@@ -670,6 +706,72 @@ def oracle_phase(models, trs) -> None:
                                  f"oracle {kind}/{mode} leaf {name}")
     print("[oracle] 3 kinds x 4 modes on 3 x 400 commands match the CPU "
           "oracle", flush=True)
+
+
+IMPLS = ("vectorized", "reference", "cuda")
+BAD_ADDRESSES = ((9, 5), (-1, 5), (1, 40000), (1, -5))   # (bank, row)
+
+
+def faults_phase(models, device="cuda") -> None:
+    """The port's refusals and edge cases on the card: a bank outside
+    [0, 8) or a row outside [0, 2^15) is refused by ``make_trace`` and, in
+    a trace built field by field on the card, by ``estimate`` in every
+    kind, impl and mode alike, naming the trace and the command; a batch
+    of empty traces gives zeros of every mode's shape."""
+    import torch
+
+    from repro_torch.core import dram
+
+    def address_trace(bank, row, make):
+        return make([dram.ACT, dram.PRE, dram.ACT, dram.RD, dram.PRE],
+                    [0, 0, bank, bank, bank], [0, 0, row, row, 0],
+                    [0, 0, 0, 1, 0], None, [6, 6, 6, 4, 6])
+
+    def direct(cmds, banks, rows, cols, data, dts):
+        i32 = [torch.tensor(x, dtype=torch.int32, device=device)
+               for x in (cmds, banks, rows, cols, dts)]
+        return dram.CommandTrace(*i32[:4], torch.zeros(
+            (len(cmds), 16), dtype=torch.int32, device=device), i32[4])
+
+    def refused(fn, where: str) -> None:
+        try:
+            fn()
+        except ValueError as exc:
+            check(str(exc).startswith(where),
+                  f"refusal names the wrong place: {exc} (want {where})")
+            return
+        raise CheckFailed(f"an out-of-range address was not refused "
+                          f"({where})")
+
+    good = address_trace(0, 5, dram.make_trace).to(device)
+    n = 0
+    for bank, row in BAD_ADDRESSES:
+        refused(lambda: address_trace(bank, row, dram.make_trace),
+                "trace 0, command 2")
+        bad = address_trace(bank, row, direct)
+        for kind in KINDS:
+            for impl in IMPLS:
+                for mode in ("mean", "surface"):
+                    refused(lambda: models[kind].estimate(
+                        [good, bad], mode=mode, impl=impl),
+                        "trace 1, command 2")
+                    n += 1
+    empty = dram.make_trace([], [], [], [], None, [])
+    for kind in KINDS:
+        for mode in MODES:
+            shape = (2, 3) + ((8, 8) if mode == "surface" else ())
+            for impl in IMPLS:
+                rep = models[kind].estimate([empty, empty], mode=mode,
+                                            impl=impl, **MODE_KW.get(mode, {}))
+                for leaf in leaves(rep, mode):
+                    for name, x in zip(leaf._fields, leaf):
+                        check(tuple(x.shape) == shape and not bool(x.any()),
+                              f"empty traces {kind}/{mode}/{impl} {name}: "
+                              f"shape {tuple(x.shape)}, not zeros of {shape}")
+    print(f"[faults] {len(BAD_ADDRESSES)} out-of-range addresses refused by "
+          f"make_trace and by estimate in {n} (address, kind, impl, mode) "
+          f"cases; a batch of empty traces gives zeros in 3 kinds x 4 modes "
+          f"x 3 impls", flush=True)
 
 
 PAPER_OWI_SAVING = 0.122      # the paper's average OWI energy reduction
@@ -1027,17 +1129,21 @@ def main(argv=None) -> int:
           f"line_bytes={tb.trace.data.numel() * 4} "
           f"setup_s={time.perf_counter() - t0:.2f}", flush=True)
 
-    # phase 4: kernels against their plain versions
-    rows = kernel_phase(tb, models, card)
-    rows += line_kernel_phase(args.seed, card)
-    rows += flash_kernel_phase(args.seed, card)
+    # phase 4: kernels against their plain versions (the line kernels
+    # after phase 5, whose timings then run before any profiler session)
+    charge = kernel_phase(tb, models, card)
+    flash = flash_kernel_phase(args.seed, card)
 
     # phase 5: the estimation path end to end
     launches, times = e2e_phase(tb, trs, models,
-                                {r["name"]: r["ms"] for r in rows}, card)
+                                {r["name"]: r["ms"] for r in charge + flash},
+                                card)
     profile_phase(tb, models, times["vampire", "mean"], card)
-    one_kernel_phase(rows)
+    one_kernel_phase(charge)
+    rows = charge + line_kernel_phase(args.seed, card) + flash
+    toggles_gib_phase(args.seed, card)
     oracle_phase(models, trs)
+    faults_phase(models)
     del tb
 
     # phases 6, 7 and 8: the encoding study, the HBM statistics, serving

@@ -145,6 +145,23 @@ def validate_low_power_transitions(cmds) -> None:
             in_sr = False
 
 
+def check_addresses(trace: CommandTrace) -> None:
+    """Raise ``ValueError`` for the first command whose bank lies outside
+    [0, ``N_BANKS``) or whose row lies outside [0, 2**``ROW_BITS``),
+    naming the trace (its row of a ``(T, N)`` batch; 0 for one trace) and
+    the command."""
+    bank, row = trace.bank, trace.row
+    bad = (bank < 0) | (bank >= N_BANKS) | (row < 0) | (row >= 1 << ROW_BITS)
+    if not bool(bad.any()):
+        return
+    n = bad.shape[-1]
+    t, i = torch.nonzero(bad.reshape(-1, n))[0].tolist()
+    b, r = int(bank.reshape(-1, n)[t, i]), int(row.reshape(-1, n)[t, i])
+    what = (f"bank {b} outside [0, {N_BANKS})" if not 0 <= b < N_BANKS
+            else f"row {r} outside [0, {1 << ROW_BITS})")
+    raise ValueError(f"trace {t}, command {i}: {what}")
+
+
 def host_array(x) -> np.ndarray:
     """A tensor (on any device), array or list as a host numpy array."""
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
@@ -167,8 +184,9 @@ def lines_as_int32(data) -> torch.Tensor:
 def make_trace(cmds, banks=None, rows=None, cols=None, data=None, dts=None,
                default_dt: int = 1) -> CommandTrace:
     """Build a CommandTrace of CPU tensors from (list, numpy or tensor)
-    fields; the low-power transition rules are checked first.  Estimators
-    move traces to their own device.
+    fields; the low-power transition rules and the bank and row ranges
+    (:func:`check_addresses`) are checked.  Estimators move traces
+    to their own device.
 
     The full protocol linter (``repro_torch.analysis.trace_lint``)
     additionally runs on every construction when ``REPRO_TRACE_LINT`` is
@@ -197,6 +215,7 @@ def make_trace(cmds, banks=None, rows=None, cols=None, data=None, dts=None,
     dt = (torch.full((n,), default_dt, dtype=torch.int32) if dts is None
           else i32(dts))
     trace = CommandTrace(cmd, bank, row, col, dat, dt)
+    check_addresses(trace)
     mode = os.environ.get("REPRO_TRACE_LINT", "off")
     if mode != "off":
         from repro_torch.analysis import trace_lint
@@ -234,10 +253,12 @@ def batch_traces(traces_and_skips) -> tuple[CommandTrace, torch.Tensor]:
     ``traces_and_skips`` is a sequence of ``(trace, skip)`` pairs: the
     first ``skip`` commands and all padding are masked out.  Returns
     ``(batch, weight)`` with a leading probe axis on every field and a
-    float32 ``(P, N)`` weight."""
+    float32 ``(P, N)`` weight.  Raises ``ValueError`` naming the trace
+    and the command of a bank or row out of range."""
     pairs = list(traces_and_skips)
     length = max(tr.n for tr, _ in pairs)
     batch = stack_traces([pad_trace(tr, length) for tr, _ in pairs])
+    check_addresses(batch)
     idx = np.arange(length)
     weight = np.stack([(idx >= skip) & (idx < tr.n)
                        for tr, skip in pairs]).astype(np.float32)

@@ -19,8 +19,8 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.core.dram import CommandTrace, batch_traces, pad_trace, \
-    stack_traces
+from repro_torch.core.dram import CommandTrace, batch_traces, \
+    check_addresses, pad_trace, stack_traces
 from repro_torch.core.energy_model import (EnergyReport, PowerParams,
                                            _report, charge_from_features,
                                            distribution_features,
@@ -70,7 +70,9 @@ def bucketed_trace_batch(traces: Sequence[CommandTrace], n_slots: int,
                          length: int) -> TraceBatch:
     """Pad ragged traces into a FIXED ``(n_slots, length)`` batch: the
     command axis NOP/dt=0-pads to ``length`` and whole zero-weight pad rows
-    fill the trace axis up to ``n_slots``.  Both paddings are exact."""
+    fill the trace axis up to ``n_slots``.  Both paddings are exact.
+    Raises ``ValueError`` naming the trace and the command of a bank or
+    row out of range."""
     if not traces:
         raise ValueError("bucketed_trace_batch needs at least one trace")
     if len(traces) > n_slots:
@@ -80,6 +82,7 @@ def bucketed_trace_batch(traces: Sequence[CommandTrace], n_slots: int,
         raise ValueError(f"longest trace ({longest} commands) exceeds the "
                          f"length bucket ({length})")
     stacked = stack_traces([pad_trace(tr, length) for tr in traces])
+    check_addresses(stacked)
     dev = stacked.device
     steps = torch.arange(length, device=dev)
     weight = torch.stack([(steps < int(tr.n)).to(torch.float32)

@@ -345,38 +345,59 @@ _FITTED_FIELDS = ("datadep", "datadep_r2", "i2n", "bank_open_delta",
                   "i_pd_slow", "i_actpd", "i_sr")
 
 
+@dataclasses.dataclass(frozen=True)
+class SavedFit:
+    """What a VAMPIRE model file held besides the fleet's float32 leaves:
+    every array but the manifest (the float64 fitted arrays, ``band``,
+    ``idd_datasheet``, ``datadep_r2`` and the ``raw/<vendor>/...``
+    campaign arrays) and the manifest's ``idd_r2``, ``row_r2`` and
+    ``raw``."""
+    arrays: dict
+    idd_r2: dict
+    row_r2: dict
+    raw: bool
+
+
 def _vampire_payload(model) -> tuple[dict, dict]:
+    saved = model.saved
+    manifest = {"vendors": list(model.vendors),
+                "idd_keys": list(model.idd_keys),
+                "idd_r2": {}, "row_r2": {}, "raw": False}
+    if saved is not None:
+        manifest.update(idd_r2=saved.idd_r2, row_r2=saved.row_r2,
+                        raw=saved.raw)
+        return dict(saved.arrays), manifest
+    # a model built in the port: its float32 leaves
     fm = model.fleet
-    v = fm.band.shape[0]
     arrays: dict[str, np.ndarray] = {
         "vendor_ids": fm.vendor_ids.cpu().numpy().astype(np.int64),
         "band": fm.band.cpu().numpy().astype(np.float64),
         "idd_datasheet": fm.idd_datasheet.cpu().numpy().astype(np.float64),
-        "datadep_r2": (np.zeros((v, 4, 2)) if model.datadep_r2 is None
-                       else np.asarray(model.datadep_r2, np.float64)),
+        "datadep_r2": np.zeros((fm.band.shape[0], 4, 2)),
     }
     for field in _FITTED_FIELDS:
         if field != "datadep_r2":
             arrays[field] = getattr(fm.params, field).cpu().numpy().astype(
                 np.float64)
-    manifest = {"vendors": list(model.vendors),
-                "idd_keys": list(model.idd_keys),
-                "idd_r2": {}, "row_r2": {}, "raw": False}
     return arrays, manifest
 
 
 def _vampire_from_payload(npz, manifest, device):
     from repro_torch.convert import fleet_model_from_numpy, params_from_fitted
     from repro_torch.core.vampire import Vampire
-    fitted = {f: np.asarray(npz[f]) for f in _FITTED_FIELDS
-              if f != "datadep_r2" and f in npz.files}
+    arrays = {name: np.asarray(npz[name]) for name in npz.files
+              if name != MANIFEST_KEY}
+    fitted = {f: arrays[f] for f in _FITTED_FIELDS
+              if f != "datadep_r2" and f in arrays}
     fleet = fleet_model_from_numpy(
-        params_from_fitted(fitted), band=np.asarray(npz["band"]),
-        idd_datasheet=np.asarray(npz["idd_datasheet"]),
-        vendor_ids=np.asarray(npz["vendor_ids"]), device=device)
-    r2 = np.asarray(npz["datadep_r2"]) if "datadep_r2" in npz.files else None
+        params_from_fitted(fitted), band=arrays["band"],
+        idd_datasheet=arrays["idd_datasheet"],
+        vendor_ids=arrays["vendor_ids"], device=device)
+    saved = SavedFit(arrays=arrays, idd_r2=manifest.get("idd_r2", {}),
+                     row_r2=manifest.get("row_r2", {}),
+                     raw=bool(manifest.get("raw", False)))
     return Vampire(fleet=fleet, idd_keys=tuple(manifest["idd_keys"]),
-                   datadep_r2=r2)
+                   saved=saved)
 
 
 # ---- baseline payload -----------------------------------------------------

@@ -50,11 +50,14 @@ class FleetModel(NamedTuple):
 @dataclasses.dataclass
 class Vampire(model_api.StackedEstimatorMixin):
     """A fitted VAMPIRE model: a :class:`FleetModel` plus the key order of
-    its datasheet table (and, to round-trip a file, the fit's per-mode
-    R^2 table)."""
+    its datasheet table.  A model loaded from a file also keeps, as host
+    numpy, what the file held (``saved``: the float64 fitted arrays, the
+    raw campaign arrays and the manifest's R^2 maps), so saving it writes
+    the file back unchanged; estimates read only the fleet's float32
+    leaves."""
     fleet: FleetModel
     idd_keys: tuple[str, ...]
-    datadep_r2: np.ndarray | None = None
+    saved: model_api.SavedFit | None = None
 
     kind = "vampire"
 
@@ -77,7 +80,7 @@ class Vampire(model_api.StackedEstimatorMixin):
 
     def to(self, device) -> "Vampire":
         return Vampire(self.fleet.to(model_api.resolve_device(device)),
-                       self.idd_keys, self.datadep_r2)
+                       self.idd_keys, self.saved)
 
     def datasheets(self) -> dict[int, dict[str, float]]:
         """Per-vendor datasheet IDDs (what the baselines consume)."""

@@ -53,6 +53,7 @@ SIGNATURES = {
     "line_bits": {
         "repro_line_ones": [_P, _P, _I64, _P],
         "repro_line_toggles": [_P, _P, _P, _I64, _P],
+        "repro_line_toggles_seq": [_P, _P, _I64, _P],
     },
     "byte_lut": {
         "repro_apply_lut_lines": [_P, _P, _P, _I64, _P],

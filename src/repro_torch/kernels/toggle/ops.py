@@ -16,12 +16,5 @@ def line_toggles(cur: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
 
 def line_toggles_seq(lines: torch.Tensor) -> torch.Tensor:
     """``(N, 16)`` int32 lines -> ``(N,)`` toggles of each line against its
-    predecessor; the first entry is 0.  The kernel reads ``lines[1:]`` and
-    ``lines[:-1]`` as two views of one buffer (no shifted copy)."""
-    lines = lines.contiguous()
-    n = lines.shape[0]
-    out = torch.empty(n, dtype=torch.int32, device=lines.device)
-    out[:1] = 0
-    if n > 1:
-        toggle.line_toggles(lines[1:], lines[:-1], out=out[1:])
-    return out
+    predecessor; the first entry is 0.  One kernel reads each line once."""
+    return toggle.line_toggles_seq(lines.contiguous())

@@ -1,9 +1,12 @@
-"""Wrapper of the bus-toggle kernel (``csrc/line_bits.cu``,
-``repro_line_toggles``), which replaces ``line_toggles_pallas``.
+"""Wrappers of the bus-toggle kernels (``csrc/line_bits.cu``), which
+replace ``line_toggles_pallas``: ``repro_line_toggles`` between two sets
+of lines, and ``repro_line_toggles_seq`` between each line and the one
+before it.
 
-:func:`line_toggles` launches the kernel for CUDA tensors (and raises on
-anything it cannot take) and uses the plain version of ``ref.py`` only for
-tensors on the CPU.  ``line_toggles.launches`` counts the kernel launches.
+:func:`line_toggles` and :func:`line_toggles_seq` launch their kernel for
+CUDA tensors (and raise on anything it cannot take) and use the plain
+versions of ``ref.py`` only for tensors on the CPU.
+``line_toggles.launches`` counts the launches of both kernels.
 """
 from __future__ import annotations
 
@@ -39,3 +42,22 @@ def line_toggles(cur: torch.Tensor, prev: torch.Tensor,
 
 
 line_toggles.launches = 0
+
+
+def line_toggles_seq(lines: torch.Tensor) -> torch.Tensor:
+    """``(N, 16)`` int32 lines -> ``(N,)`` int32 toggles of each line
+    against the one before it; the first is 0.  One kernel, which writes
+    the first entry too; none for ``N == 0``."""
+    if on_cpu(lines):
+        return ref.line_toggles_seq(lines)
+    n = lines.shape[0]
+    dev = require_cuda({"lines": lines}, {"lines": torch.int32},
+                       {"lines": (n, 16)})
+    require_aligned(lines=lines)
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        rc = build.library("line_bits").repro_line_toggles_seq(
+            build.ptr(lines), build.ptr(out), n, build.stream(dev))
+        build.check(rc, "line_toggles_seq kernel")
+        line_toggles.launches += 1
+    return out

@@ -63,9 +63,18 @@ def batched_charge_matrix(trace: CommandTrace, weight: torch.Tensor,
     """Masked charge of every (trace, paramset) pair through the kernels
     -> ``((T, V) charge, (T,) masked cycles)``, or with ``surface=True``
     ``((T, V, 8, N_ROW_BANDS) charge, (T, 8, N_ROW_BANDS) cycles)``.
-    ``trace``/``weight`` are a padded TraceBatch's ``(T, N)`` fields."""
-    st = structural_state(trace)
+    ``trace``/``weight`` are a padded TraceBatch's ``(T, N)`` fields.
+    A batch of empty traces (``N == 0``) launches nothing and gives
+    zeros."""
     t, n = trace.cmd.shape
+    if n == 0:
+        v = stacked.i2n.shape[0]
+        cells = (N_BANKS, N_ROW_BANDS) if surface else ()
+        charge = torch.zeros((t, v) + cells, dtype=torch.float32,
+                             device=trace.device)
+        return charge, (surface_cycles(trace, weight) if surface
+                        else masked_cycles(trace, weight))
+    st = structural_state(trace)
     if ones_frac is None:
         tmask = (st.has_prev & st.is_rw).to(torch.float32)
         ones, togg = batched_features(

@@ -20,6 +20,8 @@ def smoke(monkeypatch):
     monkeypatch.setattr(chip_smoke, "event_ms",
                         lambda fn, iters, flush=None: (fn(), 1.0)[1])
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "device_kernels",
+                        lambda fn: (fn(), ["kernel"])[1])
     real = chip_smoke.read_counters
     monkeypatch.setattr(chip_smoke, "read_counters", lambda: {
         k: max(v, 1) for k, v in real().items()})
@@ -40,6 +42,35 @@ def test_line_kernel_phase_rows(smoke, capsys):
     assert [r["library_ms"] is None for r in rows] == [True] * 3 + [False]
     assert set(rows[0]) >= {"source", "replaces", "ms", "plain_ms", "err"}
     assert capsys.readouterr().out.count("[kernel]") == 4
+
+
+def test_line_toggles_row_counts_device_operations(smoke, monkeypatch,
+                                                   capsys):
+    smoke.line_kernel_phase(0, "cpu", device="cpu", shape=(64, 256))
+    out = capsys.readouterr().out
+    assert out.count("device_ops=1") == 1
+    assert "[kernel] line_toggles: " in out.split("device_ops=1")[0]
+    monkeypatch.setattr(smoke, "device_kernels", lambda fn: ["fill", "k"])
+    with pytest.raises(smoke.CheckFailed, match="2 device operations"):
+        smoke.line_kernel_phase(0, "cpu", device="cpu", shape=(64, 256))
+
+
+def test_toggles_gib_phase_row(smoke, capsys):
+    smoke.toggles_gib_phase(0, "cpu", device="cpu", n_lines=1000)
+    (line,) = capsys.readouterr().out.splitlines()
+    assert line.startswith("[kernel] line_toggles (1 GiB): ms=1.0000 ")
+    ms, by = smoke.bound(1000 * 68, 1000 * 47)
+    assert by == "bytes" and f"bound_ms={ms:.4f}" in line
+    assert "shape=(lines=1000, 16)" in line
+
+
+def test_faults_phase_on_cpu_models(smoke, cpu_model, capsys):
+    from repro_torch.core import model_api
+    models = {k: model_api.make_estimator(k, cpu_model) for k in smoke.KINDS}
+    smoke.faults_phase(models, device="cpu")
+    out = capsys.readouterr().out
+    assert "[faults] 4 out-of-range addresses refused" in out
+    assert "in 72 (address, kind, impl, mode) cases" in out
 
 
 def test_study_and_hbm_phases(smoke, cpu_model, monkeypatch, capsys):

@@ -277,6 +277,84 @@ def test_line_kernels_are_bit_exact(device):
     assert torch.equal(seq, tg_ref.line_toggles_seq(x))
 
 
+SEQ_LENGTHS = [0, 1, 2, 7, 8, 9, 255, 256, 257, 524_288 + 13]
+
+
+@pytest.mark.parametrize("n", SEQ_LENGTHS)
+def test_sequential_toggles_at_any_length_and_alignment(device, n):
+    """One kernel a call (none for n = 0), the plain version's bits, the
+    same bits twice; on a buffer's start, a view one line in and a view
+    16 bytes in."""
+    from repro_torch.kernels.toggle import ops as tops, ref as tg_ref, toggle
+    buf = _lines(device, n + 1, seed=n)
+    words = buf.reshape(-1)
+    views = {"start": buf[:n], "one line in": buf[1:],
+             "16 bytes in": words[4:4 + 16 * n].view(n, 16)}
+    for name, x in views.items():
+        before = toggle.line_toggles.launches
+        got = tops.line_toggles_seq(x)
+        again = tops.line_toggles_seq(x)
+        torch.cuda.synchronize()
+        assert toggle.line_toggles.launches == before + (2 if n else 0), name
+        assert got.shape == (n,) and got.dtype == torch.int32, name
+        assert torch.equal(got, tg_ref.line_toggles_seq(x)), name
+        assert torch.equal(got, again), name
+
+
+def test_sequential_toggles_run_one_device_operation(device):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.toggle import ops as tops
+    x = _lines(device, 524_288)
+    tops.line_toggles_seq(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tops.line_toggles_seq(x)
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(ops) == 1 and "line_toggles_seq" in ops[0], ops
+
+
+@pytest.mark.parametrize("kind", model_api.ESTIMATOR_KINDS)
+def test_addresses_and_empty_batches_on_the_card(setup, kind):
+    """Out-of-range banks and rows are refused on the card as on the CPU,
+    naming the trace and the command; a batch of empty traces gives
+    zeros in every mode and impl."""
+    from repro_torch.core import dram
+    _, tb, models = setup
+    est = models[kind]
+    dev = tb.device
+    good = dram.make_trace([ACT, dram.PRE], [0, 0], [5, 0], [0, 0], None,
+                           [6, 6]).to(dev)
+    for bank, row, what in ((9, 5, "bank 9"), (-1, 5, "bank -1"),
+                            (1, 40000, "row 40000"), (1, -5, "row -5")):
+        fields = [torch.tensor(x, dtype=torch.int32, device=dev) for x in
+                  ([ACT, dram.PRE, ACT, dram.RD, dram.PRE],
+                   [0, 0, bank, bank, bank], [0, 0, row, row, 0],
+                   [0, 0, 0, 1, 0], [6, 6, 6, 4, 6])]
+        bad = dram.CommandTrace(*fields[:4], torch.zeros(
+            (5, 16), dtype=torch.int32, device=dev), fields[4])
+        for impl in ("vectorized", "reference", "cuda"):
+            for mode in ("mean", "surface"):
+                with pytest.raises(ValueError,
+                                   match=f"trace 1, command 2: {what} "):
+                    est.estimate([good, bad], mode=mode, impl=impl)
+    empty = dram.make_trace([], [], [], [], None, [])
+    for mode in ("mean", "range", "distribution", "surface"):
+        kw = (dict(ones_frac=0.35, toggle_frac=0.15)
+              if mode == "distribution" else {})
+        shape = (2, 3) + ((8, 8) if mode == "surface" else ())
+        for impl in ("vectorized", "reference", "cuda"):
+            rep = est.estimate([empty, empty], mode=mode, impl=impl, **kw)
+            for leaf in (rep if mode == "range" else (rep,)):
+                for name, x in zip(leaf._fields, leaf):
+                    assert x.device.type == "cuda", (mode, impl, name)
+                    assert tuple(x.shape) == shape, (mode, impl, name)
+                    assert not bool(x.any()), (mode, impl, name)
+
+
 def test_tensor_stats_on_the_card_matches_the_cpu(device):
     from repro_torch.core import hbm
     x = torch.randn(512, 1024).to(torch.bfloat16)

@@ -247,3 +247,80 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch,
     assert port["micron"].device == torch.device("cpu")
     with pytest.raises(ValueError, match="unknown estimator kind"):
         pma.make_estimator("ddr5", port["vampire"])
+
+
+# ---------------------------------------------------------------------------
+# Addresses outside the module, and batches of empty traces
+# ---------------------------------------------------------------------------
+def _address_trace(bank: int, row: int, make):
+    """ACT/PRE on bank 0, then ACT, RD, PRE on ``bank`` at ``row``: the
+    first out-of-range command, if any, is command 2."""
+    P = rdram
+    return make([P.ACT, P.PRE, P.ACT, P.RD, P.PRE], [0, 0, bank, bank, bank],
+                [0, 0, row, row, 0], [0, 0, 0, 1, 0], None,
+                [_T.tRCD, _T.tRP, _T.tRCD, _T.tBURST, _T.tRP])
+
+
+def _direct_trace(cmds, banks, rows, cols, data, dts):
+    """A CommandTrace built field by field, without ``make_trace``."""
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32)  # noqa: E731
+    return pdram.CommandTrace(i32(cmds), i32(banks), i32(rows), i32(cols),
+                              torch.zeros((len(cmds), 16), dtype=torch.int32),
+                              i32(dts))
+
+
+BAD_ADDRESSES = [(9, 5, "bank 9 outside \\[0, 8\\)"),
+                 (-1, 5, "bank -1 outside \\[0, 8\\)"),
+                 (1, 40000, "row 40000 outside \\[0, 32768\\)"),
+                 (1, -5, "row -5 outside \\[0, 32768\\)")]
+
+
+@pytest.mark.parametrize("mode", ("mean", "surface"))
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("bank,row,what", BAD_ADDRESSES)
+def test_addresses_outside_the_module_are_refused(estimators, ragged, kind,
+                                                  impl, mode, bank, row,
+                                                  what):
+    """Every impl refuses a bank outside [0, 8) or a row outside [0, 2^15)
+    alike, naming the trace and the command, whether the trace comes from
+    ``make_trace`` or is built directly and handed to ``estimate``."""
+    _, port = estimators
+    _, ptrs = ragged
+    with pytest.raises(ValueError, match=f"trace 0, command 2: {what}"):
+        _address_trace(bank, row, pdram.make_trace)
+    bad = _address_trace(bank, row, _direct_trace)
+    with pytest.raises(ValueError, match=f"trace 1, command 2: {what}"):
+        port[kind].estimate([ptrs[0], bad], mode=mode, impl=impl)
+    with pytest.raises(ValueError, match=f"trace 2, command 2: {what}"):
+        pbatch.bucketed_trace_batch([ptrs[0], ptrs[1], bad], 4, 2048)
+
+
+@pytest.mark.parametrize("mode", ("mean", "surface"))
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_last_bank_and_row_agree_with_the_reference(estimators, kind, impl,
+                                                    mode):
+    ref, port = estimators
+    want = ref[kind].estimate([_address_trace(7, 32767, rdram.make_trace)],
+                              mode=mode)
+    got = port[kind].estimate([_address_trace(7, 32767, pdram.make_trace)],
+                              mode=mode, impl=impl)
+    _assert_reports(got, want, mode, f"{kind}/{mode}/{impl} bank 7 row 32767")
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("kind", KINDS)
+def test_a_batch_of_empty_traces_gives_zeros(estimators, kind, mode, impl):
+    ref, port = estimators
+    empty = ([], [], [], [], None, [])
+    kw = MODE_KW.get(mode, {})
+    want = ref[kind].estimate([rdram.make_trace(*empty)] * 2, mode=mode, **kw)
+    got = port[kind].estimate([pdram.make_trace(*empty)] * 2, mode=mode,
+                              impl=impl, **kw)
+    for g, w in zip(_reports(got, mode), _reports(want, mode)):
+        for name, lg, lw in zip(g._fields, g, w):
+            assert lg.shape == np.asarray(lw).shape, name
+            assert not lg.any() and not np.asarray(lw).any(), name
+    _assert_reports(got, want, mode, f"{kind}/{mode}/{impl} empty traces")

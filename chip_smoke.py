@@ -37,7 +37,20 @@ itself).  Phases, each printing its numbers:
 7. ``[hbm]``: ``tensor_stats``, BDI ``compression_ratio`` and the OWI
    energy ratio of four seeded 32 MiB tensor corpora made on the card,
    and ``tensor_stats`` of a 1 GiB all-ones tensor (exactly 1.0);
-8. ``[serve]``: the LM serving entry point (``repro_torch.launch.serve.run``)
+8. ``[campaign]``: the paper's characterization campaign at full size —
+   ``model_api.fit('vampire', make_fleet(paper_fleet()), impl='cuda')``
+   on the 50-module fleet at the default plan (348 probes of 1030
+   commands), against the same fit through ``'vectorized'`` (currents at
+   rtol 1e-5, fitted leaves at the reference's rtol 1e-4 / atol 1e-6),
+   Table 5 and the structural surface beside their planted values, the
+   quick fit against the committed ``vampire_quickfit_v2.npz`` (the
+   card's check against the reference's fit), save and load;
+9. ``[fleet]``: a synthetic fleet of 10,000 modules, its chunked surface
+   map (256 modules a chunk, bit for bit the one-shot map at 1,000) and
+   every campaign probe on every module (a 10,000 x 348 current matrix),
+   through ``'cuda'`` against ``'vectorized'`` on the first chunk; the
+   feature, charge and surface kernels also timed at these shapes;
+10. ``[serve]``: the LM serving entry point (``repro_torch.launch.serve.run``)
    on qwen2.5-3b at full width (36 layers, random bf16 weights from
    ``--seed``): batch 4, prompt 2048, 32 greedy decode tokens, the power
    report through the estimation service with ``impl='cuda'``; then
@@ -48,7 +61,7 @@ itself).  Phases, each printing its numbers:
    at the prefill shape, with a ragged and a float32 case) must be
    launched once per layer of the prefill.
 
-Each main path (5, 6, 7, 8) runs with the kernels' launch counts set to 0
+Each main path (5 to 10) runs with the kernels' launch counts set to 0
 just before it and read just after; every kernel must have been launched.
 Any failed check exits non-zero.  The last lines are one JSON object of
 per-kernel numbers, the card's ``name, power.limit`` line, and
@@ -928,6 +941,357 @@ def hbm_phase(seed: int, model, card: str, mib: int = 32,
     return read_counters()
 
 
+QUICK_FIT = dict(probe_modules=2, probe_reps=64, n_rows=8)
+FIT_RTOL, FIT_ATOL = 1e-4, 1e-6   # the reference's batched-vs-serial bar
+
+
+def fit_close(got, want, what: str) -> float:
+    """|got - want| <= FIT_ATOL + FIT_RTOL * |want| element-wise (the
+    reference's bar for two fits); returns the largest share of the bar
+    used."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    check(got.shape == want.shape, f"{what}: shape {got.shape} vs "
+                                   f"{want.shape}")
+    check(bool(np.isfinite(got).all()), f"{what}: non-finite values")
+    share = np.abs(got - want) / (FIT_ATOL + FIT_RTOL * np.abs(want))
+    worst = float(share.max()) if share.size else 0.0
+    check(worst <= 1.0, f"{what}: beyond rtol {FIT_RTOL} / atol {FIT_ATOL} "
+                        f"(share of the bar {worst:.3f})")
+    return worst
+
+
+def charge_path_bound(t: int, n: int, v: int, surface: bool = False):
+    """The bound of the VAMPIRE charge path (feature kernel, then the
+    charge kernel) on a (T, N) batch of V parameter sets: each command's
+    two lines and mask read and two features written once, the charge
+    kernel's eight planes and V parameter rows read and its output
+    written once; 64 operations a line and 45 a command and set."""
+    m = t * n
+    out = t * v * (64 if surface else 1) * 4
+    return bound(m * (64 + 64 + 4 + 8) + m * 8 * 4 + v * 123 * 4 + out,
+                 m * 64 + m * v * 45)
+
+
+def shape_rows(tag: str, batch, stacked, plain_v: int, card: str,
+               flush) -> None:
+    """The feature, VAMPIRE charge and surface kernels at a campaign or
+    fleet shape: each against its plain version on the first ``plain_v``
+    parameter sets (rtol 1e-5; the features bit-exact), timed beside its
+    bound.  Not main-path launches: the counts are read around the
+    phase's own runs, before this."""
+    import torch
+
+    from repro_torch.core.energy_model import prev_lines, structural_state
+    from repro_torch.kernels.vampire_energy import ops as vops
+    from repro_torch.kernels.vampire_energy import vampire_energy as ve
+    tr, w = batch.trace, batch.weight
+    t, n = tr.cmd.shape
+    v = stacked.i2n.shape[0]
+    m = t * n
+    st = structural_state(tr)
+    data = tr.data.reshape(m, -1)
+    prev = prev_lines(tr.data, st).reshape(m, -1)
+    tmask = (st.has_prev & st.is_rw).to(torch.float32).reshape(m)
+    ones, togg = ve.batched_features(data, prev, tmask)
+    p_ones, p_togg = ve.batched_features_plain(data, prev, tmask)
+    check(torch.equal(ones, p_ones) and torch.equal(togg, p_togg),
+          f"{tag}: features kernel differs from its plain version")
+    params = vops.pack_param_blocks(stacked)
+    args = [ones.reshape(t, n), togg.reshape(t, n), tr.cmd, tr.bank, tr.row,
+            tr.dt, vops.pack_state(st), w.contiguous(), params]
+    plain_args = args[:-1] + [params[:plain_v].contiguous()]
+    masked = int((w[:, :1] == 0).sum())
+    rows = [("batched_features", lambda: ve.batched_features(data, prev,
+                                                             tmask),
+             lambda: ve.batched_features_plain(data, prev, tmask), 0.0,
+             bound(m * (64 + 64 + 4) + 2 * m * 4, m * 64))]
+    for fn, surface in ((ve.vampire_charge, False),
+                        (ve.vampire_charge_surface, True)):
+        got = fn(*args)[:, :plain_v]
+        err = assert_close(got, ve.vampire_charge_plain(*plain_args,
+                                                        surface=surface),
+                           RTOL, f"{tag}: {fn.__name__}")
+        out = t * v * (64 if surface else 1) * 4
+        rows.append((fn.__name__, lambda fn=fn: fn(*args),
+                     lambda s=surface: ve.vampire_charge_plain(
+                         *plain_args, surface=s), err,
+                     bound(m * 8 * 4 + v * 123 * 4 + out, m * v * 45)))
+    for name, fn, plain, err, (b_ms, b_by) in rows:
+        ms = event_ms(fn, 10, flush)
+        plain_ms = event_ms(plain, 3, flush)
+        print(f"[kernel] {name} ({tag}): ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"(plain on {plain_v} of {v} sets) bound_ms={b_ms:.4f} "
+              f"({b_by}) share_of_bound={b_ms / ms:.3f} max_abs_err="
+              f"{err:.3e} shape=(T={t}, N={n}, V={v}) "
+              f"rows_with_masked_first_command={masked} card=\"{card}\"",
+              flush=True)
+
+
+def campaign_phase(card: str, device="cuda", specs=None,
+                   **plan) -> dict[str, int]:
+    """Phase 8: the paper's characterization campaign at full size, the
+    50-module fleet (14 A, 13 B, 23 C) at the defaults (5 probe modules,
+    256 reps, 24 rows), through the entry point a user calls with
+    ``impl='cuda'``; the same fit through ``'vectorized'`` on the card;
+    Table 5's and the surface's recovery; the quick fit against the
+    committed one (the card's yardstick for the reference's fit); save and
+    load.  ``specs`` and ``plan`` (``probe_modules``, ``probe_reps``,
+    ``n_rows``) cut the campaign for a rehearsal.  Returns the launches of
+    the ``'cuda'`` fit."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (characterize, device_sim, fleet,
+                                  idd_loops, model_api, params)
+    modules = device_sim.make_fleet(specs or params.paper_fleet())
+    plan_kw = {k: v for k, v in plan.items() if k != "probe_modules"}
+    reset_counters()
+    t0 = time.perf_counter()
+    model = model_api.fit("vampire", modules, fitter="campaign",
+                          impl="cuda", device=device, **plan)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launched = read_counters()
+    check(launched["batched_features"] > 0 and
+          launched["vampire_charge"] > 0,
+          f"campaign: the feature and charge kernels were not both "
+          f"launched ({launched})")
+    t0 = time.perf_counter()
+    model_api.fit("vampire", modules, impl="cuda", device=device, **plan)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vec = model_api.fit("vampire", modules, impl="vectorized", device=device,
+                        **plan)
+    torch.cuda.synchronize()
+    vec_s = time.perf_counter() - t0
+
+    # the measured currents (the raw campaign arrays) at rtol 1e-5, the
+    # fitted leaves at the fit bar
+    cur_err = 0.0
+    for name, x in model.saved.arrays.items():
+        if name.endswith(("/current",)) or "/idd_measured/" in name:
+            cur_err = max(cur_err, assert_close(
+                torch.from_numpy(x), torch.from_numpy(
+                    vec.saved.arrays[name]), RTOL, f"campaign {name}"))
+    share = 0.0
+    for v in model.vendors:
+        for leaf, a, b in zip(model.params(v)._fields, model.params(v),
+                              vec.params(v)):
+            share = max(share, fit_close(a.cpu(), b.cpu(),
+                                         f"campaign vendor {v} {leaf}"))
+    cplan = characterize.campaign_plan(**plan_kw)
+    probe = cplan.batch_on("probe_batch", device)
+    stacked = fleet.fleet_stacked(modules, device)
+    flush_buf = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+    t, n = probe.trace.cmd.shape
+    kern = fleet.run_probes(modules, cplan.probe_points, batch=probe,
+                            impl="cuda", noisy=False, device=device)
+    plain = fleet.run_probes(modules, cplan.probe_points, batch=probe,
+                             noisy=False, device=device)
+    mat_err = assert_close(torch.from_numpy(kern), torch.from_numpy(plain),
+                           RTOL, "campaign: every module x the probes")
+    ms = event_ms(lambda: fleet.fleet_measure_current_cuda(
+        probe.trace, probe.weight, stacked), 10, flush_buf.zero_)
+    b_ms, b_by = charge_path_bound(t, n, len(modules))
+    counts = [len(device_sim.vendor_modules(modules, v)) for v in range(3)]
+    print(f"[campaign] fleet: modules={len(modules)} (A {counts[0]}, B "
+          f"{counts[1]}, C {counts[2]}) plan={plan or 'defaults'} "
+          f"idd_batch={tuple(cplan.idd_batch.weight.shape)} "
+          f"probe_batch=(T={t}, N={n}) fit_s={fit_s:.3f} (plan and "
+          f"batches built in it) warm_fit_s={warm_s:.3f} "
+          f"vectorized_fit_s={vec_s:.3f} launches="
+          f"{ {k: c for k, c in launched.items() if c} } card=\"{card}\"",
+          flush=True)
+    print(f"[campaign] cuda vs vectorized: currents max_abs_err="
+          f"{cur_err:.3e} mA (rtol {RTOL}); fitted leaves within "
+          f"{share:.3f} of the bar (rtol {FIT_RTOL}, atol {FIT_ATOL}); the "
+          f"({len(modules)} x {t}) noise-free matrix max_abs_err="
+          f"{mat_err:.3e} "
+          f"measure_ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+          f"share_of_bound={b_ms / ms:.3f} card=\"{card}\"", flush=True)
+    shape_rows(f"campaign, {len(modules)} modules x {t} probes", probe,
+               stacked, len(modules), card, flush_buf.zero_)
+
+    # Table 5 and the structural surface, recovered beside the planted
+    dd = model.saved.arrays["datadep"]
+    for v in model.vendors:
+        for mi, mode in enumerate(characterize.IL_MODES):
+            got = dd[v, mi, 0]
+            want = params.TABLE5[v, mi, 0]
+            print(f"[campaign] table5 vendor={'ABC'[v]} mode={mode:7s} RD "
+                  f"fitted=({got[0]:.2f}, {got[1]:.4f}, {got[2]:.4f}) "
+                  f"planted=({want[0]:.2f}, {want[1]:.4f}, {want[2]:.4f})",
+                  flush=True)
+        surf = model.saved.arrays["act_surface"][v]
+        planted = device_sim.structural_surface(v)
+        print(f"[campaign] surface vendor={'ABC'[v]} max_abs_err="
+              f"{np.abs(surf - planted).max():.4f} planted_range="
+              f"({planted.min():.4f}, {planted.max():.4f})", flush=True)
+
+    # the quick fit against the committed one, at the fit bar
+    quick = model_api.fit("vampire", device_sim.make_fleet(
+        [params.ModuleSpec(v, i, 2015) for v in range(3) for i in range(3)]),
+        impl="cuda", device=device, **QUICK_FIT)
+    share = 0.0
+    with np.load(MODEL_FILE, allow_pickle=False) as z:
+        names = sorted(set(z.files) - {model_api.MANIFEST_KEY})
+        check(names == sorted(quick.saved.arrays),
+              "quick fit: entry names differ from the committed file's")
+        for name in names:
+            share = max(share, fit_close(quick.saved.arrays[name], z[name],
+                                         f"quick fit {name}"))
+    print(f"[campaign] quick fit (3 x 3 modules, probe_modules=2, "
+          f"probe_reps=64, n_rows=8) through cuda matches the committed "
+          f"{MODEL_FILE.name}: {len(names)} arrays within {share:.3f} of "
+          f"the bar", flush=True)
+
+    # save and load the fresh fit: the same estimates
+    trs = [idd_loops.validation_sweep(24), idd_loops.idd7(),
+           idd_loops.idd3p()]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/fit.npz"
+        model.save(path)
+        loaded = model_api.load_estimator(path, device=device)
+    for mode in ("mean", "surface"):
+        a = model.estimate(trs, mode=mode, impl="cuda")
+        b = loaded.estimate(trs, mode=mode, impl="cuda")
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"campaign: a saved and loaded fit estimates differently "
+              f"({mode})")
+    print(f"[campaign] save and load: {len(model.saved.arrays)} arrays, "
+          f"the same {len(trs)}-trace estimates (mean, surface)", flush=True)
+    del flush_buf
+    return launched
+
+
+FLEET_MODULES = (1_000, 10_000)
+MODULE_CHUNK = 256
+
+
+def fleet_phase(card: str, device="cuda", sizes=FLEET_MODULES,
+                module_chunk: int = MODULE_CHUNK, **plan) -> dict[str, int]:
+    """Phase 9: fleet scale at ``bench_fleetscale.py``'s sizes: a
+    synthetic fleet of 10,000 modules, the chunked surface map
+    (``module_chunk`` 256) over its two validation-sweep traces through
+    ``'cuda'`` (bit for bit the one-shot map at 1,000 modules;
+    ``'vectorized'`` on the first chunk), and every probe of the default
+    campaign plan (``plan`` cuts it) on all 10,000 modules.  Returns the
+    launches of the surface map and the probe run."""
+    import torch
+
+    from repro_torch.core import (characterize, device_sim, dram,
+                                  estimate_batch as eb, fleet, idd_loops)
+    t0 = time.perf_counter()
+    _, stacked = device_sim.synth_fleet_params(sizes[-1],
+                                               device=device)
+    torch.cuda.synchronize()
+    synth_s = time.perf_counter() - t0
+    trace, weight = dram.batch_traces(
+        [(idd_loops.validation_sweep(8, reps=12), 2),
+         (idd_loops.validation_sweep(16, reps=8), 2)])
+    trace, weight = trace.to(device), weight.to(device)
+    t, n = trace.cmd.shape
+    flush_buf = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+
+    def head(k):
+        return stacked.select(list(range(k)))
+
+    # exactness first: chunked == one-shot at 1,000; cuda == vectorized
+    one = fleet.fleet_surface_energy(head(sizes[0]), trace, weight,
+                                     impl="cuda")
+    chunked = fleet.fleet_surface_energy(head(sizes[0]), trace,
+                                         weight, impl="cuda",
+                                         module_chunk=module_chunk)
+    check(all(torch.equal(a, b) for a, b in zip(one, chunked)),
+          f"fleet: the chunked surface differs from the one-shot one at "
+          f"{sizes[0]} modules")
+    vec = eb.batched_surface_reports(trace, weight, head(module_chunk))
+    surf_err = assert_close(one.energy_pj[:, :module_chunk], vec.energy_pj,
+                            RTOL, "fleet: surface cuda vs vectorized")
+
+    reset_counters()
+    n_mod = sizes[-1]
+
+    def surface_map():
+        return fleet.fleet_surface_energy(stacked, trace, weight,
+                                          impl="cuda",
+                                          module_chunk=module_chunk)
+    rep = surface_map()
+    torch.cuda.synchronize()
+    launched = read_counters()
+    check(launched["vampire_charge_surface"] > 0,
+          f"fleet: the surface kernel was not launched ({launched})")
+    check(tuple(rep.energy_pj.shape) == (t, n_mod, 8, 8)
+          and bool(torch.isfinite(rep.energy_pj).all())
+          and bool((rep.energy_pj.sum(dim=(-2, -1)) > 0).all()),
+          f"fleet: the {n_mod}-module surface map is not finite and "
+          f"positive")
+    assert_close(rep.energy_pj[:, :sizes[0]], one.energy_pj, 0.0,
+                 f"fleet: the first {sizes[0]} modules of the {n_mod} map")
+    wall = wall_ms(surface_map, 3)
+    ev = event_ms(surface_map, 3, flush_buf.zero_)
+    b_ms, b_by = bound(t * n * 8 * 4 + n_mod * 123 * 4 + t * n_mod * 64 * 4
+                       + t * 64 * 4, t * n * n_mod * 45)
+    print(f"[fleet] surface map: modules={n_mod} traces={t} commands={n} "
+          f"module_chunk={module_chunk} synth_s={synth_s:.3f} "
+          f"wall_ms={wall:.3f} modules_per_s={n_mod / wall * 1e3:.0f} "
+          f"event_ms={ev:.4f} bound_ms={b_ms:.4f} ({b_by}) chunked_equals_"
+          f"one_shot_at_{sizes[0]}=True cuda_vs_vectorized_max_abs_err="
+          f"{surf_err:.3e} pJ ({module_chunk} modules) launches="
+          f"{ {k: c for k, c in launched.items() if c} } card=\"{card}\"",
+          flush=True)
+
+    # every campaign probe on every module, noise-free
+    cplan = characterize.campaign_plan(**plan)
+    probe = cplan.batch_on("probe_batch", device)
+    pt, pn = probe.trace.cmd.shape
+    reset_counters()
+
+    def probe_all():
+        return fleet.run_probes(stacked, cplan.probe_points, batch=probe,
+                                noisy=False, impl="cuda", device=device)
+    mat = probe_all()
+    launched_probe = read_counters()
+    check(launched_probe["batched_features"] > 0
+          and launched_probe["vampire_charge"] > 0,
+          f"fleet: the feature and charge kernels were not both launched "
+          f"({launched_probe})")
+    check(mat.shape == (n_mod, pt) and bool((mat > 0).all()),
+          f"fleet: the probe matrix has shape {mat.shape} or a current "
+          f"that is not positive")
+    plain = fleet.run_probes(head(module_chunk), cplan.probe_points,
+                             batch=probe, noisy=False, device=device)
+    probe_err = assert_close(torch.from_numpy(mat[:module_chunk]),
+                             torch.from_numpy(plain), RTOL,
+                             "fleet: probe matrix cuda vs vectorized")
+    wall = wall_ms(probe_all, 3)
+    ev = event_ms(lambda: fleet.fleet_measure_current_cuda(
+        probe.trace, probe.weight, stacked), 3, flush_buf.zero_)
+    b_ms, b_by = charge_path_bound(pt, pn, n_mod)
+    print(f"[fleet] probes: modules={n_mod} probes={pt} commands={pn} "
+          f"matrix={mat.shape} ({mat.shape[0] * mat.shape[1] * 4} bytes "
+          f"float32) wall_ms={wall:.3f} modules_per_s="
+          f"{n_mod / wall * 1e3:.0f} measure_event_ms={ev:.4f} "
+          f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ev:.3f} "
+          f"cuda_vs_vectorized_max_abs_err={probe_err:.3e} mA "
+          f"({module_chunk} modules) launches="
+          f"{ {k: c for k, c in launched_probe.items() if c} } "
+          f"card=\"{card}\"", flush=True)
+    for name, c in launched_probe.items():
+        launched[name] += c
+    shape_rows(f"fleet surface, {module_chunk}-module chunk",
+               fleet.ProbeBatch(trace, weight, None), head(module_chunk),
+               module_chunk, card, flush_buf.zero_)
+    shape_rows(f"fleet probes, {n_mod} modules", probe, stacked,
+               min(64, n_mod), card, flush_buf.zero_)
+    del flush_buf
+    return launched
+
+
 def vocab_bar(got, want, vocab: int) -> tuple[float, float]:
     """Max abs difference of two logit arrays over the real vocabulary, and
     the reference's teacher-forcing bar for it (0.15 std + 0.05,
@@ -1146,9 +1510,11 @@ def main(argv=None) -> int:
     faults_phase(models)
     del tb
 
-    # phases 6, 7 and 8: the encoding study, the HBM statistics, serving
+    # phases 6-10: the encoding study, the HBM statistics, the
+    # characterization campaign, fleet scale, serving
     for path in (study_phase(args.seed, models["vampire"], card),
                  hbm_phase(args.seed, models["vampire"], card),
+                 campaign_phase(card), fleet_phase(card),
                  serve_phase(args.seed, card)):
         for name, c in path.items():
             launches[name] += c

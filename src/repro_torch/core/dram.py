@@ -242,6 +242,18 @@ def pad_trace(trace: CommandTrace, length: int) -> CommandTrace:
         torch.cat([trace.dt, zi]))
 
 
+def concat_traces(*traces: CommandTrace) -> CommandTrace:
+    """Commands of several traces, one after the other."""
+    return CommandTrace(*(torch.cat(f) for f in zip(*traces)))
+
+
+def tile_trace(trace: CommandTrace, reps: int) -> CommandTrace:
+    """Repeat a command loop ``reps`` times (the paper's
+    loop-until-measured)."""
+    return CommandTrace(*(x.repeat((reps,) + (1,) * (x.ndim - 1))
+                          for x in trace))
+
+
 def stack_traces(traces) -> CommandTrace:
     """Stack equal-length traces along a new leading axis."""
     return CommandTrace(*(torch.stack(f) for f in zip(*traces)))
@@ -268,6 +280,37 @@ def batch_traces(traces_and_skips) -> tuple[CommandTrace, torch.Tensor]:
 # ---------------------------------------------------------------------------
 # Data-pattern helpers
 # ---------------------------------------------------------------------------
+def line_from_byte(byte_value: int) -> np.ndarray:
+    """64-byte line where every byte equals ``byte_value`` (JEDEC style),
+    as 16 uint32 words."""
+    b = byte_value & 0xFF
+    w = b | (b << 8) | (b << 16) | (b << 24)
+    return np.full(LINE_WORDS, w, dtype=np.uint32)
+
+
+def line_with_n_ones(n_ones: int,
+                     rng: np.random.Generator | None = None) -> np.ndarray:
+    """A 512-bit line with exactly ``n_ones`` ones (the low bits first, or
+    at ``rng``'s random positions), as 16 uint32 words."""
+    if not 0 <= n_ones <= LINE_BITS:
+        raise ValueError(f"n_ones {n_ones} outside [0, {LINE_BITS}]")
+    bits = np.zeros(LINE_BITS, dtype=np.uint8)
+    if rng is None:
+        bits[:n_ones] = 1
+    else:
+        bits[rng.choice(LINE_BITS, size=n_ones, replace=False)] = 1
+    return pack_bits(bits)
+
+
+def pack_bits(bits: np.ndarray) -> np.ndarray:
+    """512 bits (bit i of word w is ``bits[32 * w + i]``) -> 16 uint32
+    words."""
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    words = (bits.reshape(LINE_WORDS, 32).astype(np.uint64) * weights).sum(
+        axis=1)
+    return words.astype(np.uint32)
+
+
 def row_band(row):
     """Row-band index of a row address (int, numpy or tensor)."""
     return row >> ROW_BAND_SHIFT

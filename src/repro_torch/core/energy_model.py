@@ -431,6 +431,12 @@ def trace_energy_vectorized(trace: CommandTrace,
     return _report(charges.sum(dim=-1), trace.total_cycles())
 
 
+def per_command_energy(trace: CommandTrace, pp: PowerParams) -> torch.Tensor:
+    """(..., N) per-command energy in pJ (vectorized path)."""
+    charges = charge_from_features(trace, extract_features(trace, pp), pp)
+    return charges * TCK_NS * VDD
+
+
 # ---------------------------------------------------------------------------
 # The command-by-command oracle (impl='reference')
 # ---------------------------------------------------------------------------

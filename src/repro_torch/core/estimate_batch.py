@@ -19,10 +19,11 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.core.dram import CommandTrace, batch_traces, \
-    check_addresses, pad_trace, stack_traces
+from repro_torch.core.dram import N_BANKS, N_ROW_BANDS, CommandTrace, \
+    batch_traces, check_addresses, pad_trace, stack_traces
 from repro_torch.core.energy_model import (EnergyReport, PowerParams,
-                                           _report, charge_from_features,
+                                           StructuralFeatures, _report,
+                                           charge_from_features,
                                            distribution_features,
                                            extract_structural_features,
                                            finalize_features, scale_report,
@@ -152,19 +153,92 @@ def batched_distribution_reports(trace: CommandTrace, weight: torch.Tensor,
     return _matrix_report(charge, cycles)
 
 
-def batched_surface_reports(trace: CommandTrace, weight: torch.Tensor,
-                            stacked: PowerParams) -> EnergyReport:
-    """Per-(bank, row-band) decomposition of every pair: leaves are
-    ``(traces, vendors, banks, row_bands)``; summing the cell axes gives
-    :func:`batched_reports`."""
-    sf = extract_structural_features(trace)
+def _surface_charges(trace: CommandTrace, weight: torch.Tensor,
+                     sf: StructuralFeatures,
+                     stacked: PowerParams) -> torch.Tensor:
+    """Masked surface charge of every (trace, paramset) pair ->
+    ``(T, V, 8, R)``; ``sf`` is the batch's structural pass."""
     charges = []
     for v in range(stacked.i2n.shape[0]):
         pp = stacked.select(v)
         c = charge_from_features(trace, finalize_features(sf, pp), pp)
         charges.append(surface_charge(trace, weight, c))
-    charge = torch.stack(charges, dim=1)                   # (T, V, 8, R)
+    return torch.stack(charges, dim=1)
+
+
+def batched_surface_reports(trace: CommandTrace, weight: torch.Tensor,
+                            stacked: PowerParams) -> EnergyReport:
+    """Per-(bank, row-band) decomposition of every pair: leaves are
+    ``(traces, vendors, banks, row_bands)``; summing the cell axes gives
+    :func:`batched_reports`."""
+    charge = _surface_charges(trace, weight,
+                              extract_structural_features(trace), stacked)
     return _matrix_report(charge, surface_cycles(trace, weight))
+
+
+# ---------------------------------------------------------------------------
+# Memory-bounded surfaces over a module axis of any size
+# ---------------------------------------------------------------------------
+def _pad_leading(fields, pad: int):
+    """Extend every field's leading axis by ``pad`` copies of row 0 (pad
+    modules are sliced off before the report; pad traces get weight 0)."""
+    if pad == 0:
+        return fields
+    return type(fields)(*(torch.cat([x, x[:1].expand((pad,) + x.shape[1:])])
+                          for x in fields))
+
+
+def chunked_surface_reports(trace: CommandTrace, weight: torch.Tensor,
+                            stacked: PowerParams, *, module_chunk: int,
+                            trace_chunk: int | None = None,
+                            impl: str = "vectorized") -> EnergyReport:
+    """``mode='surface'`` over a stacked module axis of any size:
+    :func:`batched_surface_reports`' result (``impl='vectorized'``) or
+    :func:`cuda_batched_surface_reports`' (``impl='cuda'``), evaluated
+    ``module_chunk`` modules (and ``trace_chunk`` traces) at a time.  The
+    last chunks are filled with copies of the first module and with
+    zero-weight traces, which are sliced off; every (trace, module) pair is
+    computed as in the one-shot dispatch, so the result is the same bits."""
+    from repro_torch.core import model_api
+    impl = model_api.resolve_impl(impl, mode="surface").name
+    if impl not in ("vectorized", "cuda"):
+        raise ValueError(f"chunked surfaces run impl='vectorized' or "
+                         f"'cuda', not {impl!r}")
+    n_modules = stacked.i2n.shape[0]
+    n_traces = trace.cmd.shape[0]
+    module_chunk = min(int(module_chunk), n_modules)
+    trace_chunk = (n_traces if trace_chunk is None
+                   else min(int(trace_chunk), n_traces))
+    m_pad = (-n_modules) % module_chunk
+    t_pad = (-n_traces) % trace_chunk
+    stacked = _pad_leading(stacked, m_pad)
+    padded = _pad_leading(trace, t_pad)
+    pad_w = torch.cat([weight, weight.new_zeros((t_pad,) + weight.shape[1:])])
+
+    acc = torch.zeros((n_traces + t_pad, n_modules + m_pad, N_BANKS,
+                       N_ROW_BANDS), dtype=torch.float32,
+                      device=weight.device)
+    for ti in range(0, n_traces + t_pad, trace_chunk):
+        rows = slice(ti, ti + trace_chunk)
+        tr_c = CommandTrace(*(x[rows] for x in padded))
+        w_c = pad_w[rows]
+        # the trace side (structural pass, features) once per trace chunk
+        if impl == "cuda":
+            from repro_torch.kernels.vampire_energy import ops as vops
+            planes = vops.charge_planes(tr_c, w_c)
+        else:
+            sf = extract_structural_features(tr_c)
+        for mi in range(0, n_modules + m_pad, module_chunk):
+            cols = slice(mi, mi + module_chunk)
+            chunk = PowerParams(*(x[cols] for x in stacked))
+            if impl == "cuda":
+                charge = vops.charge_from_planes(planes, trace_chunk, chunk,
+                                                 surface=True)
+            else:
+                charge = _surface_charges(tr_c, w_c, sf, chunk)
+            acc[rows, cols] = charge
+    return _matrix_report(acc[:n_traces, :n_modules],
+                          surface_cycles(trace, weight))
 
 
 # ---------------------------------------------------------------------------

@@ -211,6 +211,85 @@ def validate_data_profile(mode: str, profile: DataProfile) -> None:
     validate_estimate_args(mode, profile.ones_frac, profile.toggle_frac)
 
 
+# ---------------------------------------------------------------------------
+# Fitter registry: HOW a model's parameters are obtained.  The registry
+# stores no fit callable; :func:`fit` owns the name-keyed dispatch and
+# raises on a registered fitter it has no branch for.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class FitterSpec:
+    """One way of producing fitted model parameters: ``streaming=False``
+    fitters are one-shot (``fit()`` returns a fitted estimator);
+    ``streaming=True`` ones would return a stateful fitter."""
+    name: str
+    description: str
+    streaming: bool
+    aliases: tuple[str, ...] = ()
+
+
+_FITTERS: dict[str, FitterSpec] = {}
+_FITTER_ALIASES: dict[str, str] = {}
+
+
+def register_fitter(spec: FitterSpec) -> FitterSpec:
+    """Register a fitter (or re-register to override)."""
+    _FITTERS[spec.name] = spec
+    for alias in spec.aliases:
+        _FITTER_ALIASES[alias] = spec.name
+    return spec
+
+
+def registered_fitters() -> tuple[str, ...]:
+    return tuple(sorted(_FITTERS))
+
+
+def resolve_fitter(name: str, *,
+                   streaming: bool | None = None) -> FitterSpec:
+    """Resolve a ``fitter=`` argument (name or alias), checking it against
+    the requested execution style."""
+    spec = _FITTERS.get(_FITTER_ALIASES.get(name, name))
+    if spec is None:
+        raise ValueError(f"unknown fitter {name!r}; registered fitters: "
+                         f"{list(registered_fitters())}")
+    if streaming is not None and streaming != spec.streaming:
+        style = "streaming" if spec.streaming else "one-shot"
+        want = "streaming" if streaming else "one-shot"
+        raise ValueError(f"fitter {spec.name!r} is {style}, not {want}")
+    return spec
+
+
+CAMPAIGN_FITTER = register_fitter(FitterSpec(
+    "campaign",
+    "one-shot offline characterization campaign "
+    "(repro_torch.core.characterize): measure every probe cell on the "
+    "simulated rig, invert the slot accounting once",
+    streaming=False,
+    aliases=("offline",)))
+
+
+def fit(kind: str = "vampire", fleet=None, *, fitter: str = "campaign",
+        device=None, **kw):
+    """The unified fit entry point: ``fitter='campaign'`` runs the offline
+    campaign over ``fleet`` (``device_sim.make_fleet()`` modules; the
+    paper's 50 when None) on ``device`` (``cuda`` unless the caller names
+    another) and returns a fitted estimator of ``kind``.  Extra kwargs go
+    to ``characterize.characterize_fleet`` (``probe_modules``,
+    ``probe_reps``, ``n_rows``, ``rng_seed``, ``engine``, ``impl``)."""
+    spec = resolve_fitter(fitter)
+    if spec.name == "campaign":
+        from repro_torch.core import characterize
+        from repro_torch.core.vampire import Vampire
+        device = resolve_device(device)
+        model = Vampire.from_characterization(
+            characterize.characterize_fleet(fleet, device=device, **kw),
+            device)
+        return model if kind == "vampire" else make_estimator(kind, model)
+    raise ValueError(
+        f"fitter {spec.name!r} is registered but fit() has no dispatch "
+        f"branch for it; registering a fitter does not give fit() an "
+        f"execution path")
+
+
 def resolve_vendor_indices(order: Sequence[int],
                            vendors) -> tuple[tuple[int, ...], tuple[int, ...]]:
     """Normalize a ``vendors`` argument against a model's stacked vendor
@@ -356,6 +435,48 @@ class SavedFit:
     idd_r2: dict
     row_r2: dict
     raw: bool
+
+
+_SWEEP_FIELDS = ("ones", "toggles", "current", "corrected")
+
+
+def saved_fit_from_campaign(by_vendor: dict, bands: dict) -> SavedFit:
+    """The arrays and manifest maps of a fresh campaign fit, named and
+    typed as the reference's ``_vampire_payload`` writes them: the float64
+    fitted quantities, ``band``, ``idd_datasheet`` and the
+    ``raw/<vendor>/...`` campaign arrays."""
+    vs = sorted(by_vendor)
+    arrays: dict[str, np.ndarray] = {
+        "vendor_ids": np.asarray(vs, np.int64),
+        "band": np.asarray([bands[v] for v in vs], np.float64)}
+    for field in _FITTED_FIELDS:
+        arrays[field] = np.stack([np.asarray(getattr(by_vendor[v], field),
+                                             np.float64) for v in vs])
+    idd_keys = sorted(by_vendor[vs[0]].idd_datasheet)
+    arrays["idd_datasheet"] = np.asarray(
+        [[by_vendor[v].idd_datasheet[k] for k in idd_keys] for v in vs],
+        np.float64)
+    idd_r2, row_r2, raw = {}, {}, False
+    for v in vs:
+        vc = by_vendor[v]
+        idd_r2[str(v)] = dict(vc.idd_extrapolation_r2)
+        if vc.row_sweep:
+            row_r2[str(v)] = float(vc.row_sweep.get("r2", 0.0))
+        if not (vc.idd_measured or vc.ones_sweep or vc.row_sweep):
+            continue
+        raw = True
+        for key, arr in vc.idd_measured.items():
+            arrays[f"raw/{v}/idd_measured/{key}"] = np.asarray(arr,
+                                                               np.float64)
+        for (mode, op), sweep in vc.ones_sweep.items():
+            for field in _SWEEP_FIELDS:
+                arrays[f"raw/{v}/ones_sweep/{mode}/{op}/{field}"] = \
+                    np.asarray(sweep[field], np.float64)
+        for field in ("row_ones", "current"):
+            if vc.row_sweep:
+                arrays[f"raw/{v}/row_sweep/{field}"] = \
+                    np.asarray(vc.row_sweep[field], np.float64)
+    return SavedFit(arrays=arrays, idd_r2=idd_r2, row_r2=row_r2, raw=raw)
 
 
 def _vampire_payload(model) -> tuple[dict, dict]:

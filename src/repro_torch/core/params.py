@@ -1,10 +1,236 @@
-"""The device constants the estimation path reads (a copy of the entries
-of ``repro.core.params`` it needs; the port imports nothing of
-``repro``)."""
+"""Parameter tables transcribed from the paper, plus simulation anchors
+(the port's copy of ``repro.core.params``; the port imports nothing of
+``repro``).
+
+Three kinds of numbers live here:
+
+1. **Verbatim paper data** — Table 5 data-dependency parameters (all four
+   interleaving modes), the measured/datasheet IDD ratios of Section 4, the
+   structural-variation magnitudes of Section 6, and the generational trends
+   of Section 7. These define the *ground truth* behavior of the simulated
+   module fleet (`device_sim`).
+2. **Calibration anchors** — measured-mean IDD currents the paper reports
+   numerically (IDD0/IDD1/IDD4*) or that we choose consistently with the
+   paper's figures (idle/refresh/power-down levels, which the paper shows
+   only graphically). Datasheet values are *derived* as measured / ratio so
+   the reproduction is self-consistent by construction.
+3. **Variation magnitudes** — per-vendor process-variation sigmas calibrated
+   to the paper's reported normalized ranges, and measurement-noise levels.
+
+Vendors are indexed 0=A, 1=B, 2=C throughout.
+"""
 from __future__ import annotations
 
-# Section 5.1: I/O driver current.  During reads the module's I/O drivers
+from typing import NamedTuple
+
+import numpy as np
+
+VENDORS = ("A", "B", "C")
+N_VENDORS = 3
+
+# ---------------------------------------------------------------------------
+# Table 5: data-dependency model parameters (mA).
+#   I_total = I_zero + dI_one * N_ones + dI_tog * N_toggles
+# Index order: [vendor][il_mode][op] -> (I_zero, dI_one, dI_tog)
+# op: 0 = read, 1 = write; il_mode order matches dram.IL_* codes.
+# ---------------------------------------------------------------------------
+# (vendor, mode, op) table; modes: none, col, bank, bank+col
+TABLE5 = np.array([
+    # Vendor A
+    [[[250.88, 0.449, 0.0000], [489.61, -0.217, 0.0000]],   # none
+     [[246.44, 0.433, 0.0515], [531.18, -0.246, 0.0461]],   # col
+     [[287.24, 0.244, 0.0200], [534.93, -0.249, 0.0225]],   # bank
+     [[277.13, 0.267, 0.0200], [537.58, -0.249, 0.0225]]],  # bank+col
+    # Vendor B
+    [[[226.69, 0.164, 0.0000], [447.95, -0.191, 0.0000]],
+     [[217.42, 0.157, 0.0947], [466.84, -0.215, 0.0166]],
+     [[228.14, 0.159, 0.0364], [419.99, -0.179, 0.0078]],
+     [[223.61, 0.152, 0.0364], [420.43, -0.179, 0.0078]]],
+    # Vendor C
+    [[[222.11, 0.134, 0.0000], [343.41, -0.000, 0.0000]],
+     [[234.42, 0.154, 0.0856], [368.29, -0.116, 0.0229]],
+     [[289.99, 0.034, 0.0455], [304.33, -0.054, 0.0455]],
+     [[266.51, 0.099, 0.0090], [323.22, -0.072, 0.0090]]],
+], dtype=np.float64)  # shape (3 vendors, 4 modes, 2 ops, 3 params)
+
+# ---------------------------------------------------------------------------
+# Measured-mean IDD anchors (mA). IDD0/IDD1 are the paper's own numbers
+# (Section 4.2); idle / refresh / power-down levels are consistent with the
+# paper's box plots (shown graphically only).
+# ---------------------------------------------------------------------------
+MEASURED_IDD = {
+    #            A       B       C
+    "IDD2N":  ( 32.0,   60.0,   45.0),   # idle, all banks precharged
+    "IDD3N":  ( 46.0,   72.0,  135.3),   # idle, all banks open (C's large
+                                          # per-bank increments, Sec 6.1.1)
+    "IDD0":   ( 72.2,   70.4,   58.1),   # act/pre loop (paper Section 4.2)
+    "IDD1":   (107.4,  114.9,   87.9),   # act/rd/pre loop (paper Section 4.2)
+    "IDD5B":  (182.0,  164.0,  195.0),   # refresh burst
+    "IDD2P1": ( 10.9,   41.6,   23.1),   # fast power-down (reductions of
+                                          # 65.8/30.6/48.7% vs IDD2N, Sec 4.5)
+    # The rest of the low-power lattice (Sec 4.2 / Fig 14: the paper reports
+    # the low-power states as first-class IDD values). Ordered consistently
+    # with JEDEC: IDD2P0 (slow PDN, DLL off) < IDD2P1 (fast PDN) < IDD2N,
+    # and IDD2P1 < IDD3P (active PDN, banks open) < IDD3N; IDD6
+    # (self-refresh) sits near the slow power-down floor.
+    "IDD2P0": (  5.2,   18.4,    9.7),   # slow power-down, DLL off
+    "IDD3P":  ( 19.8,   52.3,   38.9),   # active power-down (banks open)
+    "IDD6":   (  7.4,   24.1,   13.6),   # self-refresh
+}
+
+# Section 4: average measured current as a fraction of the datasheet value.
+# Datasheet values in the simulation are DERIVED as measured / ratio.
+MEASURED_OVER_DATASHEET = {
+    "IDD2N":  (0.383, 0.766, 0.549),
+    "IDD3N":  (0.234, 0.532, 0.334),
+    "IDD0":   (0.402, 0.426, 0.454),
+    "IDD1":   (0.480, 0.470, 0.500),   # "very similar trends to IDD0"
+    "IDD4R":  (0.526, 0.947, 1.114),   # raw (includes I/O driver current)
+    "IDD4R_CORRECTED": (0.459, 0.795, 0.954),
+    "IDD4W":  (0.491, 0.545, 0.590),
+    "IDD7":   (0.584, 0.435, 0.527),
+    "IDD5B":  (0.886, 0.720, 0.880),
+    "IDD2P1": (0.55, 0.80, 0.65),      # consistent w/ Fig 14 (graphical)
+    "IDD2P0": (0.52, 0.78, 0.61),      # low-power states follow the same
+    "IDD3P":  (0.58, 0.82, 0.67),      # below-datasheet pattern (Fig 14,
+    "IDD6":   (0.49, 0.75, 0.59),      # graphical)
+}
+
+# Full normalized range (max-min across same-vendor modules) as a fraction of
+# the datasheet value -- used to calibrate process-variation sigma.
+NORMALIZED_RANGE = {
+    "IDD2N":  (0.147, 0.375, 0.20),    # Sec 4.1 (A range given; B given)
+    "IDD3N":  (0.088, 0.193, 0.124),
+    "IDD7":   (0.101, 0.179, 0.181),
+    "IDD2P1": (0.048, 0.479, 0.173),
+    "IDD2P0": (0.052, 0.455, 0.168),
+    "IDD3P":  (0.050, 0.462, 0.170),
+    "IDD6":   (0.055, 0.441, 0.165),
+}
+
+# Per-vendor multiplicative process-variation sigma for current parameters.
+# Calibrated so module-to-module normalized ranges land near the table above
+# (range ~ 4 sigma for ~15 modules) and so a vendor-mean fitted model shows
+# per-module validation MAPE near the paper's 6.8% (Section 9.1).
+PROCESS_SIGMA = (0.085, 0.095, 0.088)
+
+# Per-module variation of the I/O driver strength (the rig measures the
+# drivers; a vendor-mean fitted model cannot capture per-module driver
+# variation, which contributes irreducible validation error).
+IO_DRIVER_SIGMA = 0.15
+
+# Relative measurement noise per averaged current sample (the paper averages
+# >= 100 multimeter samples per test; residual noise is small).
+MEASUREMENT_NOISE = 0.004
+
+# Small unmodeled quadratic data dependence (fraction of the linear term at
+# full-ones), so a linear fitted model retains irreducible error, consistent
+# with the paper's <=1.40% worst-case model error in Sec 5.3.
+ONES_QUAD_FRACTION = 0.012
+
+# ---------------------------------------------------------------------------
+# Section 5.1: I/O driver current. During reads the module's I/O drivers
 # drive ones on the bus; vendor IDD4R specs EXCLUDE this, the rig measures
-# it.  Modelled as a per-driven-one current on the 64 data wires.
+# it. We model it as a per-driven-one current on the 64 data wires.
+# Fig 15 vs Fig 16 for Vendor A: ~434 mA total swing vs ~230 mA after
+# subtracting the I/O estimate over 512 ones => ~0.4 mA/one io component.
+# ---------------------------------------------------------------------------
 IO_DRIVER_MA_PER_ONE_READ = 0.40   # module drives '1's on reads
 IO_DRIVER_MA_PER_ZERO_WRITE = 0.39  # module drives '0's on writes
+
+# ---------------------------------------------------------------------------
+# Section 6.1.1: structural variation across banks (deterministic per vendor,
+# identical for all modules of a vendor => "structural").
+# Per-bank background-current increments when a bank is open (mA). Vendors A
+# and B are ~uniform (Fig 19 shows little variation); Vendor C's increments
+# are large and uneven, so the one-bank-open idle current varies by an
+# average of 15.4% and up to 23.6% relative to Bank 0, as in the paper.
+# sum(delta) == IDD3N - IDD2N for each vendor.
+# ---------------------------------------------------------------------------
+BANK_OPEN_DELTA = np.array([
+    [1.753, 1.748, 1.751, 1.749, 1.752, 1.747, 1.750, 1.750],  # A (sum 14)
+    [1.502, 1.497, 1.503, 1.501, 1.499, 1.498, 1.500, 1.500],  # B (sum 12)
+    [5.000, 16.62, 11.00, 14.90, 9.200, 13.50, 8.080, 12.00],  # C (sum 90.3)
+], dtype=np.float64)
+
+BANK_READ_FACTORS = np.array([
+    [1.000, 1.031, 0.985, 1.044, 0.992, 1.038, 0.978, 1.022],  # A
+    [1.000, 0.973, 1.028, 0.981, 1.035, 0.969, 1.024, 0.988],  # B
+    [1.000, 1.052, 0.964, 1.041, 0.957, 1.063, 0.972, 1.035],  # C (differs
+], dtype=np.float64)                                            # from idle)
+
+BANK_WRITE_FACTORS = np.ones((3, 8), dtype=np.float64)  # Fig 21: no variation
+
+# Section 6.1.2: activation current grows linearly with ones in the row
+# address. Fractional increase at 15 ones: A ~12%, B 14.6%, C ~3%.
+ROW_ONES_SLOPE = np.array([0.12, 0.146, 0.03]) / 15.0  # per address-one
+
+# Section 6 / Figs 19-22: structural variation SURFACE — the same banks and
+# row regions across modules of one model consistently draw more activation
+# charge than others. Modeled as a per-vendor multiplicative factor on the
+# ACT(+PRE) charge per (bank, row band), sampled seed-stably per VENDOR
+# (structural: identical for every module of a model, unlike the per-module
+# process sigmas above) and normalized so band 0 — where every JEDEC loop
+# and characterization probe lives — is exactly 1.0 per bank. Vendors A/B
+# show mild surfaces; Vendor C's is strongly uneven, matching its outsized
+# bank-to-bank structural variation in the paper.
+STRUCTURAL_SURFACE_SIGMA = (0.03, 0.04, 0.10)
+
+# ---------------------------------------------------------------------------
+# Section 7: generational trends (Vendor C parts from 2011/2012 vs 2015).
+# Datasheet IDDs promise large savings; measured savings are much smaller.
+# We store per-generation multiplicative scale factors on measured currents
+# and on datasheet currents, normalized to the 2015 part == 1.0, chosen to
+# reproduce the paper's deltas (e.g. IDD0: promised -192.1 mA vs measured
+# -64.0 mA moving 2011->2015).
+# ---------------------------------------------------------------------------
+GENERATIONS = (2011, 2012, 2015)
+# measured-current scale (older parts draw somewhat more):
+GEN_MEASURED_SCALE = {
+    "IDD2N": (1.45, 1.20, 1.00),
+    "IDD0":  (2.10, 1.55, 1.00),   # 58.1*2.10-58.1 = 63.9 mA measured saving
+    "IDD4R": (1.41, 1.22, 1.00),   # ~140.6 mA measured saving
+    "IDD4W": (1.73, 1.35, 1.00),   # ~147.4 mA measured saving
+}
+# datasheet scale (vendors promised much larger savings):
+GEN_DATASHEET_SCALE = {
+    "IDD2N": (1.95, 1.45, 1.00),
+    "IDD0":  (2.50, 1.80, 1.00),   # 128*2.5-128 = 192 mA promised saving
+    "IDD4R": (1.69, 1.35, 1.00),   # ~212 mA promised saving
+    "IDD4W": (1.60, 1.30, 1.00),   # ~200 mA promised saving
+}
+
+# ---------------------------------------------------------------------------
+# Module fleet roster (Table 1 + Table 3 of the paper).
+# ---------------------------------------------------------------------------
+class ModuleSpec(NamedTuple):
+    vendor: int        # 0=A, 1=B, 2=C
+    module_id: int     # unique within vendor
+    year: int          # assembly year (2015 fleet unless generational study)
+    chips: int = 4     # x16 chips per rank
+
+
+def paper_fleet() -> list[ModuleSpec]:
+    """The 50-module fleet of Table 1: 14 x A, 13 x B, 23 x C."""
+    fleet = []
+    for i in range(14):
+        fleet.append(ModuleSpec(0, i, 2015))
+    for i in range(13):
+        fleet.append(ModuleSpec(1, i, 2014))
+    for i in range(23):
+        fleet.append(ModuleSpec(2, i, 2015))
+    return fleet
+
+
+def generational_fleet() -> list[ModuleSpec]:
+    """Table 3: 3 modules from 2011 and 4 from 2012 (Vendor C)."""
+    fleet = [ModuleSpec(2, 100 + i, 2011) for i in range(3)]
+    fleet += [ModuleSpec(2, 200 + i, 2012) for i in range(4)]
+    return fleet
+
+
+def datasheet_idd(key: str, vendor: int) -> float:
+    """Datasheet (spec) current derived from measured anchors and Section 4
+    measured/datasheet ratios. For IDD4R/IDD4W/IDD7 the measured anchor is
+    not an explicit table entry; callers should use `derive_datasheets()`."""
+    return MEASURED_IDD[key][vendor] / MEASURED_OVER_DATASHEET[key][vendor]

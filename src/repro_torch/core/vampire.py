@@ -3,10 +3,10 @@ Experiments (paper Section 9) — as a fitted model on a device.
 
 The fitted state is a :class:`FleetModel`: per-vendor ``PowerParams``
 stacked along a leading vendor axis, the variation bands, the datasheet
-IDD table and the vendor ids, all tensors on one device.  The port takes a
-fitted model from a schema-v2 file (``model_api.load_estimator``); the
-characterization campaign that fits one stays with the reference package
-for now.
+IDD table and the vendor ids, all tensors on one device.  A model comes
+from the characterization campaign (``Vampire.fit(fleet)``, a thin call
+into ``model_api.fit('vampire', fleet, fitter='campaign')``) or from a
+schema-v2 file (``model_api.load_estimator``).
 
 ``model.estimate(traces, vendors=None, *, mode=, impl=, data=)`` is the
 unified entry point (``repro_torch.core.model_api``): ``'mean'``,
@@ -32,6 +32,7 @@ from repro_torch.core.energy_model import (EnergyReport, PowerParams,
                                            surface_charge, surface_cycles,
                                            trace_charges_scan,
                                            trace_energy_scan)
+from repro_torch.core.fleet import stack_params
 
 
 class FleetModel(NamedTuple):
@@ -95,6 +96,45 @@ class Vampire(model_api.StackedEstimatorMixin):
             return fm.params, fm.band
         return self._memo_subset(
             idx, lambda: (fm.params.select(list(idx)), fm.band[list(idx)]))
+
+    # ------------------------------------------------------------------ fit
+    @classmethod
+    def fit(cls, fleet=None, **kw) -> "Vampire":
+        """Run the characterization campaign and build the model:
+        ``model_api.fit('vampire', fleet, fitter='campaign', **kw)``
+        (``device=``, ``engine='batched'|'serial'``,
+        ``impl='vectorized'|'cuda'``, ``probe_modules``, ``probe_reps``,
+        ``n_rows``)."""
+        return model_api.fit("vampire", fleet, fitter="campaign", **kw)
+
+    @classmethod
+    def from_characterization(cls, by_vendor: dict, device) -> "Vampire":
+        """The model of a campaign's per-vendor records
+        (``characterize.VendorCharacterization``) on ``device``.  Each
+        vendor's variation band is the (min, max) of its modules' IDD0,
+        IDD4R and IDD4W currents over their means; ``saved`` keeps the
+        float64 fitted quantities and the raw campaign arrays, so ``save``
+        writes the file the reference writes."""
+        vs = sorted(by_vendor)
+        bands = {}
+        for v in vs:
+            rel = np.concatenate(
+                [arr / np.mean(arr) for arr in
+                 (by_vendor[v].idd_measured[k]
+                  for k in ("IDD0", "IDD4R", "IDD4W"))])
+            bands[v] = (float(np.min(rel)), float(np.max(rel)))
+        idd_keys = tuple(sorted(by_vendor[vs[0]].idd_datasheet))
+        fleet = FleetModel(
+            params=stack_params([by_vendor[v].build_params(device)
+                                 for v in vs]),
+            band=torch.tensor([bands[v] for v in vs], dtype=torch.float32,
+                              device=device),
+            idd_datasheet=torch.tensor(
+                [[by_vendor[v].idd_datasheet[k] for k in idd_keys]
+                 for v in vs], dtype=torch.float32, device=device),
+            vendor_ids=torch.tensor(vs, dtype=torch.int32, device=device))
+        return cls(fleet, idd_keys,
+                   model_api.saved_fit_from_campaign(by_vendor, bands))
 
     # ------------------------------------------------------------- estimate
     def estimate(self, traces, vendors=None, *,

@@ -3,8 +3,10 @@
 :func:`batched_charge_matrix` is the entry point of ``impl='cuda'``: it
 runs the plain-torch ``structural_state`` bookkeeping over the padded
 batch, the feature kernel once (skipped in distribution mode, where the
-expected fractions stand in for the measured data), and the per-vendor
-charge kernel (or its surface variant)."""
+expected fractions stand in for the measured data) — together
+:func:`charge_planes` — and the per-vendor charge kernel (or its surface
+variant) on them, :func:`charge_from_planes`.  The chunked fleet surface
+makes the planes once and launches the charge kernel per module chunk."""
 from __future__ import annotations
 
 import torch
@@ -57,23 +59,17 @@ def expected_data_features(st: StructuralState, ones_frac, toggle_frac):
     return ones, togg
 
 
-def batched_charge_matrix(trace: CommandTrace, weight: torch.Tensor,
-                          stacked: PowerParams, *, ones_frac=None,
-                          toggle_frac=None, surface: bool = False):
-    """Masked charge of every (trace, paramset) pair through the kernels
-    -> ``((T, V) charge, (T,) masked cycles)``, or with ``surface=True``
-    ``((T, V, 8, N_ROW_BANDS) charge, (T, 8, N_ROW_BANDS) cycles)``.
-    ``trace``/``weight`` are a padded TraceBatch's ``(T, N)`` fields.
-    A batch of empty traces (``N == 0``) launches nothing and gives
-    zeros."""
+def charge_planes(trace: CommandTrace, weight: torch.Tensor, *,
+                  ones_frac=None, toggle_frac=None):
+    """The trace side of the charge kernels' inputs: the ``structural_state``
+    bookkeeping and the feature kernel (skipped in distribution mode) over
+    a padded ``(T, N)`` batch -> the eight ``(T, N)`` planes the charge
+    kernel reads before the parameter block, or None for a batch of empty
+    traces (``N == 0``), which launches nothing.  One set of planes serves
+    any number of parameter sets (:func:`charge_from_planes`)."""
     t, n = trace.cmd.shape
     if n == 0:
-        v = stacked.i2n.shape[0]
-        cells = (N_BANKS, N_ROW_BANDS) if surface else ()
-        charge = torch.zeros((t, v) + cells, dtype=torch.float32,
-                             device=trace.device)
-        return charge, (surface_cycles(trace, weight) if surface
-                        else masked_cycles(trace, weight))
+        return None
     st = structural_state(trace)
     if ones_frac is None:
         tmask = (st.has_prev & st.is_rw).to(torch.float32)
@@ -84,12 +80,40 @@ def batched_charge_matrix(trace: CommandTrace, weight: torch.Tensor,
         ones, togg = ones.reshape(t, n), togg.reshape(t, n)
     else:
         ones, togg = expected_data_features(st, ones_frac, toggle_frac)
-    args = (ones.contiguous(), togg.contiguous(), trace.cmd, trace.bank,
+    return (ones.contiguous(), togg.contiguous(), trace.cmd, trace.bank,
             trace.row, trace.dt, pack_state(st),
-            weight.to(torch.float32).contiguous(),
-            pack_param_blocks(stacked))
+            weight.to(torch.float32).contiguous())
+
+
+def charge_from_planes(planes, n_traces: int, stacked: PowerParams, *,
+                       surface: bool = False) -> torch.Tensor:
+    """The charge kernel (or its surface variant) on :func:`charge_planes`'
+    planes for the parameter sets ``stacked`` -> ``(T, V)`` or
+    ``(T, V, 8, N_ROW_BANDS)`` masked charge (zeros for empty traces)."""
+    v = stacked.i2n.shape[0]
+    cells = (N_BANKS, N_ROW_BANDS) if surface else ()
+    if planes is None:
+        return torch.zeros((n_traces, v) + cells, dtype=torch.float32,
+                           device=stacked.i2n.device)
+    params = pack_param_blocks(stacked)
     if surface:
-        charge = vampire_charge_surface(*args)
-        return (charge.reshape(t, -1, N_BANKS, N_ROW_BANDS),
-                surface_cycles(trace, weight))
-    return vampire_charge(*args), masked_cycles(trace, weight)
+        return vampire_charge_surface(*planes, params).reshape(
+            (n_traces, v) + cells)
+    return vampire_charge(*planes, params)
+
+
+def batched_charge_matrix(trace: CommandTrace, weight: torch.Tensor,
+                          stacked: PowerParams, *, ones_frac=None,
+                          toggle_frac=None, surface: bool = False):
+    """Masked charge of every (trace, paramset) pair through the kernels
+    -> ``((T, V) charge, (T,) masked cycles)``, or with ``surface=True``
+    ``((T, V, 8, N_ROW_BANDS) charge, (T, 8, N_ROW_BANDS) cycles)``.
+    ``trace``/``weight`` are a padded TraceBatch's ``(T, N)`` fields.
+    A batch of empty traces (``N == 0``) launches nothing and gives
+    zeros."""
+    planes = charge_planes(trace, weight, ones_frac=ones_frac,
+                           toggle_frac=toggle_frac)
+    charge = charge_from_planes(planes, trace.cmd.shape[0], stacked,
+                                surface=surface)
+    return charge, (surface_cycles(trace, weight) if surface
+                    else masked_cycles(trace, weight))

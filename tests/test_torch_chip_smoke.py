@@ -182,3 +182,41 @@ def test_serve_phase_at_smoke_size(smoke, monkeypatch, capsys):
     assert out.count("[serve]") == 6
     assert "flash_launches_per_prefill=2" in out
     assert "power[vampire] impl=cuda" in out and "teacher_forcing_err" in out
+
+
+def test_campaign_phase_at_quick_size(smoke, capsys):
+    """The ``[campaign]`` phase on the tiny fleet at the quick plan: the
+    ``'cuda'`` fit (the kernels' plain versions here) against
+    ``'vectorized'``, the recoveries, the committed quick fit, save and
+    load."""
+    from repro_torch.core import params
+    specs = [params.ModuleSpec(v, i, 2015) for v in range(3)
+             for i in range(3)]
+    launched = smoke.campaign_phase("cpu", device="cpu", specs=specs,
+                                    **smoke.QUICK_FIT)
+    assert launched["batched_features"] and launched["vampire_charge"]
+    out = capsys.readouterr().out
+    assert "[campaign] fleet: modules=9 (A 3, B 3, C 3)" in out
+    assert out.count("[campaign] table5") == 12
+    assert out.count("[campaign] surface vendor=") == 3
+    assert "matches the committed vampire_quickfit_v2.npz" in out
+    assert out.count("[kernel] ") == 3 and "save and load" in out
+
+
+def test_fleet_phase_at_a_small_size(smoke, capsys):
+    launched = smoke.fleet_phase("cpu", device="cpu", sizes=(20, 45),
+                                 module_chunk=8, probe_reps=64, n_rows=8)
+    assert launched["vampire_charge_surface"] and launched["vampire_charge"]
+    out = capsys.readouterr().out
+    assert "[fleet] surface map: modules=45 traces=2 commands=144" in out
+    assert "chunked_equals_one_shot_at_20=True" in out
+    assert "[fleet] probes: modules=45 probes=348 commands=262" in out
+    assert "matrix=(45, 348)" in out and out.count("[kernel] ") == 6
+
+
+def test_fit_close_holds_the_reference_bar(smoke):
+    assert smoke.fit_close([1.0, 2e-7], [1.00009, 1e-6], "x") < 1.0
+    with pytest.raises(smoke.CheckFailed, match="share of the bar"):
+        smoke.fit_close([1.0], [1.0002], "x")
+    with pytest.raises(smoke.CheckFailed, match="shape"):
+        smoke.fit_close([1.0], [1.0, 2.0], "x")

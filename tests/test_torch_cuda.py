@@ -435,3 +435,87 @@ def test_flash_attention_wrapper_checks_its_inputs(device):
                            k[..., :30].contiguous())
     with pytest.raises(ValueError, match="CUDA tensor"):
         fa.flash_attention(q, k.cpu(), k)
+
+
+# ---------------------------------------------------------------------------
+# The campaign and fleet shapes: the module axis on the kernels' vendor axis
+# ---------------------------------------------------------------------------
+def _probe_batch(device, n_points=48, masked_prefix=True):
+    """The quick campaign plan's first probe points; with
+    ``masked_prefix`` the first half of every probe's commands is under
+    ``skip`` (measured, but weight 0)."""
+    from repro_torch.core import characterize, fleet
+    pts = characterize.campaign_plan(probe_reps=64,
+                                     n_rows=8).probe_points[:n_points]
+    if masked_prefix:
+        pts = [fleet.ProbePoint(p.label, p.trace, int(p.trace.n) // 2, p.key)
+               for p in pts]
+    return pts, fleet.ProbeBatch.from_points(pts).to(device)
+
+
+def _vampire_args(trace, weight, stacked):
+    """The charge kernel's inputs, built as ``batched_charge_matrix``
+    builds them."""
+    return (*vops.charge_planes(trace, weight),
+            vops.pack_param_blocks(stacked))
+
+
+def test_masked_prefix_probe_batch_on_the_card(device):
+    """A probe batch whose first half is under ``skip``: the masked
+    commands add no charge and still move the state, so ``'cuda'``
+    measures the currents of ``'vectorized'`` and of the CPU."""
+    from repro_torch.core import device_sim, fleet, params
+    pts, batch = _probe_batch(device)
+    assert bool((batch.weight[:, :5] == 0).all())
+    mods = device_sim.make_fleet([params.ModuleSpec(v, i, 2015)
+                                  for v in range(3) for i in range(2)])
+    before = (ve.batched_features.launches, ve.vampire_charge.launches)
+    got = fleet.run_probes(mods, pts, impl="cuda", batch=batch,
+                           device=device)
+    assert (ve.batched_features.launches, ve.vampire_charge.launches) == \
+        (before[0] + 1, before[1] + 1)
+    vec = fleet.run_probes(mods, pts, batch=batch, device=device)
+    cpu = fleet.run_probes(mods, pts, device="cpu")
+    np.testing.assert_allclose(got, vec, rtol=RTOL)
+    np.testing.assert_allclose(got, cpu, rtol=RTOL)
+
+
+def test_true_params_with_ones_quad_on_the_card(setup):
+    """The simulator's true params (``ones_quad = 0.012``, per-module
+    datadep and I/O factors) through the charge kernels on the estimation
+    batch, against the plain PyTorch path."""
+    from repro_torch.core import device_sim, estimate_batch as eb, fleet
+    _, tb, _ = setup
+    mods = device_sim.make_fleet([device_sim.P.ModuleSpec(v, 3, 2015)
+                                  for v in range(3)])
+    stacked = fleet.fleet_stacked(mods, tb.device)
+    assert torch.allclose(stacked.ones_quad, torch.tensor(
+        0.012, device=tb.device))
+    for cuda, vec in ((eb.cuda_batched_reports, eb.batched_reports),
+                      (eb.cuda_batched_surface_reports,
+                       eb.batched_surface_reports)):
+        a = cuda(tb.trace, tb.weight, stacked)
+        b = vec(tb.trace, tb.weight, stacked)
+        for la, lb in zip(a, b):
+            _close(la, lb)
+
+
+@pytest.mark.parametrize("v", [68, 256, 1000])
+def test_fleet_width_vendor_axes(device, v):
+    """V past 67 through the mean and surface kernels against their plain
+    versions (rtol 1e-5), and the chunked surface equal bit for bit to
+    the one-shot one."""
+    from repro_torch.core import device_sim, estimate_batch as eb
+    _, batch = _probe_batch(device, n_points=24)
+    _, stacked = device_sim.synth_fleet_params(v, device=device)
+    args = _vampire_args(batch.trace, batch.weight, stacked)
+    for fn, surface in ((ve.vampire_charge, False),
+                        (ve.vampire_charge_surface, True)):
+        got = fn(*args)
+        assert got.shape == ((24, v, 64) if surface else (24, v))
+        _close(got, ve.vampire_charge_plain(*args, surface=surface))
+    one = eb.cuda_batched_surface_reports(batch.trace, batch.weight, stacked)
+    chunked = eb.chunked_surface_reports(batch.trace, batch.weight, stacked,
+                                         module_chunk=64, impl="cuda")
+    for name, a, b in zip(one._fields, one, chunked):
+        assert torch.equal(a, b), name

@@ -11,10 +11,10 @@ import torch
 
 from repro.core import dram as rdram
 from repro.core import estimate_batch as rbatch
-from repro.core import idd_loops
 from repro.core import traces as rtraces
 from repro_torch.core import dram as pdram
 from repro_torch.core import estimate_batch as pbatch
+from repro_torch.core import idd_loops
 from repro_torch.core import traces as ptraces
 
 _T = rdram.TIMING
@@ -23,6 +23,12 @@ _T = rdram.TIMING
 def _bridge(tr):
     """A reference CommandTrace as the port's (CPU tensors)."""
     return pdram.make_trace(*[np.asarray(f) for f in tr])
+
+
+def _to_ref(tr):
+    """A port trace (the port's generators) as the reference's."""
+    return rdram.make_trace(*[f.numpy() for f in tr[:4]],
+                            tr.data.numpy().view(np.uint32), tr.dt.numpy())
 
 
 def _assert_trace_equal(ref, port):
@@ -94,7 +100,7 @@ def test_make_trace_rejects_illegal_low_power_commands():
 
 
 def test_pad_and_batch_traces_match_reference():
-    trs = [idd_loops.validation_sweep(8),
+    trs = [_to_ref(idd_loops.validation_sweep(8)),
            rdram.make_trace(*_lowpower_fields())]
     rb, rw = rdram.batch_traces([(trs[0], 3), (trs[1], 0)])
     pb, pw = pdram.batch_traces([(_bridge(trs[0]), 3), (_bridge(trs[1]), 0)])
@@ -128,7 +134,7 @@ def test_trace_batches_match_reference_with_pad_rows():
 
 
 def test_original_traces_recovers_rows():
-    trs = [_bridge(idd_loops.validation_sweep(4)), _bridge(
+    trs = [idd_loops.validation_sweep(4), _bridge(
         rdram.make_trace(*_lowpower_fields()))]
     tb = pbatch.as_trace_batch(trs)
     assert pbatch.original_traces(trs, tb) == trs

@@ -8,13 +8,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import device_sim, idd_loops
+from repro.core import device_sim
 from repro.core import dram as rdram
 from repro.core import energy_model as rem
 from repro.core import traces as rtraces
 from repro_torch import convert
 from repro_torch.core import dram as pdram
 from repro_torch.core import energy_model as pem
+from repro_torch.core import idd_loops
 
 _T = rdram.TIMING
 RTOL = 1e-5
@@ -28,6 +29,12 @@ _ref_charges = jax.jit(lambda tr, pp: rem.charge_from_features(
 
 def _bridge(tr):
     return pdram.make_trace(*[np.asarray(f) for f in tr])
+
+
+def _to_ref(tr):
+    """A port trace (the port's generators) as the reference's."""
+    return rdram.make_trace(*[f.numpy() for f in tr[:4]],
+                            tr.data.numpy().view(np.uint32), tr.dt.numpy())
 
 
 def _port_params(pp):
@@ -60,8 +67,9 @@ def traces():
                             rng.integers(0, 9, 40))
     return [rtraces.app_trace(rtraces.SPEC_APPS[2], n_requests=80),
             rtraces.app_trace(rtraces.SPEC_APPS[9], n_requests=60),
-            idd_loops.validation_sweep(12), idd_loops.idd2p1(),
-            idd_loops.idd6(), _lp_trace(7, 9, 11, 13), rand]
+            _to_ref(idd_loops.validation_sweep(12)),
+            _to_ref(idd_loops.idd2p1()), _to_ref(idd_loops.idd6()),
+            _lp_trace(7, 9, 11, 13), rand]
 
 
 @pytest.fixture(scope="module")

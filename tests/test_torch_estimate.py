@@ -11,10 +11,10 @@ import pytest
 import torch
 
 from repro.core import dram as rdram
-from repro.core import idd_loops
 from repro.core import model_api as rma
 from repro.core import traces as rtraces
 from repro_torch.core import dram as pdram
+from repro_torch.core import idd_loops
 from repro_torch.core import estimate_batch as pbatch
 from repro_torch.core import model_api as pma
 
@@ -30,6 +30,12 @@ _T = rdram.TIMING
 
 def _bridge(tr):
     return pdram.make_trace(*[np.asarray(f) for f in tr])
+
+
+def _to_ref(tr):
+    """A port trace (the port's generators) as the reference's."""
+    return rdram.make_trace(*[f.numpy() for f in tr[:4]],
+                            tr.data.numpy().view(np.uint32), tr.dt.numpy())
 
 
 def _pde_trace():
@@ -60,7 +66,8 @@ def _lowpower_trace():
 def ragged():
     trs = [rtraces.app_trace(rtraces.SPEC_APPS[i], n_requests=n)
            for i, n in ((0, 90), (4, 150))]
-    trs += [idd_loops.validation_sweep(24), _pde_trace(), _lowpower_trace()]
+    trs += [_to_ref(idd_loops.validation_sweep(24)), _pde_trace(),
+            _lowpower_trace()]
     return trs, [_bridge(t) for t in trs]
 
 

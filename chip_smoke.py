@@ -50,7 +50,29 @@ itself).  Phases, each printing its numbers:
    every campaign probe on every module (a 10,000 x 348 current matrix),
    through ``'cuda'`` against ``'vectorized'`` on the first chunk; the
    feature, charge and surface kernels also timed at these shapes;
-10. ``[serve]``: the LM serving entry point (``repro_torch.launch.serve.run``)
+10. ``[validation]``: paper Section 9.1 on the port's own fit of the
+   50-module fleet (``impl='cuda'``): the paper's 22 held-out modules (8
+   A, 7 B, 7 C) and the 23 sweeps of ``N_READS`` scored by all three
+   estimators through ``run_validation(impl='cuda')`` against
+   ``'vectorized'`` (rtol 1e-5), each MAPE beside the paper's 6.8 / 32.4
+   / 160.6 %, the ordering VAMPIRE < DRAMPower < Micron; the Fig 14 table;
+   the structural surface maps (Figs 19-22) of the three kinds through
+   both impls, each summing to 1, the baselines' flat; the charge kernels
+   at these shapes (V = 3, and V = 22 for the measurement);
+11. ``[apps]``: paper Section 9.3 on that fit, all 23 apps at 2000
+   requests: page allocation on vendor C and power-down scheduling on
+   vendor A through ``'cuda'`` against ``'vectorized'`` (rtol 1e-5), the
+   power-down rewrites lint clean, a remap keeps commands and data; host
+   and estimate seconds apart;
+12. ``[recal]``: online recalibration of the 50-module fleet (360 probe
+   cells, slices of 120, decay 0.7) over 120 ticks of
+   ``bench_recalibrate.py``'s drift through ``'cuda'``: the frozen error
+   rising at every checkpoint, the recalibrated one below it, an oracle
+   campaign fit of the drifted fleet, telemetry ``'cuda'`` against
+   ``'vectorized'``; the estimation service's hot swap over a planted step
+   (one refit, the same batch shapes, ring buckets and kernel libraries,
+   new answers equal to the refreshed model's);
+13. ``[serve]``: the LM serving entry point (``repro_torch.launch.serve.run``)
    on qwen2.5-3b at full width (36 layers, random bf16 weights from
    ``--seed``): batch 4, prompt 2048, 32 greedy decode tokens, the power
    report through the estimation service with ``impl='cuda'``; then
@@ -61,7 +83,7 @@ itself).  Phases, each printing its numbers:
    at the prefill shape, with a ragged and a float32 case) must be
    launched once per layer of the prefill.
 
-Each main path (5 to 10) runs with the kernels' launch counts set to 0
+Each main path (5 to 13) runs with the kernels' launch counts set to 0
 just before it and read just after; every kernel must have been launched.
 Any failed check exits non-zero.  The last lines are one JSON object of
 per-kernel numbers, the card's ``name, power.limit`` line, and
@@ -328,17 +350,26 @@ def one_kernel_phase(rows: list[dict]) -> None:
 
 def device_kernels(fn) -> list[str]:
     """The device operations (kernels, copies, fills) that one call of
-    ``fn`` runs, as ``torch.profiler`` records them."""
+    ``fn`` runs, as ``torch.profiler`` records them.  A profiler session
+    on the card has once recorded no device activity at all for a call
+    that did launch its kernel; such a session is repeated, up to three
+    in all, so an empty list means that no session saw a device
+    operation."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops: list[str] = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ops:
+            break
+    return ops
 
 
 def line_kernel_phase(seed: int, card: str, device="cuda",
@@ -1292,6 +1323,441 @@ def fleet_phase(card: str, device="cuda", sizes=FLEET_MODULES,
     return launched
 
 
+PAPER_MAPE = {"vampire": 6.8, "drampower": 32.4, "micron": 160.6}
+CHARGE_WRAPPERS = ("batched_features", "vampire_charge",
+                   "vampire_charge_surface", "micron_charge",
+                   "micron_charge_surface", "drampower_charge",
+                   "drampower_charge_surface")
+
+
+def validation_kernel_rows(tag: str, tb, models, card: str, flush) -> None:
+    """The six charge kernels on a batch of another shape: each against
+    its plain version (rtol 1e-5), timed beside its bound.  Not main-path
+    launches."""
+    from repro_torch.kernels.vampire_energy import ops as vops
+    t, n = tb.trace.cmd.shape
+    v = len(models["vampire"].vendors)
+    for r in charge_rows(tb, models):
+        err = assert_close(r["fn"](), r["plain"](), RTOL,
+                           f"{tag}: {r['name']}")
+        b_ms, b_by = bound(r["nbytes"], r["nops"])
+        ms = event_ms(r["fn"], 10, flush)
+        plain_ms = event_ms(r["plain"], 3, flush)
+        print(f"[kernel] {r['name']} ({tag}): ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"share_of_bound={b_ms / ms:.3f} max_abs_err={err:.3e} "
+              f"shape=(T={t}, N={n}, V={v}) card=\"{card}\"", flush=True)
+
+
+def validation_rows(res, names) -> "np.ndarray":
+    """(modules x sweeps, 1 + estimators) array of a ValidationResult:
+    the measured current, then each estimator's, row by row."""
+    import numpy as np
+    return np.asarray([[row["measured"]] + [row[k] for k in names]
+                       for row in res.raw.values()], np.float64)
+
+
+def validation_phase(card: str, device="cuda", specs=None, n_values=None,
+                     **plan):
+    """Phase 10, ``[validation]``: paper Section 9.1, Fig 14 and Figs
+    19-22 on the port's own fit of the 50-module paper fleet (the
+    campaign's defaults through ``impl='cuda'``; ``specs`` and ``plan``
+    cut it for a rehearsal).  ``run_validation`` holds out the paper's 22
+    modules (8 A, 7 B, 7 C) and scores the 23 sweeps of ``N_READS`` with
+    all three estimators through ``'cuda'``, against ``'vectorized'``
+    (every measured and predicted current at rtol 1e-5); the MAPEs beside
+    the paper's; the Fig 14 table; the structural surface maps of the three
+    kinds through both impls.  Returns (the launches of the ``'cuda'``
+    validation and maps, the fitted model)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (device_sim, estimate_batch as eb,
+                                  fleet, idd_loops, model_api, params,
+                                  validate)
+    modules = device_sim.make_fleet(specs or params.paper_fleet())
+    model = model_api.fit("vampire", modules, impl="cuda", device=device,
+                          **plan)
+    n_values = validate.N_READS if n_values is None else n_values
+    models = {kind: model_api.make_estimator(kind, model) for kind in KINDS}
+    names = list(validate.default_estimators(model))
+
+    reset_counters()
+    t0 = time.perf_counter()
+    res = validate.run_validation(model, fleet=modules, n_values=n_values,
+                                  impl="cuda")
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    maps = {kind: validate.structural_surface_maps(models[kind],
+                                                   impl="cuda")
+            for kind in KINDS}
+    torch.cuda.synchronize()
+    maps_s = time.perf_counter() - t0
+    launched = read_counters()
+    missing = [k for k in CHARGE_WRAPPERS if not launched[k]]
+    check(not missing, f"validation: kernels not launched: {missing}")
+
+    t0 = time.perf_counter()
+    vec = validate.run_validation(model, fleet=modules, n_values=n_values,
+                                  impl="vectorized")
+    vec_s = time.perf_counter() - t0
+    check(list(vec.raw) == list(res.raw),
+          "validation: the two impls scored different (module, sweep) sets")
+    grid = validation_rows(res, names)
+    err = assert_close(torch.from_numpy(grid),
+                       torch.from_numpy(validation_rows(vec, names)), RTOL,
+                       "validation: cuda vs vectorized currents")
+    held_out = validate.select_validation_modules(modules)
+    counts = [sum(m.spec.vendor == v for m in held_out) for v in range(3)]
+    print(f"[validation] fleet={len(modules)} held_out={len(held_out)} "
+          f"(A {counts[0]}, B {counts[1]}, C {counts[2]}) sweeps="
+          f"{len(n_values)} measured=({len(held_out)} x {len(n_values)}) "
+          f"grids=({len(n_values)} x {len(model.vendors)}) x {len(names)} "
+          f"run_validation_s={val_s:.3f} (cuda) vectorized_s={vec_s:.3f} "
+          f"surface_maps_s={maps_s:.3f} cuda_vs_vectorized_max_abs_err="
+          f"{err:.3e} mA (rtol {RTOL}) launches="
+          f"{ {k: c for k, c in launched.items() if c} } card=\"{card}\"",
+          flush=True)
+    for name in names:
+        per_v = res.mape[name]
+        print(f"[validation] mape {name:9s} A={per_v.get(0, float('nan')):.2f}"
+              f"% B={per_v.get(1, float('nan')):.2f}% "
+              f"C={per_v.get(2, float('nan')):.2f}% mean="
+              f"{res.mape_mean[name]:.2f}% paper={PAPER_MAPE[name]}%",
+              flush=True)
+    m = res.mape_mean
+    check(m["vampire"] < m["drampower"] < m["micron"],
+          f"validation: the paper's ordering VAMPIRE < DRAMPower < Micron "
+          f"does not hold ({m})")
+    for line in validate.render_fig14_table(
+            validate.measured_over_datasheet(model)).splitlines():
+        print(f"[validation] fig14 {line}", flush=True)
+
+    for kind in KINDS:
+        vmap = validate.structural_surface_maps(models[kind])
+        err = assert_close(torch.from_numpy(maps[kind]),
+                           torch.from_numpy(vmap), RTOL,
+                           f"validation: {kind} surface map cuda vs "
+                           f"vectorized")
+        check(bool(np.allclose(maps[kind].sum(axis=(1, 2)), 1.0,
+                               rtol=1e-9)),
+              f"validation: a {kind} surface map does not sum to 1")
+        if kind != "vampire":
+            assert_close(torch.from_numpy(maps[kind]),
+                         torch.full(maps[kind].shape, 1 / 64,
+                                    dtype=torch.float64), RTOL,
+                         f"validation: the {kind} map is not flat")
+        rel = maps[kind] * 64
+        print(f"[validation] surface {kind:9s} cell/mean min="
+              f"{rel.min():.4f} max={rel.max():.4f} sums_to_1=True "
+              f"cuda_vs_vectorized_max_abs_err={err:.3e}", flush=True)
+
+    # the kernels at the validation shapes: the sweep batch at the
+    # model's V = 3, and the held-out modules' true params on the vendor
+    # axis (V = 22), as run_probes hands them over
+    flush_buf = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+    sweeps = [idd_loops.validation_sweep(n) for n in n_values]
+    tb = eb.TraceBatch.from_traces(sweeps).to(device)
+    validation_kernel_rows(f"validation, {len(sweeps)} sweeps", tb, models,
+                           card, flush_buf.zero_)
+    shape_rows(f"validation probes, {len(held_out)} modules", tb,
+               fleet.fleet_stacked(held_out, device), len(held_out), card,
+               flush_buf.zero_)
+    del flush_buf
+    return launched, model
+
+
+class TimedEstimates:
+    """A model whose ``estimate`` calls are timed (host clock to a device
+    synchronize), for the studies' host/estimate split."""
+
+    def __init__(self, model):
+        self.model = model
+        self.seconds = 0.0
+
+    def params(self, vendor):
+        return self.model.params(vendor)
+
+    def estimate(self, *args, **kw):
+        import torch
+        t0 = time.perf_counter()
+        rep = self.model.estimate(*args, **kw)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        return rep
+
+
+POLICIES = ("aggressive", "breakeven", "lazy")
+
+
+def apps_phase(model, card: str, n_requests: int = 2000) -> dict[str, int]:
+    """Phase 11, ``[apps]``: the paper's Section 9.3 applications on all
+    23 ``SPEC_APPS`` at ``app_trace``'s default of 2000 requests, as
+    ``bench_applications.py`` runs them: variation-aware page allocation
+    on vendor C and power-down scheduling on vendor A, both through
+    ``impl='cuda'`` against ``'vectorized'`` (rtol 1e-5); every power-down
+    rewrite lints clean, and a remap keeps the command stream and the
+    data.
+    Returns the launches of the ``'cuda'`` studies."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import trace_lint
+    from repro_torch.core import applications as A
+    from repro_torch.core import traces
+    apps = traces.SPEC_APPS
+    timed = TimedEstimates(model)
+    reset_counters()
+    t0 = time.perf_counter()
+    page = [A.page_allocation_study(timed, app, 2, n_requests=n_requests,
+                                    impl="cuda") for app in apps]
+    power = [A.powerdown_study(timed, app, 0, n_requests=n_requests,
+                               impl="cuda") for app in apps]
+    total_s = time.perf_counter() - t0
+    launched = read_counters()
+    check(launched["batched_features"] > 0 and launched["vampire_charge"] > 0,
+          f"apps: the feature and charge kernels were not both launched "
+          f"({launched})")
+    t0 = time.perf_counter()
+    vpage = [A.page_allocation_study(model, app, 2, n_requests=n_requests)
+             for app in apps]
+    vpower = [A.powerdown_study(model, app, 0, n_requests=n_requests)
+              for app in apps]
+    vec_s = time.perf_counter() - t0
+
+    def energies(page_rows, power_rows):
+        keys = ("baseline_pj", *(f"{p}_pj" for p in POLICIES))
+        return torch.tensor(
+            [r[k] for r in page_rows for k in ("baseline_pj", "remapped_pj")]
+            + [r[k] for r in power_rows for k in keys], dtype=torch.float64)
+    err = assert_close(energies(page, power), energies(vpage, vpower), RTOL,
+                       "apps: cuda vs vectorized energies")
+
+    # the traces, rebuilt: every power-down rewrite lints clean; a remap
+    # keeps the command stream and the data (it is a pure address map,
+    # which may land two hot pages in one bank: its lint errors are
+    # counted, not checked, as in the reference)
+    rewritten, remaps = [], []
+    for app, pw in zip(apps, power):
+        tr = traces.app_trace(app, n_requests=n_requests)
+        remapped = A.remap_trace(tr, model.params(2))
+        check(torch.equal(tr.cmd, remapped.cmd)
+              and torch.equal(tr.data, remapped.data)
+              and torch.equal(tr.dt, remapped.dt),
+              f"apps: the remap of {app.name} changed commands or data")
+        be = pw["breakeven_cycles"]
+        remaps.append(remapped)
+        rewritten += [A.apply_powerdown_policy(tr, t) for t in
+                      (max(int(be * 0.25), 8), max(int(be), 8),
+                       max(int(be * 8), 8))]
+    errors = trace_lint.errors_of(trace_lint.lint_traces(rewritten))
+    check(not errors, f"apps: {len(errors)} lint errors in the power-down "
+                      f"rewrites, first {errors[:1]}")
+    remap_errors = trace_lint.errors_of(trace_lint.lint_traces(remaps))
+    print(f"[apps] apps={len(apps)} n_requests={n_requests} "
+          f"page_allocation=vendor C powerdown=vendor A total_s="
+          f"{total_s:.3f} (cuda) host_s={total_s - timed.seconds:.3f} "
+          f"estimate_s={timed.seconds:.3f} estimate_calls={2 * len(apps)} "
+          f"vectorized_total_s={vec_s:.3f} cuda_vs_vectorized_max_abs_err="
+          f"{err:.3e} pJ (rtol {RTOL}) powerdown_rewrites={len(rewritten)} "
+          f"lint_errors=0 remaps={len(remaps)} (commands and data kept; "
+          f"remap_lint_errors={len(remap_errors)}) launches="
+          f"{ {k: c for k, c in launched.items() if c} } card=\"{card}\"",
+          flush=True)
+    saving = np.mean([r["saving_frac"] for r in page])
+    print(f"[apps] page allocation (vendor C): mean_saving={saving:.4f} "
+          f"min={min(r['saving_frac'] for r in page):.4f} "
+          f"max={max(r['saving_frac'] for r in page):.4f}", flush=True)
+    for p in POLICIES:
+        modes = {k: sum(r[f"{p}_modes"][k] for r in power)
+                 for k in ("fast", "slow", "sr")}
+        print(f"[apps] powerdown (vendor A) {p}: mean_saving="
+              f"{np.mean([r[f'{p}_saving'] for r in power]):.4f} "
+              f"windows fast={modes['fast']} slow={modes['slow']} "
+              f"sr={modes['sr']}", flush=True)
+    return launched
+
+
+RECAL_CONFIG = dict(probe_reps=256, n_rows=24, probe_modules=5, decay=0.7,
+                    slice_size=120)
+RECAL_DRIFT = dict(temp_amp=0.01, temp_period=64.0, aging_rate=8e-3,
+                   act_aging_rate=5e-3, noise_sigma=1e-3)  # bench_recalibrate
+RECAL_CHECKPOINTS = (30, 60, 90, 120)
+
+
+def recal_phase(card: str, device="cuda", specs=None,
+                checkpoints=RECAL_CHECKPOINTS, **config) -> dict[str, int]:
+    """Phase 12, ``[recal]``: online recalibration on the 50-module paper
+    fleet, ``RecalConfig(probe_reps=256, n_rows=24, probe_modules=5,
+    decay=0.7, slice_size=120)`` (the campaign's own 360 cells), under
+    ``bench_recalibrate.py``'s drift: 120 ticks through ``impl='cuda'``,
+    refitting on every trigger, the frozen and recalibrated errors at the
+    checkpoints against the drifted truth, a fresh campaign fit of the
+    drifted fleet as the oracle; telemetry through ``'cuda'`` against
+    ``'vectorized'``; then the estimation service hot-swapping a refit
+    over a planted step.  ``specs``, ``checkpoints`` and ``config`` cut it
+    for a rehearsal.  Returns the launches of the tick loop."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from repro_torch.core import (device_sim, idd_loops, model_api, params,
+                                  recalibrate)
+    from repro_torch.kernels import build
+    from repro_torch.serving import EstimationService, ServiceConfig
+    modules = device_sim.make_fleet(specs or params.paper_fleet())
+    specs = [m.spec for m in modules]
+    cfg = recalibrate.RecalConfig(**{**RECAL_CONFIG, **config})
+    drift = device_sim.DriftProcess(**RECAL_DRIFT)
+    t0 = time.perf_counter()
+    fitter = model_api.fit("vampire", modules, fitter="streaming",
+                           config=cfg, impl="cuda", device=device)
+    torch.cuda.synchronize()
+    prime_s = time.perf_counter() - t0
+    frozen = fitter.model
+    src = recalibrate.TelemetrySource(modules, cfg, drift=drift, impl="cuda",
+                                      device=device)
+    vec_src = recalibrate.TelemetrySource(modules, cfg, drift=drift,
+                                          device=device)
+    tel_err = 0.0
+    for tick in (1, checkpoints[-1] // 2):
+        (a, ia), (b, ib) = src.measure(tick), vec_src.measure(tick)
+        check(list(ia) == list(ib), "recal: the two sources sliced apart")
+        tel_err = max(tel_err, assert_close(
+            torch.from_numpy(a), torch.from_numpy(b), RTOL,
+            f"recal: telemetry at tick {tick}, cuda vs vectorized"))
+
+    tb = src.batch
+    measure_ms, observe_ms, refit_ms = [], [], []
+    frozen_err, recal_err = [], []
+    peak = 0.0
+    reset_counters()
+    for tick in range(1, checkpoints[-1] + 1):
+        t0 = time.perf_counter()
+        cur, idx = src.measure(tick)
+        t1 = time.perf_counter()
+        report = fitter.observe(cur, idx, tick)
+        t2 = time.perf_counter()
+        measure_ms.append((t1 - t0) * 1e3)
+        observe_ms.append((t2 - t1) * 1e3)
+        peak = max(peak, report.score)
+        if report.triggered:
+            fitter.refit()
+            torch.cuda.synchronize()
+            refit_ms.append((time.perf_counter() - t2) * 1e3)
+        if tick in checkpoints:
+            truth = src.true_params_at(tick)
+            frozen_err.append(recalibrate.fleet_current_mape(
+                frozen, tb.trace, tb.weight, specs, truth, impl="cuda"))
+            recal_err.append(recalibrate.fleet_current_mape(
+                fitter.model, tb.trace, tb.weight, specs, truth,
+                impl="cuda"))
+    torch.cuda.synchronize()
+    launched = read_counters()
+    check(launched["batched_features"] > 0 and launched["vampire_charge"] > 0,
+          f"recal: the feature and charge kernels were not both launched "
+          f"({launched})")
+    check(all(b > a for a, b in zip(frozen_err, frozen_err[1:])),
+          f"recal: the frozen error does not rise at every checkpoint "
+          f"({frozen_err})")
+    check(recal_err[-1] < frozen_err[-1],
+          f"recal: the recalibrated error {recal_err[-1]} is not below the "
+          f"frozen {frozen_err[-1]} at tick {checkpoints[-1]}")
+
+    truth = src.true_params_at(checkpoints[-1])
+    drifted = [device_sim.SimulatedModule(s, truth.select(i).to("cpu"))
+               for i, s in enumerate(specs)]
+    t0 = time.perf_counter()
+    oracle = model_api.fit("vampire", drifted, impl="cuda", device=device,
+                           probe_modules=cfg.probe_modules,
+                           probe_reps=cfg.probe_reps, n_rows=cfg.n_rows)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    oracle_err = recalibrate.fleet_current_mape(
+        oracle, tb.trace, tb.weight, specs, truth, impl="cuda")
+    print(f"[recal] fleet={len(modules)} cells={src.n_cells} (IDD "
+          f"{len(src.plan.idd_points)} + probes {len(src.plan.probe_points)})"
+          f" slice={min(cfg.slice_size, src.n_cells)} decay={cfg.decay} "
+          f"ticks={checkpoints[-1]} prime_s={prime_s:.3f} "
+          f"telemetry_cuda_vs_vectorized_max_abs_err={tel_err:.3e} mA "
+          f"(rtol {RTOL}) launches="
+          f"{ {k: c for k, c in launched.items() if c} } card=\"{card}\"",
+          flush=True)
+    print(f"[recal] checkpoints={list(checkpoints)} frozen_mape="
+          f"{[round(e, 6) for e in frozen_err]} recalibrated_mape="
+          f"{[round(e, 6) for e in recal_err]} oracle_mape={oracle_err:.6f}",
+          flush=True)
+    print(f"[recal] frozen/recalibrated={frozen_err[-1] / recal_err[-1]:.3f}"
+          f" (reference test asks >= 5) recalibrated/oracle="
+          f"{recal_err[-1] / oracle_err:.3f} (reference test asks <= 2)",
+          flush=True)
+    print(f"[recal] timings: measure_ms_median="
+          f"{statistics.median(measure_ms):.3f} observe_ms_median="
+          f"{statistics.median(observe_ms):.3f} refit_ms_median="
+          f"{statistics.median(refit_ms) if refit_ms else 0.0:.3f} "
+          f"triggers={len(refit_ms)} peak_score={peak:.3f} "
+          f"campaign_refit_s={oracle_s:.3f} card=\"{card}\"", flush=True)
+
+    # the kernels at the tick loop's shapes: a telemetry slice of 120
+    # probe cells and the 12 IDD cells on the drifted fleet (V = 50)
+    flush_buf = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+    probes = src.plan.batch_on("probe_batch", device)
+    width = min(cfg.slice_size, probes.weight.shape[0])
+    shape_rows(f"recal slice, {width} probe cells", probes.select(
+        list(range(width))), truth, len(specs), card, flush_buf.zero_)
+    shape_rows(f"recal IDD cells, {len(src.plan.idd_points)}",
+               src.plan.batch_on("idd_batch", device), truth, len(specs),
+               card, flush_buf.zero_)
+    del flush_buf
+
+    # fit-while-serving: a planted step, full-coverage slices
+    full = dataclasses.replace(cfg, slice_size=10_000)
+    step = dataclasses.replace(device_sim.NO_DRIFT, step_tick=1,
+                               step_frac=0.2)
+    svc_fitter = recalibrate.StreamingFitter(frozen, specs, full,
+                                             impl="cuda")
+    svc = EstimationService(frozen, ServiceConfig(lint=False, impl="cuda"),
+                            fitter=svc_fitter)
+    step_src = recalibrate.TelemetrySource(modules, full, drift=step,
+                                           impl="cuda", device=device)
+    trs = [idd_loops.idd0(reps=2), idd_loops.idd4r(reps=2),
+           idd_loops.validation_sweep(24)]
+    tickets, _ = svc.submit_many(trs)
+    svc.drain()
+    programs = svc.engine.cache_size()
+    buckets = set(svc.ring._buffers)
+    libs = dict(build._LIBS)
+    before = torch.stack([svc.result(t).energy_pj for t in tickets])
+    report = svc.observe_telemetry(*step_src.measure(1), tick=1)
+    tickets, _ = svc.submit_many(trs)
+    svc.drain()
+    after = torch.stack([svc.result(t).energy_pj for t in tickets])
+    m = svc.metrics()
+    check(report.triggered and m.recalibrations == 1,
+          f"recal: the planted step did not trigger one refit ({report})")
+    check(m.engine_programs == programs and set(svc.ring._buffers) == buckets
+          and dict(build._LIBS) == libs
+          and all(build._LIBS[k] is v for k, v in libs.items()),
+          "recal: the hot swap added a batch shape, a ring bucket or a "
+          "kernel build")
+    check(not torch.equal(before, after),
+          "recal: the refit did not change the service's answers")
+    direct = svc_fitter.model.estimate(trs, impl="cuda").energy_pj
+    swap_err = assert_close(after.cpu(), direct.cpu(), RTOL,
+                            "recal: the service after the refit vs the "
+                            "refreshed model")
+    print(f"[recal] service: drift_score={m.drift_score:.3f} "
+          f"recalibrations={m.recalibrations} engine_programs="
+          f"{m.engine_programs} (unchanged) ring_buckets={len(buckets)} "
+          f"(unchanged) kernel_libraries={len(libs)} (none rebuilt) "
+          f"answers_changed=True max_rel_change="
+          f"{float(((after - before).abs() / before.abs()).max()):.4f} "
+          f"service_vs_model_max_abs_err={swap_err:.3e} pJ", flush=True)
+    return launched
+
+
 def vocab_bar(got, want, vocab: int) -> tuple[float, float]:
     """Max abs difference of two logit arrays over the real vocabulary, and
     the reference's teacher-forcing bar for it (0.15 std + 0.05,
@@ -1510,12 +1976,23 @@ def main(argv=None) -> int:
     faults_phase(models)
     del tb
 
-    # phases 6-10: the encoding study, the HBM statistics, the
-    # characterization campaign, fleet scale, serving
-    for path in (study_phase(args.seed, models["vampire"], card),
-                 hbm_phase(args.seed, models["vampire"], card),
-                 campaign_phase(card), fleet_phase(card),
-                 serve_phase(args.seed, card)):
+    # phases 6-13: the encoding study, the HBM statistics, the
+    # characterization campaign, fleet scale, validation, the Section 9.3
+    # applications, online recalibration, serving
+    paths = [study_phase(args.seed, models["vampire"], card),
+             hbm_phase(args.seed, models["vampire"], card),
+             campaign_phase(card), fleet_phase(card)]
+    t0 = time.perf_counter()
+    validation, fitted = validation_phase(card)
+    t1 = time.perf_counter()
+    paths += [validation, apps_phase(fitted, card)]
+    t2 = time.perf_counter()
+    paths.append(recal_phase(card))
+    t3 = time.perf_counter()
+    print(f"[phases] validation_s={t1 - t0:.3f} apps_s={t2 - t1:.3f} "
+          f"recal_s={t3 - t2:.3f} (wall, kernel rows included)", flush=True)
+    paths.append(serve_phase(args.seed, card))
+    for path in paths:
         for name, c in path.items():
             launches[name] += c
     for r in rows:

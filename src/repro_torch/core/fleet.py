@@ -150,12 +150,17 @@ def _currents(charge: torch.Tensor, cycles: torch.Tensor) -> torch.Tensor:
 
 
 def fleet_measure_current(trace: CommandTrace, weight: torch.Tensor,
-                          stacked: PowerParams) -> torch.Tensor:
+                          stacked: PowerParams,
+                          sf: StructuralFeatures | None = None
+                          ) -> torch.Tensor:
     """Noise-free average current of every (module, probe) pair in plain
     PyTorch: ``trace``/``weight`` are a ProbeBatch's padded fields,
-    ``stacked`` the fleet's stacked params -> float32 (modules, probes)."""
-    return _currents(*batched_pair_totals(
-        trace, weight, extract_structural_features(trace), stacked))
+    ``stacked`` the fleet's stacked params -> float32 (modules, probes).
+    ``sf`` is the batch's structural pass when the caller already has it
+    (it depends on the traces only)."""
+    if sf is None:
+        sf = extract_structural_features(trace)
+    return _currents(*batched_pair_totals(trace, weight, sf, stacked))
 
 
 def fleet_measure_current_cuda(trace: CommandTrace, weight: torch.Tensor,

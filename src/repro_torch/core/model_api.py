@@ -220,7 +220,7 @@ def validate_data_profile(mode: str, profile: DataProfile) -> None:
 class FitterSpec:
     """One way of producing fitted model parameters: ``streaming=False``
     fitters are one-shot (``fit()`` returns a fitted estimator);
-    ``streaming=True`` ones would return a stateful fitter."""
+    ``streaming=True`` ones return a stateful fitter."""
     name: str
     description: str
     streaming: bool
@@ -265,16 +265,30 @@ CAMPAIGN_FITTER = register_fitter(FitterSpec(
     "simulated rig, invert the slot accounting once",
     streaming=False,
     aliases=("offline",)))
+STREAMING_FITTER = register_fitter(FitterSpec(
+    "streaming",
+    "incremental fitter (repro_torch.core.recalibrate): decayed "
+    "per-probe-cell sufficient statistics updated from telemetry ticks, "
+    "re-inverted into model refreshes of the same shape for "
+    "ServingEngine.update_model",
+    streaming=True,
+    aliases=("online",)))
 
 
 def fit(kind: str = "vampire", fleet=None, *, fitter: str = "campaign",
         device=None, **kw):
-    """The unified fit entry point: ``fitter='campaign'`` runs the offline
-    campaign over ``fleet`` (``device_sim.make_fleet()`` modules; the
-    paper's 50 when None) on ``device`` (``cuda`` unless the caller names
-    another) and returns a fitted estimator of ``kind``.  Extra kwargs go
-    to ``characterize.characterize_fleet`` (``probe_modules``,
-    ``probe_reps``, ``n_rows``, ``rng_seed``, ``engine``, ``impl``)."""
+    """The unified fit entry point, on ``device`` (``cuda`` unless the
+    caller names another).
+
+    ``fitter='campaign'`` runs the offline campaign over ``fleet``
+    (``device_sim.make_fleet()`` modules; the paper's 50 when None) and
+    returns a fitted estimator of ``kind``; extra kwargs go to
+    ``characterize.characterize_fleet`` (``probe_modules``,
+    ``probe_reps``, ``n_rows``, ``rng_seed``, ``engine``, ``impl``).
+    ``fitter='streaming'`` returns a
+    :class:`repro_torch.core.recalibrate.StreamingFitter` primed on an
+    initial model (``init_model=``, or a fresh campaign fit when omitted;
+    ``config=``, ``impl=``)."""
     spec = resolve_fitter(fitter)
     if spec.name == "campaign":
         from repro_torch.core import characterize
@@ -284,6 +298,13 @@ def fit(kind: str = "vampire", fleet=None, *, fitter: str = "campaign",
             characterize.characterize_fleet(fleet, device=device, **kw),
             device)
         return model if kind == "vampire" else make_estimator(kind, model)
+    if spec.name == "streaming":
+        if kind != "vampire":
+            raise ValueError("fitter='streaming' recalibrates the fitted "
+                             "VAMPIRE model; derive baselines from it via "
+                             "make_estimator")
+        from repro_torch.core import recalibrate
+        return recalibrate.streaming_fitter(fleet, device=device, **kw)
     raise ValueError(
         f"fitter {spec.name!r} is registered but fit() has no dispatch "
         f"branch for it; registering a fitter does not give fit() an "

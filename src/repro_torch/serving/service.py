@@ -20,9 +20,14 @@ device before the clock stops), :meth:`maybe_step` (cadence-gated) or
 :meth:`drain` (flush everything).  Results are keyed by ticket: each
 admitted trace's row of the batched report, on the host.
 
-The reference's streaming-recalibration hooks (``fitter``,
-``observe_telemetry``) wait for the port of recalibration; the drift
-fields of :class:`MetricsSnapshot` stay zero.
+With a streaming fitter attached (``fitter=``, a
+:class:`~repro_torch.core.recalibrate.StreamingFitter`),
+:meth:`observe_telemetry` feeds it fleet telemetry; when its drift
+detector fires, the service refits and hot-swaps the refreshed model into
+the engine (``ServingEngine.update_model``: the same batch shapes, no
+kernel rebuilt).  The drift fields of :class:`MetricsSnapshot` report
+the last tick's score, the peak, the per-key scores and the number of
+refits pushed; without a fitter they stay zero.
 """
 from __future__ import annotations
 
@@ -88,11 +93,11 @@ class MetricsSnapshot:
     dispatch_p50_ms: float       # one engine dispatch, device synchronised
     dispatch_p99_ms: float
     engine_programs: int         # distinct batch shapes (bounded by ring)
-    # online-recalibration telemetry (zero until recalibration is ported)
-    drift_score: float = 0.0
-    drift_peak: float = 0.0
+    # online-recalibration telemetry (zeros unless a fitter is attached)
+    drift_score: float = 0.0     # last observe_telemetry's detector score
+    drift_peak: float = 0.0      # max score seen since construction
     drift_by_key: dict[str, float] = dataclasses.field(default_factory=dict)
-    recalibrations: int = 0
+    recalibrations: int = 0      # refits pushed through update_model
 
 
 def _pct(samples: list[float], q: float) -> float:
@@ -114,7 +119,7 @@ class EstimationService:
     the concurrency is in the batched dispatch, not in threads)."""
 
     def __init__(self, model=None, config: ServiceConfig | None = None, *,
-                 engine: ServingEngine | None = None):
+                 engine: ServingEngine | None = None, fitter=None):
         self.config = config or ServiceConfig()
         # a prebuilt engine carries its resident model into the new service
         self.engine = engine if engine is not None else ServingEngine(
@@ -123,6 +128,13 @@ class EstimationService:
             ones_frac=self.config.ones_frac,
             toggle_frac=self.config.toggle_frac)
         self.ring = TraceRing(self.config.ring, device=self.engine.device)
+        # optional streaming fitter: telemetry flows in through
+        # observe_telemetry, refreshed fits flow out through
+        # engine.update_model — fit-while-serving
+        self.fitter = fitter
+        self._drift_last = None
+        self._drift_peak = 0.0
+        self._recalibrations = 0
         self._results: dict[int, object] = {}
         self._submit_t: dict[int, float] = {}
         self._next_ticket = 0
@@ -246,6 +258,25 @@ class EstimationService:
         self._closed = True
         return n
 
+    # ----------------------------------------------------------- telemetry
+    def observe_telemetry(self, currents, cell_idx, tick: int):
+        """Feed one tick of fleet telemetry to the attached streaming
+        fitter; when its drift detector fires, refit from the accumulated
+        sufficient statistics and hot-swap the refreshed parameters into
+        the engine.  Returns the fitter's
+        :class:`~repro_torch.core.recalibrate.DriftReport`."""
+        if self.fitter is None:
+            raise RuntimeError(
+                "no streaming fitter attached; construct the service with "
+                "fitter=model_api.fit(fitter='streaming', ...)")
+        report = self.fitter.observe(currents, cell_idx, tick)
+        self._drift_last = report
+        self._drift_peak = max(self._drift_peak, report.score)
+        if report.triggered:
+            self.engine.update_model(self.fitter.refit())
+            self._recalibrations += 1
+        return report
+
     # ------------------------------------------------------------- results
     def result(self, ticket: int):
         """Pop one completed ticket's report row (leaves vendor-shaped;
@@ -278,4 +309,10 @@ class EstimationService:
             latency_p99_ms=_pct(self._latency_s, 99),
             dispatch_p50_ms=_pct(self._dispatch_s, 50),
             dispatch_p99_ms=_pct(self._dispatch_s, 99),
-            engine_programs=self.engine.cache_size())
+            engine_programs=self.engine.cache_size(),
+            drift_score=(self._drift_last.score
+                         if self._drift_last is not None else 0.0),
+            drift_peak=self._drift_peak,
+            drift_by_key=(dict(self._drift_last.by_key)
+                          if self._drift_last is not None else {}),
+            recalibrations=self._recalibrations)

@@ -293,10 +293,11 @@ def test_saved_file_has_the_reference_entries(fits, tmp_path):
 
 def test_fitter_registry_and_refusals(fits):
     _, port = fits
-    assert pma.registered_fitters() == ("campaign",)
+    assert pma.registered_fitters() == ("campaign", "streaming")
     assert pma.resolve_fitter("offline") is pma.CAMPAIGN_FITTER
-    with pytest.raises(ValueError, match="unknown fitter 'streaming'"):
-        pma.fit("vampire", _port_fleet(), fitter="streaming", device="cpu")
+    assert pma.resolve_fitter("online") is pma.STREAMING_FITTER
+    with pytest.raises(ValueError, match="unknown fitter 'nowhere'"):
+        pma.fit("vampire", _port_fleet(), fitter="nowhere", device="cpu")
     with pytest.raises(ValueError, match="one-shot, not streaming"):
         pma.resolve_fitter("campaign", streaming=True)
     spec = pma.register_fitter(pma.FitterSpec("nowhere", "no branch",

@@ -220,3 +220,80 @@ def test_fit_close_holds_the_reference_bar(smoke):
         smoke.fit_close([1.0], [1.0002], "x")
     with pytest.raises(smoke.CheckFailed, match="shape"):
         smoke.fit_close([1.0], [1.0, 2.0], "x")
+
+
+QUICK_SPECS = [(v, i, 2015) for v in range(3) for i in range(3)]
+
+
+@pytest.fixture()
+def one_torch_thread():
+    """Several workers share the machine's cores; the phases' many small
+    tensor operations run faster on one thread each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _quick_specs():
+    from repro_torch.core import params
+    return [params.ModuleSpec(*s) for s in QUICK_SPECS]
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_validation_phase_at_quick_size(smoke, capsys):
+    """``[validation]`` on the tiny fleet at the quick plan and a cut
+    sweep: the ``'cuda'`` run (plain versions here) against
+    ``'vectorized'``, the MAPEs and the paper's ordering, Fig 14, the
+    surface maps of the three kinds and the kernel rows at its shapes."""
+    launched, model = smoke.validation_phase(
+        "cpu", device="cpu", specs=_quick_specs(), n_values=(0, 8, 64, 764),
+        **smoke.QUICK_FIT)
+    assert set(launched) == set(smoke.counters())
+    assert model.vendors == (0, 1, 2)
+    out = capsys.readouterr().out
+    assert "[validation] fleet=9 held_out=9 (A 3, B 3, C 3) sweeps=4" in out
+    assert "measured=(9 x 4) grids=(4 x 3) x 3" in out
+    assert out.count("[validation] mape ") == 3 and "paper=6.8%" in out
+    assert out.count("[validation] fig14 ") == 13     # header + 12 keys
+    assert out.count("[validation] surface ") == 3
+    assert out.count("sums_to_1=True") == 3
+    assert out.count("[kernel] ") == 6 + 3
+    assert "(validation, 4 sweeps)" in out
+    assert "(validation probes, 9 modules)" in out
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_apps_phase_at_a_small_size(smoke, cpu_model, monkeypatch, capsys):
+    from repro_torch.core import traces
+    monkeypatch.setattr(traces, "SPEC_APPS",
+                        [traces.SPEC_APPS[3], traces.SPEC_APPS[21]])
+    launched = smoke.apps_phase(cpu_model, "cpu", n_requests=300)
+    assert set(launched) == set(smoke.counters())
+    out = capsys.readouterr().out
+    assert "[apps] apps=2 n_requests=300" in out
+    assert "estimate_calls=4" in out and "powerdown_rewrites=6" in out
+    assert "remaps=2 (commands and data kept" in out
+    assert "lint_errors=0" in out and "host_s=" in out
+    assert out.count("[apps] powerdown (vendor A)") == 3
+    assert "[apps] page allocation (vendor C): mean_saving=" in out
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_recal_phase_at_quick_size(smoke, capsys):
+    """``[recal]`` on the tiny fleet at the quick plan, 10 ticks: the
+    tick loop through ``'cuda'`` (plain versions here), the frozen and
+    recalibrated errors, the oracle, and the service's hot swap."""
+    launched = smoke.recal_phase("cpu", device="cpu", specs=_quick_specs(),
+                                 checkpoints=(5, 10), probe_reps=64,
+                                 n_rows=8, probe_modules=2)
+    assert set(launched) == set(smoke.counters())
+    out = capsys.readouterr().out
+    assert "[recal] fleet=9 cells=360 (IDD 12 + probes 348) slice=120" in out
+    assert "checkpoints=[5, 10]" in out and "oracle_mape=" in out
+    assert "(reference test asks >= 5)" in out
+    assert "triggers=" in out and "campaign_refit_s=" in out
+    assert "recalibrations=1 engine_programs=" in out
+    assert "answers_changed=True" in out
+    assert "(recal slice, 120 probe cells)" in out
+    assert "(recal IDD cells, 12)" in out and out.count("[kernel] ") == 6

@@ -519,3 +519,87 @@ def test_fleet_width_vendor_axes(device, v):
                                          module_chunk=64, impl="cuda")
     for name, a, b in zip(one._fields, one, chunked):
         assert torch.equal(a, b), name
+
+
+QUICK = dict(probe_modules=2, probe_reps=64, n_rows=8)
+
+
+@pytest.fixture(scope="module")
+def quick_fleet_fit(device):
+    from repro_torch.core import device_sim, params
+    fleet = device_sim.make_fleet([params.ModuleSpec(v, i, 2015)
+                                   for v in range(3) for i in range(3)])
+    return fleet, model_api.fit("vampire", fleet, impl="cuda", device=device,
+                                **QUICK)
+
+
+def test_run_validation_on_the_card(quick_fleet_fit):
+    from repro_torch.core import validate
+    fleet, model = quick_fleet_fit
+    before = ve.vampire_charge.launches
+    got = validate.run_validation(model, fleet=fleet, impl="cuda")
+    assert ve.vampire_charge.launches > before
+    want = validate.run_validation(model, fleet=fleet)
+    assert list(got.raw) == list(want.raw)
+    for key, row in want.raw.items():
+        np.testing.assert_allclose(list(got.raw[key].values()),
+                                   list(row.values()), rtol=RTOL)
+    for kind in model_api.ESTIMATOR_KINDS:
+        est = model_api.make_estimator(kind, model)
+        np.testing.assert_allclose(
+            validate.structural_surface_maps(est, impl="cuda"),
+            validate.structural_surface_maps(est), rtol=RTOL)
+
+
+def test_telemetry_on_the_card(quick_fleet_fit, device):
+    from repro_torch.core import device_sim, recalibrate
+    fleet, model = quick_fleet_fit
+    cfg = recalibrate.RecalConfig(slice_size=120)
+    drift = device_sim.DriftProcess(aging_rate=8e-3)
+    cuda = recalibrate.TelemetrySource(fleet, cfg, drift=drift, impl="cuda",
+                                       device=device)
+    vec = recalibrate.TelemetrySource(fleet, cfg, drift=drift, device=device)
+    for tick in (1, 60):
+        (a, ia), (b, ib) = cuda.measure(tick), vec.measure(tick)
+        np.testing.assert_array_equal(ia, ib)
+        np.testing.assert_allclose(a, b, rtol=RTOL)
+    specs = [m.spec for m in fleet]
+    fc = recalibrate.StreamingFitter(model, specs, cfg, impl="cuda")
+    fv = recalibrate.StreamingFitter(model, specs, cfg)
+    _close(fc._predicted, fv._predicted)
+    cur, idx = vec.measure(5)
+    rc, rv = fc.observe(cur, idx, 5), fv.observe(cur, idx, 5)
+    np.testing.assert_allclose(rc.score, rv.score, rtol=1e-4, atol=1e-4)
+    _close(fc.stats.mean, fv.stats.mean)
+
+
+def test_hot_swap_on_the_card(quick_fleet_fit, device):
+    import dataclasses
+
+    from repro_torch.core import device_sim, idd_loops, recalibrate
+    from repro_torch.kernels import build
+    from repro_torch.serving import EstimationService, ServiceConfig
+    fleet, model = quick_fleet_fit
+    cfg = recalibrate.RecalConfig(slice_size=10_000)
+    step = dataclasses.replace(device_sim.NO_DRIFT, step_tick=1,
+                               step_frac=0.2)
+    fitter = recalibrate.StreamingFitter(model, [m.spec for m in fleet],
+                                         cfg, impl="cuda")
+    svc = EstimationService(model, ServiceConfig(lint=False, impl="cuda"),
+                            fitter=fitter)
+    src = recalibrate.TelemetrySource(fleet, cfg, drift=step, impl="cuda",
+                                      device=device)
+    trs = [idd_loops.idd0(reps=2), idd_loops.idd4r(reps=2)]
+    tickets, _ = svc.submit_many(trs)
+    svc.drain()
+    programs, libs = svc.engine.cache_size(), dict(build._LIBS)
+    before = svc.result(tickets[0]).energy_pj
+    assert svc.observe_telemetry(*src.measure(1), tick=1).triggered
+    tickets, _ = svc.submit_many(trs)
+    svc.drain()
+    after = svc.result(tickets[0]).energy_pj
+    assert svc.metrics().recalibrations == 1
+    assert svc.engine.cache_size() == programs and dict(build._LIBS) == libs
+    assert not torch.equal(before, after)
+    _close(after, fitter.model.estimate(trs, impl="cuda").energy_pj[0])
+    _close(after, fitter.model.estimate(trs).energy_pj[0])

@@ -29,6 +29,14 @@ itself).  Phases, each printing its numbers:
    device operation a call); a small input against the command-by-command
    oracle on the CPU; and the refusal of out-of-range banks and rows and
    the zeros of a batch of empty traces, in every kind, impl and mode;
+   ``[analysis]``: the port's analysis gate (``python -m
+   repro_torch.analysis`` in process: the corpus lint, the dispatch audit
+   with the serving, fleet and recalibration probes, the repo lint), then
+   the dispatch audit over the estimation batch (3 kinds x 3 impls x 4
+   modes, ``set_sync_debug_mode("error")`` on ``'vectorized'`` and
+   ``'cuda'``), 0 errors; ``[autotune]``: the committed launch geometry
+   against the default one at every main-path shape of the charge kernels
+   (the same bits twice, rtol 1e-5, both timed) and one sweep;
 6. ``[study]``: the paper's Section 10 encoding study at full size — all
    23 synthetic SPEC apps x 4 encodings (92 traces of 6000 requests),
    scored by ``encoding_energy_study`` on the card, the same encoded
@@ -1758,6 +1766,103 @@ def recal_phase(card: str, device="cuda", specs=None,
     return launched
 
 
+def analysis_phase(tb, model, card: str, device="cuda") -> None:
+    """The port's analysis gate on the card: ``python -m
+    repro_torch.analysis --device cuda`` in process (the 51-trace corpus
+    lint, the dispatch audit of a quick fit with the serving, fleet and
+    recalibration probes, the repo lint), then the dispatch audit of
+    ``model`` over the estimation batch ``tb``: 3 kinds x 3 impls x 4
+    modes, the sync debug mode "error" on for ``'vectorized'`` and
+    ``'cuda'``.  Every pass must report 0 errors."""
+    import contextlib
+    import io
+
+    from repro_torch.analysis import __main__ as gate
+    from repro_torch.analysis import dispatch_audit as da
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+        rc = gate.main(["--device", device])
+    for line in out.getvalue().splitlines():
+        print(f"[analysis] {line}", flush=True)
+    check(rc == 0, f"python -m repro_torch.analysis exited {rc}")
+    t1 = time.perf_counter()
+    print(f"[analysis] gate: rc={rc} wall_s={t1 - t0:.3f}", flush=True)
+    for impls in (("vectorized", "cuda"), ("reference",)):
+        t = time.perf_counter()
+        findings = da.audit_all(model, tb=tb, device=device, impls=impls,
+                                recompile=False)
+        for f in findings:
+            print(f"[analysis] {f}", flush=True)
+        errs = da.errors_of(findings)
+        print(f"[analysis] estimation batch (T={tb.n_traces}, "
+              f"N={tb.trace.cmd.shape[1]}) impls={'/'.join(impls)}: "
+              f"{len(KINDS) * len(impls) * len(MODES)} combinations, "
+              f"errors={len(errs)} warnings={len(findings) - len(errs)} "
+              f"wall_s={time.perf_counter() - t:.3f}", flush=True)
+        check(not errs, f"the dispatch audit found {len(errs)} errors on "
+              f"the estimation batch")
+    print(f"[analysis] phase wall_s={time.perf_counter() - t0:.3f} "
+          f"{card}", flush=True)
+
+
+def autotune_phase(card: str, device="cuda") -> None:
+    """The charge kernels' autotuner on the card: at every main-path shape
+    of each family (``autotune.FAMILY_SHAPES``; a family is the mean or
+    the surface kernels of one source) the committed config
+    (``best_config``) against the default one, timed in turns (tuned,
+    default, default, tuned, twice; medians of :func:`event_ms`); the
+    tuned result the same bits twice and within rtol 1e-5 of the
+    default's; then one sweep of the twelve candidates at the validation
+    shape."""
+    import statistics
+
+    import torch
+
+    from repro_torch.kernels import autotune
+    default = dict(autotune.DEFAULT_CONFIG)
+    for family in autotune.FAMILIES:
+        for name, (t, n, v) in autotune.MAIN_PATH_SHAPES.items():
+            if (t, n, v) not in autotune.FAMILY_SHAPES[family]:
+                continue
+            cfg = autotune.best_config(family, t, n)
+
+            def run(c):
+                return autotune.run_charge(family, t, n, v, c, device=device)
+            tuned, again, base = run(cfg), run(cfg), run(default)
+            torch.cuda.synchronize()
+            check(torch.equal(tuned, again),
+                  f"{family} tuned config: not the same bits twice")
+            err = assert_close(tuned, base, RTOL,
+                               f"{family} tuned against default config")
+            times = {"tuned": [], "default": []}
+            for order in (("tuned", "default", "default", "tuned") * 2):
+                c = cfg if order == "tuned" else default
+                times[order].append(event_ms(lambda: run(c), 10))
+            ms, d_ms = (statistics.median(times[k])
+                        for k in ("tuned", "default"))
+            print(f"[autotune] {family} {name} (T={t}, N={n}, V={v}) "
+                  f"bucket={autotune.shape_bucket(t, n)} config="
+                  f"blocks_per_sm {cfg['blocks_per_sm']} max_cluster "
+                  f"{cfg['max_cluster']} ms={ms:.4f} default_ms={d_ms:.4f} "
+                  f"(medians of 4 in turns) max_abs_err={err:.3e} {card}",
+                  flush=True)
+    t, n, v = autotune.MAIN_PATH_SHAPES["validation"]
+    t0 = time.perf_counter()
+    won = autotune.sweep(
+        "vampire_energy",
+        lambda *a: autotune.run_charge("vampire_energy", *a, device=device),
+        [(t, n, v)], timer=lambda fn: event_ms(fn, 10) * 1e3)
+    (bucket, row), = won.items()
+    check(len(row["candidates_us"]) == len(autotune.candidates()),
+          "the sweep did not time every candidate")
+    print(f"[autotune] sweep vampire_energy {bucket} V={v}: "
+          f"{len(row['candidates_us'])} candidates, winner blocks_per_sm "
+          f"{row['blocks_per_sm']} max_cluster {row['max_cluster']} "
+          f"us={row['us']} default_us={row['default_us']} "
+          f"wall_s={time.perf_counter() - t0:.3f} {card}", flush=True)
+
+
 def vocab_bar(got, want, vocab: int) -> tuple[float, float]:
     """Max abs difference of two logit arrays over the real vocabulary, and
     the reference's teacher-forcing bar for it (0.15 std + 0.05,
@@ -1974,6 +2079,8 @@ def main(argv=None) -> int:
     toggles_gib_phase(args.seed, card)
     oracle_phase(models, trs)
     faults_phase(models)
+    analysis_phase(tb, models["vampire"], card)
+    autotune_phase(card)
     del tb
 
     # phases 6-13: the encoding study, the HBM statistics, the

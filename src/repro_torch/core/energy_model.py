@@ -33,6 +33,7 @@ from repro_torch.core.dram import (ACT, PRE, PREA, RD, WR, REF, PDE, PDX,
                                    IL_BANK, IL_BANKCOL, LINE_BITS, N_BANKS,
                                    N_ROW_BANDS, TIMING, TCK_NS, VDD,
                                    CommandTrace, popcount_u32, row_band)
+from repro_torch.kernels.common import cell_sums
 
 N_SURFACE_CELLS = N_BANKS * N_ROW_BANDS
 
@@ -285,6 +286,21 @@ def extract_features(trace: CommandTrace, pp: PowerParams) -> TraceFeatures:
     return finalize_features(extract_structural_features(trace), pp)
 
 
+def per_trace_fraction(frac, n_traces: int, device) -> torch.Tensor:
+    """A fraction (a scalar, or one per trace) as a ``(n_traces,)``
+    float32 tensor on ``device``.  A scalar is filled on the device and a
+    host array copied without waiting on it, so a dispatch on the card
+    does not synchronise the host."""
+    if isinstance(frac, torch.Tensor):
+        return frac.to(device=device, dtype=torch.float32).expand(n_traces)
+    a = np.asarray(frac, np.float32)
+    if a.ndim == 0:
+        return torch.full((n_traces,), float(a), dtype=torch.float32,
+                          device=device)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(
+        device, non_blocking=True).expand(n_traces)
+
+
 def distribution_features(sf: StructuralFeatures, ones_frac,
                           toggle_frac) -> StructuralFeatures:
     """The no-data-trace mode: expected ones/toggle fractions (scalars or
@@ -374,16 +390,10 @@ def surface_cells(trace: CommandTrace) -> torch.Tensor:
 
 
 def _grouped(values: torch.Tensor, cells: torch.Tensor) -> torch.Tensor:
-    """Sum ``values`` (..., N) into their cells -> (..., 8, N_ROW_BANDS).
-    Float charges accumulate in float64 and round once to float32: a
-    scatter adds in a sequential (on the GPU, arbitrary) order, and in
-    float32 the busiest cell of a 16k-command trace drifts by ~1e-5."""
-    acc = torch.float64 if values.is_floating_point() else values.dtype
-    out = torch.zeros(values.shape[:-1] + (N_SURFACE_CELLS,), dtype=acc,
-                      device=values.device)
-    out.scatter_add_(-1, cells.long().expand(values.shape), values.to(acc))
-    return out.to(values.dtype).reshape(values.shape[:-1]
-                                        + (N_BANKS, N_ROW_BANDS))
+    """Sum ``values`` (..., N) into their cells -> (..., 8, N_ROW_BANDS)
+    (``kernels.common.cell_sums``: float charges stay float32)."""
+    return cell_sums(values, cells, N_SURFACE_CELLS).reshape(
+        values.shape[:-1] + (N_BANKS, N_ROW_BANDS))
 
 
 def surface_charge(trace: CommandTrace, weight: torch.Tensor,

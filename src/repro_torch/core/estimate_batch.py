@@ -26,7 +26,8 @@ from repro_torch.core.energy_model import (EnergyReport, PowerParams,
                                            charge_from_features,
                                            distribution_features,
                                            extract_structural_features,
-                                           finalize_features, scale_report,
+                                           finalize_features,
+                                           per_trace_fraction, scale_report,
                                            surface_charge, surface_cycles)
 from repro_torch.core.fleet import batched_pair_totals
 
@@ -145,9 +146,8 @@ def batched_distribution_reports(trace: CommandTrace, weight: torch.Tensor,
     per trace) replace the per-command data features."""
     t = trace.cmd.shape[0]
     dev = trace.device
-    of = torch.as_tensor(ones_frac, dtype=torch.float32, device=dev).expand(t)
-    tf = torch.as_tensor(toggle_frac, dtype=torch.float32,
-                         device=dev).expand(t)
+    of = per_trace_fraction(ones_frac, t, dev)
+    tf = per_trace_fraction(toggle_frac, t, dev)
     sf = distribution_features(extract_structural_features(trace), of, tf)
     charge, cycles = batched_pair_totals(trace, weight, sf, stacked)
     return _matrix_report(charge, cycles)

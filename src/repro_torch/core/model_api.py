@@ -539,7 +539,8 @@ def _vampire_from_payload(npz, manifest, device):
                      row_r2=manifest.get("row_r2", {}),
                      raw=bool(manifest.get("raw", False)))
     return Vampire(fleet=fleet, idd_keys=tuple(manifest["idd_keys"]),
-                   saved=saved)
+                   saved=saved, vendor_order=tuple(
+                       int(v) for v in arrays["vendor_ids"]))
 
 
 # ---- baseline payload -----------------------------------------------------

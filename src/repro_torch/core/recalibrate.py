@@ -379,7 +379,8 @@ class StreamingFitter:
             FleetModel(params, old.fleet.band, old.fleet.idd_datasheet,
                        old.fleet.vendor_ids),
             old.idd_keys,
-            model_api.saved_fit_from_campaign(by_vendor, bands))
+            model_api.saved_fit_from_campaign(by_vendor, bands),
+            old.vendors)
         self._refresh_predictions()
         return self.model
 

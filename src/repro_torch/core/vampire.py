@@ -55,12 +55,25 @@ class Vampire(model_api.StackedEstimatorMixin):
     numpy, what the file held (``saved``: the float64 fitted arrays, the
     raw campaign arrays and the manifest's R^2 maps), so saving it writes
     the file back unchanged; estimates read only the fleet's float32
-    leaves."""
+    leaves.
+
+    ``vendor_order`` is the vendor ids as a Python tuple, fixed when the
+    model is built (read once from ``fleet.vendor_ids`` when not given):
+    ``vendors``, ``params`` and ``datasheets`` read it, so no dispatch
+    copies the ids back from the card."""
     fleet: FleetModel
     idd_keys: tuple[str, ...]
     saved: model_api.SavedFit | None = None
+    vendor_order: tuple[int, ...] | None = None
 
     kind = "vampire"
+
+    def __post_init__(self):
+        if self.vendor_order is None:
+            self.vendor_order = tuple(
+                int(v) for v in self.fleet.vendor_ids.tolist())
+        else:
+            self.vendor_order = tuple(int(v) for v in self.vendor_order)
 
     @property
     def device(self) -> torch.device:
@@ -68,7 +81,7 @@ class Vampire(model_api.StackedEstimatorMixin):
 
     @property
     def vendors(self) -> tuple[int, ...]:
-        return tuple(int(v) for v in self.fleet.vendor_ids.tolist())
+        return self.vendor_order
 
     def params(self, vendor: int) -> PowerParams:
         """One vendor's fitted parameters (its row of the stacked
@@ -81,7 +94,7 @@ class Vampire(model_api.StackedEstimatorMixin):
 
     def to(self, device) -> "Vampire":
         return Vampire(self.fleet.to(model_api.resolve_device(device)),
-                       self.idd_keys, self.saved)
+                       self.idd_keys, self.saved, self.vendor_order)
 
     def datasheets(self) -> dict[int, dict[str, float]]:
         """Per-vendor datasheet IDDs (what the baselines consume)."""
@@ -134,7 +147,8 @@ class Vampire(model_api.StackedEstimatorMixin):
                  for v in vs], dtype=torch.float32, device=device),
             vendor_ids=torch.tensor(vs, dtype=torch.int32, device=device))
         return cls(fleet, idd_keys,
-                   model_api.saved_fit_from_campaign(by_vendor, bands))
+                   model_api.saved_fit_from_campaign(by_vendor, bands),
+                   tuple(vs))
 
     # ------------------------------------------------------------- estimate
     def estimate(self, traces, vendors=None, *,
@@ -253,3 +267,16 @@ class Vampire(model_api.StackedEstimatorMixin):
             raise TypeError(f"{path} holds a {type(model).__name__}, "
                             "not a Vampire model")
         return model
+
+
+def reference_vampire(device=None) -> Vampire:
+    """A quick-fit VAMPIRE on a reduced fleet (3 vendors x 3 modules, 2
+    probe modules, 64 probe repetitions, 8 rows) on ``device`` (``cuda``
+    unless the caller names another): the counterpart of the reference's
+    ``reference_vampire``, for tests and the analysis gate."""
+    from repro_torch.core import device_sim
+    from repro_torch.core import params as P
+    fleet = device_sim.make_fleet(
+        [P.ModuleSpec(v, i, 2015) for v in range(3) for i in range(3)])
+    return Vampire.fit(fleet, device=device, probe_modules=2,
+                       probe_reps=64, n_rows=8)

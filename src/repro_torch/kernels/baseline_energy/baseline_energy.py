@@ -71,7 +71,8 @@ def baseline_charge_plain(kind: str, cmd, bank, row, dt, state, w, any_act,
 def _make_wrapper(kind: str, surface: bool):
     symbol = f"repro_{kind}_charge" + ("_surface" if surface else "")
 
-    def wrapper(cmd, bank, row, dt, state, w, any_act, table):
+    def wrapper(cmd, bank, row, dt, state, w, any_act, table, *,
+                config=None):
         if on_cpu(cmd, bank, row, dt, state, w, any_act, table):
             return baseline_charge_plain(kind, cmd, bank, row, dt, state, w,
                                          any_act, table, surface)
@@ -88,7 +89,8 @@ def _make_wrapper(kind: str, surface: bool):
         fn = getattr(build.library("baseline_energy"), symbol)
         planes = dict(cmd=cmd, bank=bank, row=row, dt=dt, state=state, w=w)
         out = launch_charge(fn, (*planes.values(), any_act, table), planes,
-                            t, n, v, surface, f"{kind} charge kernel")
+                            t, n, v, surface, f"{kind} charge kernel",
+                            "baseline_energy", config)
         wrapper.launches += 1
         return out
 
@@ -99,7 +101,8 @@ def _make_wrapper(kind: str, surface: bool):
            else "``(T, V)``")
         + ".  Per-command inputs are ``(T, N)`` int32 trace fields, the "
         "packed ``state`` word and float32 ``w``; ``any_act`` is ``(T,)`` "
-        "float32, ``table`` the ``(V, 10)`` float32 IDD rows.")
+        "float32, ``table`` the ``(V, 10)`` float32 IDD rows; ``config`` "
+        "pins the launch geometry's knobs (``kernels.autotune``).")
     wrapper.launches = 0
     return wrapper
 

@@ -68,6 +68,7 @@ SIGNATURES = {
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+nvcc_starts = 0     # nvcc processes started in this process
 
 
 def _nvcc() -> str:
@@ -89,6 +90,8 @@ def _target(name: str) -> pathlib.Path:
 
 
 def _start(name: str, target: pathlib.Path) -> subprocess.Popen:
+    global nvcc_starts
+    nvcc_starts += 1
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]

@@ -67,18 +67,40 @@ def cell_index(bank: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
     return ((bank & 7) << 3) | ((row >> 12) & 7)
 
 
+CELL_GROUP = 8         # cells one pass of cell_sums compares against
+
+
+def cell_sums(values: torch.Tensor, cells: torch.Tensor,
+              n_cells: int) -> torch.Tensor:
+    """Sum ``values`` ``(..., N)`` into ``n_cells`` cells by ``cells``
+    (broadcastable to ``values``) -> ``(..., n_cells)``, in the values'
+    dtype.  Integers scatter once (exact in any order).  Floats are summed
+    per cell by ``sum`` over the command axis, ``CELL_GROUP`` cells a
+    pass: a float scatter adds in sequence (a 16k-command cell drifts by
+    ~1e-5 in float32) and on the card in the order its atomics land, so
+    the same batch could give other bits; a reduction keeps float32
+    within the reference's rtol 1e-5 and gives the same bits for the
+    same values, wherever pad commands fall."""
+    if not values.is_floating_point():
+        out = torch.zeros(values.shape[:-1] + (n_cells,), dtype=values.dtype,
+                          device=values.device)
+        return out.scatter_add_(-1, cells.long().expand(values.shape),
+                                values)
+    ids = torch.arange(n_cells, dtype=cells.dtype, device=values.device)
+    parts = []
+    for first in range(0, n_cells, CELL_GROUP):
+        hit = cells[..., None, :] == ids[first:first + CELL_GROUP, None]
+        parts.append(torch.where(hit, values[..., None, :], 0.0).sum(-1))
+    return torch.cat(parts, dim=-1)
+
+
 def reduce_charge(cw: torch.Tensor, bank, row, surface: bool):
     """``(V, T, N)`` masked charges -> ``(T, V)`` totals, or the
     ``(T, V, 64)`` per-cell sums when ``surface`` (the plain versions'
-    reduction; cells accumulate in float64, see
-    ``energy_model._grouped``)."""
+    reduction, :func:`cell_sums`)."""
     if not surface:
         return cw.sum(dim=-1).T
-    cell = cell_index(bank, row).long().expand(cw.shape)
-    out = torch.zeros(cw.shape[:-1] + (N_CELLS,), dtype=torch.float64,
-                      device=cw.device)
-    out.scatter_add_(-1, cell, cw.to(torch.float64))
-    return out.to(cw.dtype).transpose(0, 1)
+    return cell_sums(cw, cell_index(bank, row), N_CELLS).transpose(0, 1)
 
 
 # launch geometry of the charge kernels (csrc/charge.cuh, which also
@@ -108,26 +130,47 @@ class ChargeGeometry:
 
 @functools.lru_cache(maxsize=1024)
 def charge_geometry(n_traces: int, n_cmds: int, n_vendors: int,
-                    n_sms: int) -> ChargeGeometry:
+                    n_sms: int, blocks_per_sm: int = BLOCKS_PER_SM,
+                    max_cluster: int = MAX_CLUSTER) -> ChargeGeometry:
     """The geometry a charge kernel launches with: as few vendor groups
     as ``MAX_GROUP`` allows, of even size, and per trace as many blocks
-    (up to ``MAX_CLUSTER``) as fill ``BLOCKS_PER_SM`` blocks on each of
+    (up to ``max_cluster``) as fill ``blocks_per_sm`` blocks on each of
     ``n_sms`` SMs, with the row's steps of ``4 * THREADS`` commands dealt
     to the blocks in turn (a row that does not start on a 16-byte
-    boundary may take one step more)."""
+    boundary may take one step more).  ``blocks_per_sm`` and
+    ``max_cluster`` are the autotuner's knobs (``kernels.autotune``)."""
     n_groups = max(1, cdiv(n_vendors, MAX_GROUP))
     group = max(1, cdiv(n_vendors, n_groups))
     row_steps = max(1, cdiv(n_cmds, 4 * THREADS))
-    want = max(1, min(MAX_CLUSTER, cdiv(BLOCKS_PER_SM * n_sms,
+    want = max(1, min(max_cluster, cdiv(blocks_per_sm * n_sms,
                                         max(1, n_traces * n_groups))))
     cluster = cdiv(row_steps, cdiv(row_steps, want))
     return ChargeGeometry(cluster=cluster, group=group, n_groups=n_groups,
                           tile=cdiv(row_steps, cluster) * THREADS * 4)
 
 
+def resolve_geometry(family: str, n_traces: int, n_cmds: int,
+                     n_vendors: int, n_sms: int, device_key: str,
+                     config: dict | None = None) -> ChargeGeometry:
+    """:func:`charge_geometry` at ``config``'s knobs, or, when the caller
+    pins none, at the autotuner's choice for the card ``device_key`` and
+    the shape's bucket (``autotune.best_config``)."""
+    from repro_torch.kernels import autotune
+    if config is None:
+        config = autotune.best_config(family, n_traces, n_cmds, device_key)
+    return charge_geometry(n_traces, n_cmds, n_vendors, n_sms,
+                           int(config["blocks_per_sm"]),
+                           int(config["max_cluster"]))
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _device_name(index: int) -> str:
+    return torch.cuda.get_device_name(index)
 
 
 def plane_phase(**planes) -> int:
@@ -143,16 +186,20 @@ def plane_phase(**planes) -> int:
 
 def launch_charge(fn, pointers: tuple, planes: dict, n_traces: int,
                   n_cmds: int, n_vendors: int, surface: bool,
-                  what: str) -> torch.Tensor:
+                  what: str, source: str,
+                  config: dict | None = None) -> torch.Tensor:
     """Launch one charge kernel (``fn``, a C entry point of
-    ``vampire_energy.cu`` or ``baseline_energy.cu``) on ``pointers``
-    (its input tensors in order) -> its ``(T, V)`` or ``(T, V, 64)``
-    float32 output."""
+    ``vampire_energy.cu`` or ``baseline_energy.cu``, whose name is
+    ``source``) on ``pointers`` (its input tensors in order) -> its
+    ``(T, V)`` or ``(T, V, 64)`` float32 output.  ``config`` pins the
+    geometry's knobs; None takes the autotuner's choice for the source's
+    mean or surface family."""
     from repro_torch.kernels import build
     dev = next(iter(planes.values())).device
-    geo = charge_geometry(n_traces, n_cmds, n_vendors,
-                          _sm_count(dev.index if dev.index is not None
-                                    else torch.cuda.current_device()))
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    family = source + ("_surface" if surface else "")
+    geo = resolve_geometry(family, n_traces, n_cmds, n_vendors,
+                           _sm_count(index), _device_name(index), config)
     shape = (n_traces, n_vendors) + ((N_CELLS,) if surface else ())
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     rc = fn(*(build.ptr(x) for x in pointers), build.ptr(out), n_traces,

@@ -14,8 +14,9 @@ import torch
 from repro_torch.core.dram import CommandTrace, LINE_BITS, N_BANKS, \
     N_ROW_BANDS
 from repro_torch.core.energy_model import (PowerParams, StructuralState,
-                                           masked_cycles, prev_lines,
-                                           structural_state, surface_cycles)
+                                           masked_cycles, per_trace_fraction,
+                                           prev_lines, structural_state,
+                                           surface_cycles)
 from repro_torch.kernels.vampire_energy.vampire_energy import (
     SCAL_FIELDS, batched_features, vampire_charge, vampire_charge_surface)
 
@@ -50,10 +51,8 @@ def expected_data_features(st: StructuralState, ones_frac, toggle_frac):
     fractions (scalars or one per trace); first-access toggles stay 0."""
     t = st.is_rw.shape[0]
     dev = st.is_rw.device
-    of = torch.as_tensor(ones_frac, dtype=torch.float32,
-                         device=dev).expand(t)[:, None]
-    tf = torch.as_tensor(toggle_frac, dtype=torch.float32,
-                         device=dev).expand(t)[:, None]
+    of = per_trace_fraction(ones_frac, t, dev)[:, None]
+    tf = per_trace_fraction(toggle_frac, t, dev)[:, None]
     ones = torch.where(st.is_rw, of * LINE_BITS, 0.0)
     togg = torch.where(st.is_rw & st.has_prev, tf * LINE_BITS, 0.0)
     return ones, togg

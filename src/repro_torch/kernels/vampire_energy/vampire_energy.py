@@ -128,7 +128,7 @@ def vampire_charge_plain(ones, togg, cmd, bank, row, dt, state, w, params,
 
 
 def _launch_vampire(surface: bool, ones, togg, cmd, bank, row, dt, state, w,
-                    params):
+                    params, config=None):
     t, n = cmd.shape
     v = params.shape[0]
     f32, i32 = torch.float32, torch.int32
@@ -145,33 +145,37 @@ def _launch_vampire(surface: bool, ones, togg, cmd, bank, row, dt, state, w,
     planes = dict(ones=ones, togg=togg, cmd=cmd, bank=bank, row=row, dt=dt,
                   state=state, w=w)
     return launch_charge(fn, (*planes.values(), params), planes, t, n, v,
-                         surface, "vampire charge kernel")
+                         surface, "vampire charge kernel", "vampire_energy",
+                         config)
 
 
-def vampire_charge(ones, togg, cmd, bank, row, dt, state, w, params):
+def vampire_charge(ones, togg, cmd, bank, row, dt, state, w, params, *,
+                   config: dict | None = None):
     """Masked charge of every (trace, vendor) pair -> ``(T, V)`` float32.
 
     Per-command inputs are ``(T, N)``: float32 ``ones``/``togg``/``w``,
     int32 ``cmd``/``bank``/``row``/``dt`` (the trace fields) and the
     packed ``state`` word (``ops.pack_state``); ``params`` is the
-    ``(V, 123)`` packed parameter block (``ops.pack_param_blocks``)."""
+    ``(V, 123)`` packed parameter block (``ops.pack_param_blocks``);
+    ``config`` pins the launch geometry's knobs (``kernels.autotune``)."""
     if on_cpu(ones, togg, cmd, bank, row, dt, state, w, params):
         return vampire_charge_plain(ones, togg, cmd, bank, row, dt, state, w,
                                     params)
     out = _launch_vampire(False, ones, togg, cmd, bank, row, dt, state, w,
-                          params)
+                          params, config)
     vampire_charge.launches += 1
     return out
 
 
-def vampire_charge_surface(ones, togg, cmd, bank, row, dt, state, w, params):
+def vampire_charge_surface(ones, togg, cmd, bank, row, dt, state, w, params,
+                           *, config: dict | None = None):
     """:func:`vampire_charge` reduced per (bank, row-band) cell ->
     ``(T, V, 64)`` float32."""
     if on_cpu(ones, togg, cmd, bank, row, dt, state, w, params):
         return vampire_charge_plain(ones, togg, cmd, bank, row, dt, state, w,
                                     params, surface=True)
     out = _launch_vampire(True, ones, togg, cmd, bank, row, dt, state, w,
-                          params)
+                          params, config)
     vampire_charge_surface.launches += 1
     return out
 

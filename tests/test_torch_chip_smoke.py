@@ -297,3 +297,35 @@ def test_recal_phase_at_quick_size(smoke, capsys):
     assert "answers_changed=True" in out
     assert "(recal slice, 120 probe cells)" in out
     assert "(recal IDD cells, 12)" in out and out.count("[kernel] ") == 6
+
+
+def test_analysis_phase(smoke, cpu_model, capsys):
+    from repro_torch.analysis import dispatch_audit as da
+    smoke.analysis_phase(da.default_audit_batch("cpu"), cpu_model, "cpu",
+                         device="cpu")
+    out = capsys.readouterr().out
+    assert "[analysis] trace lint: 51 traces, 0 errors, 0 warnings" in out
+    assert "[analysis] dispatch audit: 0 errors, 0 warnings" in out
+    assert "[analysis] repo lint: 0 errors, 0 warnings" in out
+    assert out.count("combinations, errors=0") == 2
+
+
+def test_autotune_phase(smoke, monkeypatch, capsys):
+    from repro_torch.kernels import autotune
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda *a: "NVIDIA H100 80GB HBM3")
+    shapes = {"estimation": (3, 700, 3), "validation": (2, 300, 3),
+              "slice": (4, 200, 5)}
+    monkeypatch.setattr(autotune, "MAIN_PATH_SHAPES", shapes)
+    v3 = (shapes["estimation"], shapes["validation"])
+    monkeypatch.setattr(autotune, "FAMILY_SHAPES", {
+        "vampire_energy": tuple(shapes.values()),
+        "vampire_energy_surface": v3, "baseline_energy": v3,
+        "baseline_energy_surface": v3})
+    smoke.autotune_phase("cpu", device="cpu")
+    out = capsys.readouterr().out
+    assert out.count("[autotune] vampire_energy ") == 3
+    assert out.count("[autotune] vampire_energy_surface ") == 2
+    assert out.count("[autotune] baseline_energy ") == 2
+    assert out.count("[autotune] baseline_energy_surface ") == 2
+    assert "[autotune] sweep vampire_energy t2n512 V=3: 12 candidates" in out

@@ -603,3 +603,90 @@ def test_hot_swap_on_the_card(quick_fleet_fit, device):
     assert not torch.equal(before, after)
     _close(after, fitter.model.estimate(trs, impl="cuda").energy_pj[0])
     _close(after, fitter.model.estimate(trs).energy_pj[0])
+
+
+# ---------------------------------------------------------------------------
+# The analysis gate and the autotuner on the card
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def estimation_batch(device):
+    import dataclasses
+    from repro_torch.core.estimate_batch import bucketed_trace_batch
+    apps = [dataclasses.replace(traces.SPEC_APPS[i % len(traces.SPEC_APPS)],
+                                seed=i + 1) for i in range(64)]
+    trs = [traces.app_trace(app, n_requests=6000) for app in apps]
+    return bucketed_trace_batch(trs, 64, 16384).to(device)
+
+
+def test_sync_errors_catch_a_planted_round_trip(device):
+    """The recorder under ``set_sync_debug_mode("error")`` on the card: an
+    ``.item()`` and a copy to the host are caught, a device-only op is
+    not, and the mode is restored afterwards."""
+    from repro_torch.analysis import dispatch_audit as da
+    x = torch.arange(8, dtype=torch.float32, device=device)
+    for planted in (lambda: x.sum().item(), lambda: x.cpu()):
+        _, rec, sync = da.record(planted, device, sync_errors=True)
+        assert sync is not None and "synchroniz" in sync
+    _, rec, sync = da.record(lambda: (x * 2).sum(), device, sync_errors=True)
+    assert sync is None and rec.host == []
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_dispatch_audit_clean_under_sync_errors(setup, device):
+    """Every kind x impl x mode on the audit batch: no float64 op, no
+    host round trip under ``set_sync_debug_mode("error")``, pad rows
+    masked, no build state added by repeats, re-pads or vendor subsets."""
+    from repro_torch.analysis import dispatch_audit as da
+    _, _, models = setup
+    assert da.audit_all(models["vampire"], device=device) == []
+
+
+def test_dispatch_audit_clean_at_the_estimation_shape(setup,
+                                                      estimation_batch):
+    from repro_torch.analysis import dispatch_audit as da
+    _, _, models = setup
+    assert da.audit_all(models["vampire"], tb=estimation_batch,
+                        device=estimation_batch.device,
+                        recompile=False) == []
+
+
+@pytest.mark.parametrize("impl", ["vectorized", "cuda"])
+def test_a_serving_window_does_not_synchronise(setup, device, impl):
+    """F4: the engine's dispatch of a ring window reads no vendor ids
+    back from the card (nor anything else)."""
+    from repro_torch.analysis import dispatch_audit as da
+    from repro_torch.serving import EstimationService, ServiceConfig
+    trs, _, models = setup
+    svc = EstimationService(models["vampire"],
+                            ServiceConfig(lint=False, impl=impl))
+    svc.submit_many(trs)
+    rb = svc.ring.take(None)
+    svc.engine.dispatch(rb.batch, rb.group)               # warm
+    rep, rec, sync = da.record(lambda: svc.engine.dispatch(rb.batch,
+                                                           rb.group),
+                               device, sync_errors=True)
+    assert sync is None and rec.host == [] and rec.wide == []
+    assert rep.energy_pj.shape[0] == rb.batch.n_traces
+
+
+@pytest.mark.parametrize("family", ["vampire_energy", "vampire_energy_surface",
+                                    "baseline_energy",
+                                    "baseline_energy_surface"])
+def test_tuned_configs_match_the_default(device, family):
+    """Each committed row's geometry gives the default geometry's result
+    at rtol 1e-5 and the same bits twice."""
+    from repro_torch.kernels import autotune
+    rows = autotune.choices((family,))[family]
+    for t, n, v in autotune.FAMILY_SHAPES[family]:
+        row = rows.get(autotune.shape_bucket(t, n))
+        if row is None:
+            continue
+        assert row["n_vendors"] == v
+        cfg = autotune.best_config(family, t, n)
+        tuned = autotune.run_charge(family, t, n, v, cfg)
+        again = autotune.run_charge(family, t, n, v, cfg)
+        default = autotune.run_charge(family, t, n, v,
+                                      dict(autotune.DEFAULT_CONFIG))
+        torch.cuda.synchronize()
+        assert torch.equal(tuned, again)
+        _close(tuned, default)

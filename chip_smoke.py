@@ -19,7 +19,9 @@ itself).  Phases, each printing its numbers:
    (features bit-exact; charge at rtol 1e-5, the same bits on a second
    call, and GB/s beside the time), the line kernels (popcount,
    toggle, byte LUT, BDI) bit-exact on a seeded 32 MiB bf16 tensor, with
-   ``torch.take`` timed beside the byte LUT (run after phase 5);
+   ``torch.take`` timed beside the byte LUT (run after phase 5); the
+   flash-attention kernel at the qwen2.5-3b prefill shape and at the MLA
+   prefill shape of deepseek-v2-lite-16b (q and k 192 wide, v 128);
 5. ``estimate`` end to end for 3 kinds x 4 modes through ``impl='cuda'``
    against ``impl='vectorized'`` (rtol 1e-5), surface summing to mean, pad
    rows and pad commands adding zero, every kernel of the path launched;
@@ -89,9 +91,19 @@ itself).  Phases, each printing its numbers:
    kernel's, and the power report's ``'cuda'`` energies against
    ``'vectorized'``.  The flash-attention kernel (its ``[kernel]`` row
    at the prefill shape, with a ragged and a float32 case) must be
-   launched once per layer of the prefill.
+   launched once per layer of the prefill;
+14. ``[serve-mla]``: the same entry point on deepseek-v2-lite-16b at full
+   width and depth (MLA + MoE: 27 layers, 64 routed experts top-6 + 2
+   shared, random bf16 weights): batch 4, prompt 2048, 32 greedy decode
+   tokens, the power report through ``impl='cuda'``; then the same bits
+   from the same prompt twice, each layer's flash-attention output against
+   the plain attention, teacher forcing at the reference's MLA bar with
+   ``capacity_factor`` 16 layer by layer on the prefill's own inputs (the
+   whole decode step's difference reported beside it), the report's
+   ``'cuda'`` against ``'vectorized'``; flash must launch 27 times in the
+   prefill.
 
-Each main path (5 to 13) runs with the kernels' launch counts set to 0
+Each main path (5 to 14) runs with the kernels' launch counts set to 0
 just before it and read just after; every kernel must have been launched.
 Any failed check exits non-zero.  The last lines are one JSON object of
 per-kernel numbers, the card's ``name, power.limit`` line, and
@@ -488,15 +500,16 @@ def toggles_gib_phase(seed: int, card: str, device="cuda",
 FLASH_ATOL = {"bfloat16": 2e-2, "float32": 2e-5}   # the reference's bars
 
 
-def attention_flops(bh: int, sq: int, skv: int, d: int, causal: bool) -> int:
-    """Operations of Q K^T and P V over the (query, key) pairs the inputs
-    need: every pair, or for causal attention the pairs with key <= query
-    (top-left aligned)."""
+def attention_flops(bh: int, sq: int, skv: int, d: int, causal: bool,
+                    dv: int | None = None) -> int:
+    """Operations of Q K^T (``d`` wide) and P V (``dv`` wide, ``d`` unless
+    given) over the (query, key) pairs the inputs need: every pair, or for
+    causal attention the pairs with key <= query (top-left aligned)."""
     if causal:
         pairs = sum(min(i + 1, skv) for i in range(sq))
     else:
         pairs = sq * skv
-    return 4 * bh * pairs * d
+    return 2 * bh * pairs * (d + (d if dv is None else dv))
 
 
 def flash_kernel_phase(seed: int, card: str, device="cuda",
@@ -576,6 +589,78 @@ def flash_kernel_phase(seed: int, card: str, device="cuda",
           f"BH_kv={wb * wkh}, S={ws}) shape=(BH={bh}, S={sq}, "
           f"BH_kv={bh_kv}, D={d}, causal, bf16) card=\"{card}\"",
           flush=True)
+    del flush_buf, q4, k4, v4
+    return [row]
+
+
+def flash_mla_kernel_phase(seed: int, card: str, device="cuda",
+                           shape=(4, 16, 2048, 192, 128),
+                           ragged: int = 2000) -> list[dict]:
+    """Phase 4, fourth part: the flash-attention kernel at the MLA prefill
+    shape ``(B, H, S, D, Dv)`` (deepseek-v2-lite-16b, batch 4, prompt 2048:
+    q and k ``(B*H, S, 192)``, v ``(B*H, S, 128)``, group 1), causal bf16,
+    against its plain version at atol 2e-2 and timed beside its bound and
+    one ``scaled_dot_product_attention`` call on the same tensors; then,
+    checked only, a ragged length (S = ``ragged``) in bf16 and the shape in
+    float32 (atol 2e-5).  Its launches are those of ``[serve-mla]``'s
+    prefill."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    b, h, sq, d, dv = shape
+    bh = b * h
+    gen = torch.Generator(device=device).manual_seed(seed + 8)
+
+    def inputs(s_len, dtype):
+        return tuple(torch.randn(bh, s_len, width, generator=gen,
+                                 device=device, dtype=dtype)
+                     for width in (d, d, dv))
+
+    errs = {}
+    for name, (s_len, dtype) in {"prefill": (sq, torch.bfloat16),
+                                 "ragged": (ragged, torch.bfloat16),
+                                 "float32": (sq, torch.float32)}.items():
+        q, k, v = inputs(s_len, dtype)
+        got = fa.flash_attention(q, k, v, causal=True)
+        want = fa_ref.attention_ref(q, k, v, causal=True)
+        atol = FLASH_ATOL[str(dtype).split(".")[-1]]
+        err = float((got.float() - want.float()).abs().max())
+        check(bool(torch.isfinite(got).all()) and got.shape == (bh, s_len, dv)
+              and err <= atol,
+              f"flash_attention MLA {name} (BH={bh}, S={s_len}, D={d}, "
+              f"Dv={dv}, {dtype}): max abs err {err:.3e} beyond atol {atol}")
+        errs[name] = err
+        del got, want
+    q, k, v = inputs(sq, torch.bfloat16)
+    q4, k4, v4 = (x.view(b, h, sq, x.shape[-1]) for x in (q, k, v))
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + bh * sq * dv)
+    ops = attention_flops(bh, sq, sq, d, True, dv=dv)
+    row = dict(
+        name="flash_attention_mla",
+        fn=lambda: fa.flash_attention(q, k, v),
+        plain=lambda: fa_ref.attention_ref(q, k, v),
+        library=lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                       is_causal=True),
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:73",
+        err=errs["prefill"], bound=bound(nbytes, ops, BF16_OPS_PER_S))
+    flush_buf = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+    flush = flush_buf.zero_
+    row["ms"] = event_ms(row["fn"], 20, flush)
+    row["plain_ms"] = event_ms(row["plain"], 3, flush)
+    row["library_ms"] = event_ms(row["library"], 20, flush)
+    print(f"[kernel] flash_attention (MLA {d}/{d}/{dv}): ms={row['ms']:.4f} "
+          f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound'][0]:.4f} "
+          f"({row['bound'][1]}) share_of_bound="
+          f"{row['bound'][0] / row['ms']:.3f} "
+          f"tflops={ops / row['ms'] / 1e9:.1f} "
+          f"library_ms={row['library_ms']:.4f} (sdpa) "
+          f"max_abs_err={errs['prefill']:.3e} "
+          f"ragged_err={errs['ragged']:.3e} f32_err={errs['float32']:.3e} "
+          f"shape=(BH={bh}, S={sq}, D={d}, Dv={dv}, group 1, causal, bf16) "
+          f"card=\"{card}\"", flush=True)
     del flush_buf, q4, k4, v4
     return [row]
 
@@ -1863,28 +1948,72 @@ def autotune_phase(card: str, device="cuda") -> None:
           f"wall_s={time.perf_counter() - t0:.3f} {card}", flush=True)
 
 
-def vocab_bar(got, want, vocab: int) -> tuple[float, float]:
+def vocab_bar(got, want, vocab: int, rel: float = 0.15,
+              floor: float = 0.05) -> tuple[float, float]:
     """Max abs difference of two logit arrays over the real vocabulary, and
-    the reference's teacher-forcing bar for it (0.15 std + 0.05,
-    ``tests/test_models.py``)."""
+    the reference's teacher-forcing bar for it (``rel`` std + ``floor``:
+    0.15 std + 0.05 for GQA, 0.5 std for MLA, ``tests/test_models.py``)."""
     g, w = got[..., :vocab].double(), want[..., :vocab].double()
     return (float((g - w).abs().max()),
-            0.15 * (float(w.std()) + 1e-6) + 0.05)
+            rel * (float(w.std()) + 1e-6) + floor)
 
 
 def prefill_work(cfg, batch: int, seq: int, weight_bytes: int
                  ) -> tuple[float, str]:
     """The least time one prefill could take: the bf16 matrix products of
-    every layer over ``batch * seq`` tokens, causal attention, and the
-    last position's unembedding, against reading every weight once."""
-    d, f, dh = cfg.d_model, cfg.d_ff, cfg.d_head
-    layer = (d * (cfg.n_heads + 2 * cfg.n_kv) * dh + cfg.n_heads * dh * d
-             + 3 * d * f)
-    ops = (2 * batch * seq * layer * cfg.n_layers
-           + cfg.n_layers * attention_flops(batch * cfg.n_heads, seq, seq,
-                                            dh, True)
-           + 2 * batch * d * cfg.vocab_padded)
+    every layer over ``batch * seq`` tokens (MLA's projections; an MoE
+    layer's router, its routed tokens' ``top_k`` expert products and the
+    shared experts), causal attention, and the last position's
+    unembedding, against reading every weight once."""
+    d, f, dh, h = cfg.d_model, cfg.d_ff, cfg.d_head, cfg.n_heads
+    t = batch * seq
+    if cfg.attn_kind == "mla":
+        m = cfg.mla
+        attn = (d * h * (m.d_nope + m.d_rope) + d * (m.kv_lora + m.d_rope)
+                + m.kv_lora * h * (m.d_nope + m.d_v) + h * m.d_v * d)
+        scores = attention_flops(batch * h, seq, seq, m.d_nope + m.d_rope,
+                                 True, dv=m.d_v)
+    else:
+        attn = d * (h + 2 * cfg.n_kv) * dh + h * dh * d
+        scores = attention_flops(batch * h, seq, seq, dh, True)
+    ops = 2 * batch * d * cfg.vocab_padded
+    for i in range(cfg.n_layers):
+        if cfg.is_moe_layer(i):
+            e = cfg.moe
+            mlp = (d * e.n_experts + 3 * d * e.d_ff_expert
+                   * (e.top_k + e.n_shared))
+        else:
+            mlp = 3 * d * f
+        ops += 2 * t * (attn + mlp) + scores
     return bound(weight_bytes, ops, BF16_OPS_PER_S)
+
+
+def power_impls_agree(job, res: dict, traffic: float, logits,
+                      what: str) -> float:
+    """The power report of one decode step's ``logits`` and the run's
+    tokens through ``'cuda'`` and ``'vectorized'``: positive energies
+    equal at rtol 1e-5 and the same HBM step energy.  Returns the largest
+    difference (pJ)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch import serve
+    tokens = torch.from_numpy(res["tokens"])
+    step_s = max(res["decode_p50_ms"], 1e-3) * 1e-3
+    reports = {impl: serve.power_report(
+        dataclasses.replace(job, power_impl=impl), traffic, logits, tokens,
+        step_seconds=step_s) for impl in ("cuda", "vectorized")}
+    got, want = (torch.from_numpy(reports[i]["ddr_energy_pj_per_seq_step"])
+                 for i in ("cuda", "vectorized"))
+    check(bool((got > 0).all()), f"{what}: power report energy not "
+                                 "positive")
+    err = assert_close(got, want, RTOL, f"{what}: power report cuda vs "
+                                        "vectorized")
+    check(reports["cuda"]["hbm_step_energy_uj"]
+          == reports["vectorized"]["hbm_step_energy_uj"],
+          f"{what}: HBM step energy differs between impls")
+    return err
 
 
 def serve_phase(seed: int, card: str, device="cuda", arch="qwen2.5-3b",
@@ -1893,7 +2022,6 @@ def serve_phase(seed: int, card: str, device="cuda", arch="qwen2.5-3b",
     """Phase 8: the serving entry point at full width through the entry point a
     user calls, then its checks on weights drawn again from the same seed.
     Returns the launches of the ``run``."""
-    import dataclasses
     import functools
     from unittest import mock
 
@@ -1982,24 +2110,310 @@ def serve_phase(seed: int, card: str, device="cuda", arch="qwen2.5-3b",
                                              prompts[:, s:]), 5)
     device_profile(lambda: lm.decode_step(params, caches, prompts[:, s:]),
                    "decode_step", step_ms, card, tag="[serve]", top=6)
-    tokens = torch.from_numpy(res["tokens"])
-    step_s = max(res["decode_p50_ms"], 1e-3) * 1e-3
-    reports = {impl: serve.power_report(
-        dataclasses.replace(job, power_impl=impl), traffic, step, tokens,
-        step_seconds=step_s) for impl in ("cuda", "vectorized")}
-    got, want = (torch.from_numpy(reports[i]["ddr_energy_pj_per_seq_step"])
-                 for i in ("cuda", "vectorized"))
-    check(bool((got > 0).all()), "serve: power report energy not positive")
-    err = assert_close(got, want, RTOL, "serve: power report cuda vs "
-                                        "vectorized")
-    check(reports["cuda"]["hbm_step_energy_uj"]
-          == reports["vectorized"]["hbm_step_energy_uj"],
-          "serve: HBM step energy differs between impls")
+    err = power_impls_agree(job, res, traffic, step, "serve")
     print(f"[serve] checks: teacher_forcing_err={tf_err:.4f} (bar "
           f"{tf_bar:.4f}) plain_vs_kernel_err={pl_err:.4f} (bar "
           f"{pl_bar:.4f}) power cuda vs vectorized max_abs_err={err:.3e} "
           f"pJ (rtol {RTOL}) launches="
           f"{ {k: v for k, v in launched.items() if v} }", flush=True)
+    del params, caches
+    return launched
+
+
+def last_token_routes(fn, calls_per_layer: int, pins=None):
+    """Run ``fn`` and record, at every MoE layer, each batch row's last
+    token's chosen experts (sorted) and the log-probability margin between
+    the least chosen and the most likely other expert (0 on a tie).  ``calls_per_layer``: the router
+    calls a layer makes (2 in ``forward``: the auxiliary loss, then the
+    layer; 1 in ``decode_step``).  With ``pins`` (one (B, k) expert choice
+    per layer, one token a row) the router takes those experts instead of
+    its own top-k, with gates from its own probabilities renormalised over
+    them.  Returns (fn's result, [(experts (B, k), margins (B,)) per
+    layer])."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.models import layers as L
+    calls = []
+    route = L.moe_route
+
+    def recording(params, x, cfg):
+        xf, probs, gate, expert = route(params, x, cfg)
+        b, s = x.shape[:2]
+        last = probs.view(b, s, -1)[:, -1]
+        chosen = expert.view(b, s, -1)[:, -1]
+        others = last.scatter(-1, chosen, 0.0)
+        calls.append((chosen.sort(dim=-1).values,
+                      last.gather(-1, chosen).amin(dim=-1).log()
+                      - others.amax(dim=-1).log()))
+        if pins is not None:
+            expert = pins[len(calls) // calls_per_layer - 1]
+            gate = probs.gather(-1, expert)
+            gate = gate / torch.clamp(gate.sum(dim=-1, keepdim=True),
+                                      min=1e-9)
+        return xf, probs, gate, expert
+    with mock.patch.object(L, "moe_route", recording):
+        result = fn()
+    return result, calls[calls_per_layer - 1::calls_per_layer]
+
+
+def routed_alike(full_routes, step_routes):
+    """The batch rows whose last token took the same experts in every MoE
+    layer of the prefill and of the decode step, and for each other row
+    the first layer that differs with the smaller of its two margins."""
+    import torch
+    same = torch.ones(full_routes[0][0].shape[0], dtype=torch.bool)
+    flips = {}
+    for layer, ((ef, mf), (es, ms)) in enumerate(zip(full_routes,
+                                                     step_routes)):
+        differ = (ef != es).any(dim=-1).cpu()
+        for row in torch.nonzero(differ & same).flatten().tolist():
+            flips[row] = (layer, float(torch.minimum(mf[row], ms[row])))
+        same &= ~differ
+    return same, flips
+
+
+def mla_teacher_forcing(lm, params, prompts, tag: str) -> str:
+    """Teacher forcing without drops (``lm`` at ``capacity_factor`` 16) at
+    the reference's MLA bar (0.5 std): the decode step of the last prompt
+    token on the prefill's own cache against the prefill's last position.
+
+    The router logits are bf16 products (an ulp of 2^-7 at 1..2), so a
+    row's k-th and next expert are often a tie or an ulp apart, and the
+    two paths' rounding may pick either.  Checked: layer by layer on the
+    prefill's own inputs, each layer's ``mla_decode`` against its
+    ``mla_apply`` output, its MoE on the prefill's experts against the
+    prefill's, and its router, which may differ only on a near tie
+    (margin under 2^-5); then the whole decode step with the prefill's
+    experts pinned.  Reported beside them: the residual's relative
+    difference at a few depths (with random weights an MoE layer adds
+    ~100x its input, so a bf16 difference grows from layer to layer), and
+    the unpinned step (the rows routed alike, the first flip of the
+    others).  Returns the summary."""
+    from unittest import mock
+
+    from repro_torch.models import layers as L
+    cfg = lm.cfg
+    s = prompts.shape[1] - 1
+    rec = {"x": [], "a": [], "h": [], "m": []}
+    real_mla, real_moe = L.mla_apply, L.moe_apply
+
+    def mla_rec(p, x, c, positions=None):
+        out = real_mla(p, x, c, positions)
+        rec["x"].append(x[:, -1:].clone())
+        rec["a"].append(out[0][:, -1:].clone())
+        return out
+
+    def moe_rec(p, x, c):
+        out = real_moe(p, x, c)
+        rec["h"].append(x[:, -1:].clone())
+        rec["m"].append(out[:, -1:].clone())
+        return out
+    with mock.patch.object(L, "mla_apply", mla_rec), \
+            mock.patch.object(L, "moe_apply", moe_rec):
+        (full, caches), full_routes = last_token_routes(
+            lambda: lm.prefill(params, prompts), 2)
+    pins = [ex for ex, _ in full_routes]
+
+    worst = {"attn": 0.0, "moe": 0.0}
+    layer_flips = {}
+    for i, p in enumerate(params["layers"]):
+        sub = {name: t[i] for name, t in caches["sub0"].items()}
+        sub["pos"] = s
+        a_dec, _ = L.mla_decode(p["mixer"], rec["x"][i], sub, cfg)
+        m_dec, routes = last_token_routes(
+            lambda: L.moe_apply(p["mlp"], rec["h"][i], cfg), 1,
+            pins=pins[i:i + 1])
+        _, flips = routed_alike(full_routes[i:i + 1], routes)
+        for row, (_, margin) in flips.items():
+            check(margin < 2.0 ** -5,
+                  f"{tag} layer {i}: row {row}'s router picks other "
+                  f"experts on the prefill's input with a margin of "
+                  f"{margin:.4f} (not a near tie)")
+            layer_flips[i, row] = margin
+        for part, got, want in (("attn", a_dec, rec["a"][i]),
+                                ("moe", m_dec, rec["m"][i])):
+            err, bar = vocab_bar(got, want, want.shape[-1], rel=0.5,
+                                 floor=0.0)
+            check(err < bar, f"{tag} layer {i}: the decode step's {part} "
+                             f"output differs from the prefill's by "
+                             f"{err:.4f} (bar {bar:.4f})")
+            worst[part] = max(worst[part], err / bar)
+
+    xs = []
+    real_decode = L.mla_decode
+
+    def decode_rec(p, x, cache, c):
+        xs.append(x.clone())
+        return real_decode(p, x, cache, c)
+
+    def decode_last(pin):
+        caches["pos"] = s            # the decode rewrites slot s itself
+        return last_token_routes(
+            lambda: lm.decode_step(params, caches, prompts[:, s:]), 1,
+            pins=pin)
+    with mock.patch.object(L, "mla_decode", decode_rec):
+        (pinned, _), _ = decode_last(pins)
+    free, step_routes = decode_last(None)
+    rows, flips = routed_alike(full_routes, step_routes)
+    e2e_err, e2e_bar = vocab_bar(pinned, full, cfg.vocab, rel=0.5,
+                                 floor=0.0)
+    check(e2e_err < e2e_bar, f"{tag} the decode step (the prefill's "
+                             f"experts) differs from the prefill by "
+                             f"{e2e_err:.4f} (bar {e2e_bar:.4f})")
+    growth = {i: float((xs[i] - rec["x"][i]).abs().max()
+                       / rec["x"][i].abs().max())
+              for i in sorted({0, 1, 2, 4, 8, 16, cfg.n_layers - 1})
+              if i < cfg.n_layers}
+    free_err = (vocab_bar(free[0][rows.to(full.device)],
+                          full[rows.to(full.device)], cfg.vocab)[0]
+                if bool(rows.any()) else None)
+    return (f"teacher forcing (capacity_factor 16, prompt {s + 1}): by "
+            f"layer on the prefill's inputs, worst err/bar attn "
+            f"{worst['attn']:.3f} moe {worst['moe']:.3f} (bar 0.5 std), "
+            f"near-tie router flips {len(layer_flips)}; whole step with "
+            f"the prefill's experts err={e2e_err:.4f} (bar "
+            f"{e2e_bar:.4f}; residual rel diff by layer "
+            f"{ {i: round(g, 5) for i, g in growth.items()} }); unpinned "
+            f"rows routed alike {int(rows.sum())} of {len(rows)} (err "
+            f"{'none' if free_err is None else f'{free_err:.4f}'}), first "
+            f"flips (row: layer, margin) "
+            f"{ {r: (l, round(m, 5)) for r, (l, m) in flips.items()} }")
+
+
+def serve_mla_phase(seed: int, card: str, device="cuda",
+                    arch="deepseek-v2-lite-16b", smoke=False, batch=4,
+                    prompt_len=2048, decode_tokens=32) -> dict[str, int]:
+    """Phase 14: the serving entry point on deepseek-v2-lite-16b at full
+    width and depth (MLA + MoE, 27 layers, random bf16 weights from the
+    seed; the earlier phases' weights are released first), then its checks
+    on the weights drawn again once the run's are released: the same bits
+    from the same prompt twice (prefill and a decode step: the MoE combine
+    has no atomics), each layer's flash-attention output against the plain
+    attention on the same inputs (the flash bf16 bar), teacher forcing
+    (:func:`mla_teacher_forcing`), and the power report's ``'cuda'``
+    energies against ``'vectorized'``.  Returns the launches of the
+    ``run``."""
+    import dataclasses
+    import gc
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import LM
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    tag = "[serve-mla]"
+    cfg = registry.get_config(arch, smoke=smoke)
+    m, e = cfg.mla, cfg.moe
+    job = serve.ServeJob(arch=arch, smoke=smoke, batch=batch,
+                         prompt_len=prompt_len, decode_tokens=decode_tokens,
+                         seed=seed, power_report=True, power_impl="cuda",
+                         device=device)
+    reset_counters()
+    t0 = time.perf_counter()
+    res = serve.run(job)
+    run_s = time.perf_counter() - t0
+    launched = read_counters()
+    check(launched["flash_attention"] == cfg.n_layers,
+          f"serve-mla: {launched['flash_attention']} flash-attention "
+          f"launches in one prefill of {cfg.n_layers} layers")
+    pw = res["power"]
+    traffic = pw["traffic_bytes_per_step"]
+    check(res["tokens"].shape == (batch, decode_tokens)
+          and bool((res["tokens"] < cfg.vocab).all()),
+          f"serve-mla: tokens of shape {res['tokens'].shape}")
+    check(bool((pw["ddr_energy_pj_per_seq_step"] > 0).all())
+          and pw["hbm_step_energy_uj"] > 0, "serve-mla: energy not positive")
+
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=device).manual_seed(seed))
+    weight_bytes = serve.tree_nbytes(params)
+    decode_bound = traffic / HBM_BYTES_PER_S * 1e3
+    prefill_bound = prefill_work(cfg, batch, prompt_len, weight_bytes)
+    print(f"{tag} {cfg.name}: layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"heads={cfg.n_heads} mla=(kv_lora {m.kv_lora}, d_nope "
+          f"{m.d_nope}, d_rope {m.d_rope}, d_v {m.d_v}) moe=({e.n_experts} "
+          f"experts top-{e.top_k} + {e.n_shared} shared, d_ff "
+          f"{e.d_ff_expert}, capacity_factor {e.capacity_factor}) "
+          f"vocab={cfg.vocab} dtype={cfg.dtype} weight_bytes={weight_bytes} "
+          f"batch={batch} prompt={prompt_len} decode_tokens={decode_tokens} "
+          f"run_s={run_s:.3f} card=\"{card}\"", flush=True)
+    print(f"{tag} prefill_s={res['prefill_s']:.4f} prefill_bound_ms="
+          f"{prefill_bound[0]:.3f} ({prefill_bound[1]}) decode_p50_ms="
+          f"{res['decode_p50_ms']:.3f} decode_p99_ms="
+          f"{res['decode_p99_ms']:.3f} tokens_per_s="
+          f"{res['tokens_per_s']:.1f} traffic_bytes_per_step={traffic:.0f} "
+          f"decode_bound_ms={decode_bound:.3f} decode_share_of_bound="
+          f"{decode_bound / max(res['decode_p50_ms'], 1e-9):.3f} "
+          f"flash_launches_per_prefill={launched['flash_attention']} "
+          f"card=\"{card}\"", flush=True)
+    svc = pw["serving"]
+    print(f"{tag} power[{pw['power_model']}] impl=cuda "
+          f"ddr_uj_per_token_mean={pw['ddr_energy_uj_per_token_mean']:.4f} "
+          f"hbm_step_uj={pw['hbm_step_energy_uj']:.2f} "
+          f"hbm_ones_frac={pw['hbm_ones_frac']:.6f} "
+          f"hbm_toggle_frac={pw['hbm_toggle_frac']:.6f} "
+          f"vendors={pw['vendors']} service: admitted={svc['admitted']} "
+          f"dispatches={svc['dispatches']} "
+          f"dispatch_p50_ms={svc['dispatch_p50_ms']:.3f} card=\"{card}\"",
+          flush=True)
+
+    rng = np.random.default_rng(seed)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                           size=(batch, prompt_len)),
+                              dtype=torch.long, device=device)
+    s = prompt_len - 1
+    # the same bits twice
+    first, caches = lm.prefill(params, prompts[:, :s], max_len=prompt_len)
+    again, _ = lm.prefill(params, prompts[:, :s], max_len=prompt_len)
+    step, _ = lm.decode_step(params, caches, prompts[:, s:])
+    step2, _ = lm.decode_step(params, caches, prompts[:, s:])
+    check(bool(torch.isfinite(first[:, :cfg.vocab]).all())
+          and bool(torch.isfinite(step[:, :cfg.vocab]).all()),
+          "serve-mla: logits not finite")
+    check(torch.equal(first, again) and torch.equal(step, step2),
+          "serve-mla: the same prompt gave other bits")
+    del again, step2
+    # each layer's kernel output against the plain attention's
+    errs = []
+    kernel = fa_ops.flash_attention
+
+    def both(q, k, v, **kw):
+        got = kernel(q, k, v, **kw)
+        want = kernel(q, k, v, use_kernel=False, **kw)
+        errs.append(float((got.float() - want.float()).abs().max()))
+        return got
+    with mock.patch.object(fa_ops, "flash_attention", both):
+        lm.prefill(params, prompts)
+    atol = FLASH_ATOL["bfloat16"]
+    check(len(errs) == cfg.n_layers and max(errs) <= atol,
+          f"serve-mla: per-layer kernel vs plain attention errors {errs} "
+          f"(atol {atol})")
+    tf_lm = LM(dataclasses.replace(cfg, moe=dataclasses.replace(
+        e, capacity_factor=16.0)))
+    teacher = mla_teacher_forcing(tf_lm, params, prompts, tag)
+    # where the time goes: a warm prefill and one decode step, profiled
+    prefill_ms = wall_ms(lambda: lm.prefill(params, prompts), 2)
+    device_profile(lambda: lm.prefill(params, prompts), "prefill (warm)",
+                   prefill_ms, card, tag=tag, top=6)
+    step_ms = wall_ms(lambda: lm.decode_step(params, caches,
+                                             prompts[:, s:]), 5)
+    device_profile(lambda: lm.decode_step(params, caches, prompts[:, s:]),
+                   "decode_step", step_ms, card, tag=tag, top=8)
+    err = power_impls_agree(job, res, traffic, step, "serve-mla")
+    print(f"{tag} checks: same_bits_twice=True "
+          f"plain_vs_kernel_max_err_by_layer={max(errs):.3e} (atol {atol}, "
+          f"{len(errs)} layers) {teacher} power "
+          f"cuda vs vectorized max_abs_err={err:.3e} pJ (rtol {RTOL}) "
+          f"launches={ {k: v for k, v in launched.items() if v} } "
+          f"card=\"{card}\"", flush=True)
     del params, caches
     return launched
 
@@ -2067,7 +2481,8 @@ def main(argv=None) -> int:
     # phase 4: kernels against their plain versions (the line kernels
     # after phase 5, whose timings then run before any profiler session)
     charge = kernel_phase(tb, models, card)
-    flash = flash_kernel_phase(args.seed, card)
+    flash = (flash_kernel_phase(args.seed, card)
+             + flash_mla_kernel_phase(args.seed, card))
 
     # phase 5: the estimation path end to end
     launches, times = e2e_phase(tb, trs, models,
@@ -2083,9 +2498,9 @@ def main(argv=None) -> int:
     autotune_phase(card)
     del tb
 
-    # phases 6-13: the encoding study, the HBM statistics, the
+    # phases 6-14: the encoding study, the HBM statistics, the
     # characterization campaign, fleet scale, validation, the Section 9.3
-    # applications, online recalibration, serving
+    # applications, online recalibration, serving (GQA, then MLA + MoE)
     paths = [study_phase(args.seed, models["vampire"], card),
              hbm_phase(args.seed, models["vampire"], card),
              campaign_phase(card), fleet_phase(card)]
@@ -2099,9 +2514,12 @@ def main(argv=None) -> int:
     print(f"[phases] validation_s={t1 - t0:.3f} apps_s={t2 - t1:.3f} "
           f"recal_s={t3 - t2:.3f} (wall, kernel rows included)", flush=True)
     paths.append(serve_phase(args.seed, card))
+    paths.append(serve_mla_phase(args.seed, card))
     for path in paths:
         for name, c in path.items():
             launches[name] += c
+    # the MLA row's launches: those of the deepseek prefill
+    launches["flash_attention_mla"] = paths[-1]["flash_attention"]
     for r in rows:
         check(launches[r["name"]] > 0,
               f"kernel {r['name']} was not launched on a main path")

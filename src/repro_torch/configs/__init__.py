@@ -1,3 +1,3 @@
 """repro_torch.configs — the published model configurations the port
-runs (copies of ``repro.configs``' dense GQA decoders) and their
-registry."""
+runs (copies of ``repro.configs``' GQA and MLA decoders, dense and MoE)
+and their registry."""

@@ -9,10 +9,13 @@ file) into the port's tensors.
   the neutral all-ones surface when absent, and the low-power LUT entries
   defaulting to the fast power-down current ``i_pd``.
 * :func:`fleet_model_from_numpy` — a whole ``FleetModel``.
-* :func:`lm_params_from_jax` / :func:`lm_caches_from_jax` — the dense
-  decoder's parameters (``repro.models.lm.LM.init``'s tree, stacked on a
-  leading layer axis) and a prefill's decode cache, as numpy arrays, into
-  the port's per-layer parameter dicts and stacked cache tensors.
+* :func:`lm_params_from_jax` / :func:`lm_caches_from_jax` — the
+  decoder's parameters (``repro.models.lm.LM.init``'s tree, each
+  sub-layer of the period stacked on a leading layer axis; GQA or MLA
+  mixers, MLP or MoE with its nested ``shared`` experts) and a prefill's
+  decode cache (K/V or the MLA latent ``ckv`` and RoPE key ``kr``), as
+  numpy arrays, into the port's per-layer parameter dicts and stacked
+  cache tensors.
 """
 from __future__ import annotations
 
@@ -95,18 +98,26 @@ def _tensor(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
+def _layer_slice(tree, i: int, device):
+    """Entry ``i`` of the leading axis of every leaf of a nest of dicts."""
+    if isinstance(tree, dict):
+        return {k: _layer_slice(v, i, device) for k, v in tree.items()}
+    return _tensor(np.asarray(tree)[i], device)
+
+
 def lm_params_from_jax(params_np: dict, cfg, device="cpu") -> dict:
     """The reference LM's parameter tree (numpy leaves: ``embed``,
-    ``final_norm``, optional ``unembed``, and ``layers/sub0/{mixer,mlp}/*``
-    stacked on a leading layer axis) -> the port's ``LM`` parameters: one
-    dict per layer."""
-    stacked = params_np["layers"]["sub0"]
+    ``final_norm``, optional ``unembed``, and ``layers/sub{j}/{mixer,mlp}``
+    nests stacked on a leading axis over the layers ``j, j + period, ...``)
+    -> the port's ``LM`` parameters: one dict per layer."""
+    layers = params_np["layers"]
+    period = len(layers)
     out = {name: _tensor(params_np[name], device)
            for name in ("embed", "final_norm", "unembed")
            if name in params_np}
     out["layers"] = [
-        {part: {name: _tensor(np.asarray(x)[i], device)
-                for name, x in stacked[part].items()}
+        {part: _layer_slice(layers[f"sub{i % period}"][part], i // period,
+                            device)
          for part in ("mixer", "mlp")}
         for i in range(cfg.n_layers)]
     return out
@@ -114,7 +125,9 @@ def lm_params_from_jax(params_np: dict, cfg, device="cpu") -> dict:
 
 def lm_caches_from_jax(caches_np: dict, device="cpu") -> dict:
     """A reference prefill's decode cache (numpy leaves) -> the port's:
-    the same stacked K/V (and scale) tensors, ``pos`` as an int."""
-    return {"sub0": {name: _tensor(x, device)
-                     for name, x in caches_np["sub0"].items()},
-            "pos": int(np.asarray(caches_np["pos"]))}
+    the same stacked K/V (and scale) or ``ckv``/``kr`` tensors under each
+    ``sub{j}``, ``pos`` as an int."""
+    out = {sub: {name: _tensor(x, device) for name, x in leaves.items()}
+           for sub, leaves in caches_np.items() if sub != "pos"}
+    out["pos"] = int(np.asarray(caches_np["pos"]))
+    return out

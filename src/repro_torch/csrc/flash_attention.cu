@@ -2,18 +2,23 @@
 //
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py:73
 //   flash_attention_pallas (its _kernel).
-// Computes: q (BH, Sq, D), k and v (BH_kv, Skv, D), BH % BH_kv == 0, q row bh
-//   reading kv row bh / group.  out[bh, i] = softmax_j(q_i . k_j * scale)
-//   v_j over the keys j < Skv, and for causal attention only those with
-//   q_offset + i >= j (top-left alignment, positions counted from 0).  The
-//   softmax runs in float32 with the reference's NEG_INF = -1e30 start and
-//   max(l, 1e-30) guard (masked keys weigh exactly 0, as there); the output
-//   is written in q's type.  Sq and Skv are any lengths: the kernel masks
-//   the ragged kv tile and drops rows past Sq.
+// Computes: q and k (BH, Sq, D) and (BH_kv, Skv, D), v (BH_kv, Skv, Dv) with
+//   Dv <= D (MLA's values are narrower than its queries and keys), BH % BH_kv
+//   == 0, q row bh reading kv row bh / group.  out[bh, i] (Dv wide) =
+//   softmax_j(q_i . k_j * scale) v_j over the keys j < Skv, and for causal
+//   attention only those with q_offset + i >= j (top-left alignment,
+//   positions counted from 0).  The softmax runs in float32 with the
+//   reference's NEG_INF = -1e30 start and max(l, 1e-30) guard (masked keys
+//   weigh exactly 0, as there); the output is written in q's type.  Sq and
+//   Skv are any lengths: the kernel masks the ragged kv tile and drops rows
+//   past Sq.
 // Bound on the H100 at the serving prefill (B=4, H=16, Kh=2, S=2048, D=128,
 //   causal, bf16): 2 * 2 * B*H * S^2 * D / 2 = 68.7 GFLOP, 0.0695 ms at
 //   989 TFLOP/s; q, k, v and out are 75.5 MB, 0.0225 ms at 3.35 TB/s.  It is
 //   bound by operations, so the design is about keeping the tensor cores fed.
+//   At the MLA prefill (deepseek-v2-lite-16b: B=4, H=16, group 1, S=2048,
+//   D=192, Dv=128, causal, bf16): B*H*S^2*(D+Dv) = 85.9 GFLOP, 0.0869 ms;
+//   q, k, v and out are 167.8 MB, 0.0501 ms: bound by operations too.
 // Design (bf16, Hopper).  A work item is one kv head and BM = 128 rows of
 //   the flattened (position, q-head-of-the-group) space, so all `group` q
 //   heads that share a kv head read each K/V tile from one copy in shared
@@ -50,13 +55,22 @@
 //   shared memory), head dims up to 128 the D = 128 one (160 KB); a head
 //   dim below the instance's width is padded with zeros by the TMA boxes'
 //   out-of-bounds fill and the Q loads, so D <= 32 pays for 64 columns.
+//   The MLA instance (D = 192, Dv = 128) is the same kernel with three
+//   64-column blocks for Q and K (S = Q K^T is 12 k-steps) and two for V
+//   (P V stays at n = 128, so a consumer holds the same accumulators as at
+//   D = 128): Q 48 KB + K 2 x 48 KB + V 2 x 32 KB = 208 KB of shared memory
+//   at BM = BN = 128 with two stages, under the 227 KB a block may have.
+//   The instances with Dv = D compile from the same template as before.
 //   float32 inputs (the reference's tolerance case) take a plain FMA
 //   kernel.
 // Left on the table: the output is not staged through shared memory for a
 //   TMA store; the diagonal tile computes all of its 128 x 128 scores; the
 //   exp2 of every score runs on the MUFU unit (16 a clock per SM), none on
 //   the FMA pipes; items are dealt out statically, not by an atomic
-//   counter; K/V are not multicast across a cluster; no fp8.
+//   counter; K/V are not multicast across a cluster; no fp8.  The (192, 128)
+//   instance spills 4 bytes (an 8-byte stack frame in `-Xptxas -v`, 168
+//   registers as the others); at group 1 no K/V tile is shared across q
+//   heads.
 #include <cuda.h>  // CUtensorMap and its enums (the encoder comes at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,6 +85,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 struct Shape {
   int group;      // q heads per kv head
   int sq, skv, d;
+  int dv;         // value (and output) width, <= d
   int q_offset;   // position of q row 0 (causal alignment)
   int causal;
   float scale;
@@ -305,19 +320,21 @@ constexpr int THREADS = 384;   // producer + 2 consumer warpgroups
 constexpr int ROW_BYTES = 128; // one swizzled row of a 64-column block
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 
-// Shared memory of the DP-wide instance, from a 1024-byte aligned base.
-// Q, and each K or V tile, is DP / 64 blocks of [rows][64 columns] with
-// 128-byte rows in TMA's 128-byte swizzle; then the 4 x STAGES K/V
-// mbarriers and Q's.
-template <int DP>
+// Shared memory of the instance with DP-wide Q and K and DVP-wide V, from a
+// 1024-byte aligned base.  Q and each K tile are DP / 64 blocks, each V tile
+// DVP / 64 blocks, of [rows][64 columns] with 128-byte rows in TMA's
+// 128-byte swizzle; then the 4 x STAGES K/V mbarriers and Q's.
+template <int DP, int DVP>
 struct Layout {
   static constexpr int NB = DP / 64;
+  static constexpr int NBV = DVP / 64;
   static constexpr int Q_BLOCK = BM * ROW_BYTES;   // one Q column block
   static constexpr int KV_BLOCK = BN * ROW_BYTES;  // one K/V column block
-  static constexpr int KV_TILE = NB * KV_BLOCK;    // one K or V tile
+  static constexpr int K_TILE = NB * KV_BLOCK;     // one K tile
+  static constexpr int V_TILE = NBV * KV_BLOCK;    // one V tile
   static constexpr int K_OFF = NB * Q_BLOCK;
-  static constexpr int V_OFF = K_OFF + STAGES * KV_TILE;
-  static constexpr int BAR_OFF = V_OFF + STAGES * KV_TILE;
+  static constexpr int V_OFF = K_OFF + STAGES * K_TILE;
+  static constexpr int BAR_OFF = V_OFF + STAGES * V_TILE;
   static constexpr int Q_BAR_OFF = BAR_OFF + 4 * STAGES * 8;
   static constexpr int BYTES = Q_BAR_OFF + 2 * 8;
 };
@@ -342,7 +359,7 @@ __device__ __forceinline__ Item work_item(const Shape& s, int n_row_tiles,
   return it;
 }
 
-template <int DP>
+template <int DP, int DVP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
@@ -350,7 +367,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __nv_bfloat16* __restrict__ q,
                   __nv_bfloat16* __restrict__ o, Shape s, int n_row_tiles,
                   int bh_kv) {
-  using L = Layout<DP>;
+  using L = Layout<DP, DVP>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -394,18 +411,18 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
           const int st = tile % STAGES;
           // the consumers' release of tile `tile - STAGES`
           const uint32_t parity = ((tile / STAGES) & 1) ^ 1;
-          const uint32_t k_dst = base + L::K_OFF + st * L::KV_TILE;
-          const uint32_t v_dst = base + L::V_OFF + st * L::KV_TILE;
+          const uint32_t k_dst = base + L::K_OFF + st * L::K_TILE;
+          const uint32_t v_dst = base + L::V_OFF + st * L::V_TILE;
           if (tile >= STAGES) mbar_wait(empty_k + 8 * st, parity);
-          mbar_expect_tx(full_k + 8 * st, L::KV_TILE);
+          mbar_expect_tx(full_k + 8 * st, L::K_TILE);
 #pragma unroll
           for (int b = 0; b < L::NB; ++b)
             tma_load_3d(k_dst + b * L::KV_BLOCK, &tm_k, full_k + 8 * st,
                         64 * b, j * BN, it.bkv);
           if (tile >= STAGES) mbar_wait(empty_v + 8 * st, parity);
-          mbar_expect_tx(full_v + 8 * st, L::KV_TILE);
+          mbar_expect_tx(full_v + 8 * st, L::V_TILE);
 #pragma unroll
-          for (int b = 0; b < L::NB; ++b)
+          for (int b = 0; b < L::NBV; ++b)
             tma_load_3d(v_dst + b * L::KV_BLOCK, &tm_v, full_v + 8 * st,
                         64 * b, j * BN, it.bkv);
         }
@@ -424,7 +441,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     // finite on masked (-inf) scores
     const float sl2 = fmaxf(fabsf(s.scale) * LOG2E, 1e-30f);
 
-    float acc[DP / 2];        // O: DP / 8 column blocks of 8 x 4 values
+    float acc[DVP / 2];       // O: DVP / 8 column blocks of 8 x 4 values
     float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
     float sc[64];             // S of the current tile, then its p values
     uint32_t pa[BN / 16][4];  // P of the previous tile as A fragments
@@ -433,10 +450,10 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     int first_pos;            // the least position among the consumer's rows
 
     auto k_tile = [&](int tile) {
-      return base + L::K_OFF + (tile % STAGES) * L::KV_TILE;
+      return base + L::K_OFF + (tile % STAGES) * L::K_TILE;
     };
     auto v_tile = [&](int tile) {
-      return base + L::V_OFF + (tile % STAGES) * L::KV_TILE;
+      return base + L::V_OFF + (tile % STAGES) * L::V_TILE;
     };
     auto parity = [](int tile) { return (uint32_t)((tile / STAGES) & 1); };
     // S = Q K^T: 64 rows x 128 keys, DP / 16 steps of 16 dims
@@ -455,7 +472,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_ss_n128<false>(sc, desc_q(kk), desc_k(kk));
       wgmma_commit();
     };
-    // O += P V: V is keys x DP row-major, an MN-major B operand
+    // O += P V: V is keys x DVP row-major, an MN-major B operand
     auto issue_pv = [&](int tile) {
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
@@ -507,7 +524,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int h = 0; h < 2; ++h) l_run[h] = l_run[h] * alpha[h] + lsum[h];
 #pragma unroll
-      for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < DVP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
         pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
@@ -582,7 +599,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
 
 #pragma unroll
-      for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < DVP / 2; ++i) acc[i] = 0.f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         m_run[h] = NEG_INF;
@@ -646,11 +663,11 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         l += __shfl_xor_sync(0xffffffffu, l, 2);
         if (!valid[h]) continue;
         const float inv = 1.f / fmaxf(l, 1e-30f);
-        __nv_bfloat16* dst = o + orow[h] * s.d;
+        __nv_bfloat16* dst = o + orow[h] * s.dv;
 #pragma unroll
-        for (int c = 0; c < DP / 8; ++c) {
+        for (int c = 0; c < DVP / 8; ++c) {
           const int col = c * 8 + 2 * t4;
-          if (col < s.d)
+          if (col < s.dv)
             *reinterpret_cast<__nv_bfloat162*>(dst + col) =
                 __floats2bfloat162_rn(acc[4 * c + 2 * h] * inv,
                                       acc[4 * c + 2 * h + 1] * inv);
@@ -665,7 +682,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 // ---------------------------------------------------------------------------
 constexpr int FBM = 32, FBN = 32, FTHREADS = 128;
 
-template <int DP>
+template <int DP, int DVP>
 __global__ void __launch_bounds__(FTHREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
@@ -674,8 +691,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   extern __shared__ float fsm[];
   float* Qs = fsm;                  // FBM x LQ
   float* Ks = Qs + FBM * LQ;        // FBN x LQ
-  float* Vs = Ks + FBN * LQ;        // FBN x DP
-  float* Ps = Vs + FBN * DP;        // FBM x LP
+  float* Vs = Ks + FBN * LQ;        // FBN x DVP
+  float* Ps = Vs + FBN * DVP;       // FBM x LP
 
   const int tid = threadIdx.x, row = tid >> 2, sub = tid & 3;
   const int bkv = blockIdx.y;
@@ -683,7 +700,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int row0 = (gridDim.x - 1 - blockIdx.x) * FBM;
   const int n_tiles = kv_tiles(s, row0, FBM, FBN);
   const float* kb = k + (size_t)bkv * s.skv * s.d;
-  const float* vb = v + (size_t)bkv * s.skv * s.d;
+  const float* vb = v + (size_t)bkv * s.skv * s.dv;
   const int r = row0 + row;
   const int pos = r / s.group + s.q_offset;
 
@@ -692,9 +709,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const bool ok = row0 + rr < rows && c < s.d;
     Qs[rr * LQ + c] = ok ? q[q_row(s, bkv, row0 + rr) * s.d + c] : 0.f;
   }
-  float acc[DP / 4];
+  float acc[DVP / 4];
 #pragma unroll
-  for (int c = 0; c < DP / 4; ++c) acc[c] = 0.f;
+  for (int c = 0; c < DVP / 4; ++c) acc[c] = 0.f;
   float m_run = NEG_INF, l_run = 0.f;
 
   for (int j = 0; j < n_tiles; ++j) {
@@ -703,9 +720,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int kr = i / DP, c = i % DP;
       const int key = j * FBN + kr;
       const bool ok = key < s.skv && c < s.d;
-      const size_t off = (size_t)key * s.d + c;
-      Ks[kr * LQ + c] = ok ? kb[off] : 0.f;
-      Vs[kr * DP + c] = ok ? vb[off] : 0.f;
+      Ks[kr * LQ + c] = ok ? kb[(size_t)key * s.d + c] : 0.f;
+    }
+    for (int i = tid; i < FBN * DVP; i += FTHREADS) {
+      const int kr = i / DVP, c = i % DVP;
+      const int key = j * FBN + kr;
+      const bool ok = key < s.skv && c < s.dv;
+      Vs[kr * DVP + c] = ok ? vb[(size_t)key * s.dv + c] : 0.f;
     }
     __syncthreads();
     float sc[FBN / 4];
@@ -739,21 +760,21 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l_run = l_run * alpha + lsum;
     __syncwarp();  // the row's probabilities come from the 4 lanes of a quad
 #pragma unroll
-    for (int c = 0; c < DP / 4; ++c) {
+    for (int c = 0; c < DVP / 4; ++c) {
       const int col = sub + 4 * c;
       float a = acc[c] * alpha;
       for (int kr = 0; kr < FBN; ++kr)
-        a = fmaf(Ps[row * LP + kr], Vs[kr * DP + col], a);
+        a = fmaf(Ps[row * LP + kr], Vs[kr * DVP + col], a);
       acc[c] = a;
     }
   }
   if (r < rows) {
     const float den = fmaxf(l_run, 1e-30f);
-    float* dst = o + q_row(s, bkv, r) * s.d;
+    float* dst = o + q_row(s, bkv, r) * s.dv;
 #pragma unroll
-    for (int c = 0; c < DP / 4; ++c) {
+    for (int c = 0; c < DVP / 4; ++c) {
       const int col = sub + 4 * c;
-      if (col < s.d) dst[col] = acc[c] / den;
+      if (col < s.dv) dst[col] = acc[c] / den;
     }
   }
 }
@@ -812,18 +833,18 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int rank,
 // producer's and the consumers' setmaxnreg shares (else the consumers would
 // wait for registers forever), allow its shared memory, and count the SMs
 // (one card).  Returns the SM count, or minus a CUDA error.
-template <int DP>
+template <int DP, int DVP>
 int prepare_bf16() {
   static int sms = 0;
   if (sms > 0) return sms;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, flash_bf16_kernel<DP>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, flash_bf16_kernel<DP, DVP>);
   if (err != cudaSuccess) return -err;
   if (attr.numRegs * THREADS < 128 * (PRODUCER_REGS + 2 * CONSUMER_REGS))
     return -cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(flash_bf16_kernel<DP>,
+  err = cudaFuncSetAttribute(flash_bf16_kernel<DP, DVP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Layout<DP>::BYTES + 1024);  // + the alignment
+                             Layout<DP, DVP>::BYTES + 1024);  // + alignment
   int dev = 0, n = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -833,21 +854,23 @@ int prepare_bf16() {
   return sms;
 }
 
-template <int DP>
+template <int DP, int DVP>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 Shape s, int bh_kv, cudaStream_t st) {
-  const int sms = prepare_bf16<DP>();
+  const int sms = prepare_bf16<DP, DVP>();
   if (sms < 0) return -sms;
-  // K and V (D, Skv, BH_kv) in boxes of (64 columns, BN keys, 1 head);
-  // Q as (D, Sq, group, BH_kv) in boxes of one work item's rows when the
-  // group divides BM (a negative scale needs Q negated on the way in, which
-  // the per-thread loads do)
-  const cuuint64_t kv_dims[3] = {(cuuint64_t)s.d, (cuuint64_t)s.skv,
-                                 (cuuint64_t)bh_kv};
+  // K (D, Skv, BH_kv) and V (Dv, Skv, BH_kv) in boxes of (64 columns, BN
+  // keys, 1 head); Q as (D, Sq, group, BH_kv) in boxes of one work item's
+  // rows when the group divides BM (a negative scale needs Q negated on the
+  // way in, which the per-thread loads do)
+  const cuuint64_t k_dims[3] = {(cuuint64_t)s.d, (cuuint64_t)s.skv,
+                                (cuuint64_t)bh_kv};
+  const cuuint64_t v_dims[3] = {(cuuint64_t)s.dv, (cuuint64_t)s.skv,
+                                (cuuint64_t)bh_kv};
   const cuuint32_t kv_box[3] = {64, BN, 1};
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!tensor_map(&tm_k, k, 3, kv_dims, kv_box) ||
-      !tensor_map(&tm_v, v, 3, kv_dims, kv_box))
+  if (!tensor_map(&tm_k, k, 3, k_dims, kv_box) ||
+      !tensor_map(&tm_v, v, 3, v_dims, kv_box))
     return cudaErrorInvalidValue;
   s.q_tma = BM % s.group == 0 && s.scale >= 0.f;
   tm_q = tm_k;
@@ -861,23 +884,24 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   // one persistent CTA per SM (at most one per work item)
   const int n_row_tiles = (s.group * s.sq + BM - 1) / BM;
   const int grid = n_row_tiles * bh_kv < sms ? n_row_tiles * bh_kv : sms;
-  flash_bf16_kernel<DP><<<grid, THREADS, Layout<DP>::BYTES + 1024, st>>>(
+  flash_bf16_kernel<DP, DVP>
+      <<<grid, THREADS, Layout<DP, DVP>::BYTES + 1024, st>>>(
       tm_q, tm_k, tm_v, static_cast<const __nv_bfloat16*>(q),
       static_cast<__nv_bfloat16*>(o), s, n_row_tiles, bh_kv);
   return cudaGetLastError();
 }
 
-template <int DP>
+template <int DP, int DVP>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                const Shape& s, int bh_kv, cudaStream_t st) {
-  const int smem =
-      ((FBM + FBN) * (DP + 1) + FBN * DP + FBM * (FBN + 1)) * (int)sizeof(float);
+  const int smem = ((FBM + FBN) * (DP + 1) + FBN * DVP + FBM * (FBN + 1)) *
+                   (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_f32_kernel<DP, DVP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s.group * s.sq + FBM - 1) / FBM, bh_kv);
-  flash_f32_kernel<DP><<<grid, FTHREADS, smem, st>>>(
+  flash_f32_kernel<DP, DVP><<<grid, FTHREADS, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), s);
   return cudaGetLastError();
@@ -885,26 +909,41 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// q (bh, sq, d), k and v (bh_kv, skv, d), out (bh, sq, d), all contiguous,
-// bf16 when is_bf16 else float32; d <= 128 and a multiple of 8.
+// q (bh, sq, d), k (bh_kv, skv, d), v (bh_kv, skv, dv), out (bh, sq, dv), all
+// contiguous, bf16 when is_bf16 else float32; d and dv multiples of 8.  The
+// instances, by widths padded to 64: bf16 (64, 64), (128, 128) and (192,
+// 128); float32 dv = d <= 128 (by d padded to 16, 32, 64 or 128), else
+// (192, 128) for any d <= 192 with dv <= 128.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int bh,
                                      int bh_kv, int sq, int skv, int d,
-                                     float scale, int causal, int q_offset,
-                                     int is_bf16, void* stream) {
+                                     int dv, float scale, int causal,
+                                     int q_offset, int is_bf16, void* stream) {
   if (bh_kv <= 0 || bh % bh_kv != 0 || sq <= 0 || skv <= 0 || d <= 0 ||
-      d > 128 || d % 8 != 0 || q_offset < 0)
+      d > 192 || d % 8 != 0 || dv <= 0 || dv > d || dv % 8 != 0 ||
+      q_offset < 0)
     return cudaErrorInvalidValue;
-  const Shape s{bh / bh_kv, sq, skv, d, q_offset, causal, scale, 0};
+  const Shape s{bh / bh_kv, sq, skv, d, dv, q_offset, causal, scale, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return d <= 64 ? launch_bf16<64>(q, k, v, out, s, bh_kv, st)
-                   : launch_bf16<128>(q, k, v, out, s, bh_kv, st);
-  const int dp = d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : 128;
-  switch (dp) {
-    case 16: return launch_f32<16>(q, k, v, out, s, bh_kv, st);
-    case 32: return launch_f32<32>(q, k, v, out, s, bh_kv, st);
-    case 64: return launch_f32<64>(q, k, v, out, s, bh_kv, st);
-    default: return launch_f32<128>(q, k, v, out, s, bh_kv, st);
+  const int dp = (d + 63) / 64 * 64, dvp = (dv + 63) / 64 * 64;
+  if (is_bf16) {
+    if (dp == 64 && dvp == 64)
+      return launch_bf16<64, 64>(q, k, v, out, s, bh_kv, st);
+    if (dp == 128 && dvp == 128)
+      return launch_bf16<128, 128>(q, k, v, out, s, bh_kv, st);
+    if (dp == 192 && dvp == 128)
+      return launch_bf16<192, 128>(q, k, v, out, s, bh_kv, st);
+    return cudaErrorInvalidValue;
   }
+  if (dv == d && d <= 128) {
+    const int fp = d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : 128;
+    switch (fp) {
+      case 16: return launch_f32<16, 16>(q, k, v, out, s, bh_kv, st);
+      case 32: return launch_f32<32, 32>(q, k, v, out, s, bh_kv, st);
+      case 64: return launch_f32<64, 64>(q, k, v, out, s, bh_kv, st);
+      default: return launch_f32<128, 128>(q, k, v, out, s, bh_kv, st);
+    }
+  }
+  if (dv > 128) return cudaErrorInvalidValue;
+  return launch_f32<192, 128>(q, k, v, out, s, bh_kv, st);
 }

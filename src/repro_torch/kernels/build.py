@@ -62,7 +62,7 @@ SIGNATURES = {
         "repro_bdi_sizes": [_P, _P, _P, _I64, _P],
     },
     "flash_attention": {
-        "repro_flash_attention": [_P] * 4 + [_I32] * 5 + [_F32]
+        "repro_flash_attention": [_P] * 4 + [_I32] * 6 + [_F32]
         + [_I32] * 3 + [_P],
     },
 }

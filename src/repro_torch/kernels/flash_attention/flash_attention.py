@@ -5,7 +5,8 @@
 anything it cannot take) and uses the plain version of ``ref.py`` only for
 tensors on the CPU.  ``flash_attention.launches`` counts the kernel
 launches.  Unlike the Pallas kernel, the lengths need not be multiples of
-a tile: the kernel masks the ragged edge itself.
+a tile: the kernel masks the ragged edge itself, and v may be narrower than
+q and k (MLA's 128-wide values under 192-wide queries and keys).
 """
 from __future__ import annotations
 
@@ -15,16 +16,35 @@ from repro_torch.kernels import build
 from repro_torch.kernels.common import on_cpu, require_aligned, require_cuda
 from repro_torch.kernels.flash_attention import ref
 
-MAX_HEAD_DIM = 128
+# the bf16 kernel's instances: (q/k width, v width), each padded to 64
+BF16_WIDTHS = ((64, 64), (128, 128), (192, 128))
+
+
+def _padded(x: int) -> int:
+    return -(-x // 64) * 64
+
+
+def kernel_takes(d: int, dv: int, dtype: torch.dtype) -> bool:
+    """Whether the kernel has an instance for q/k width ``d`` and v width
+    ``dv`` (multiples of 8, ``dv <= d``) in ``dtype``: bf16 by the widths
+    padded to 64 (:data:`BF16_WIDTHS`); float32 ``dv == d <= 128``, or
+    ``d <= 192`` with ``dv <= 128``."""
+    if d % 8 or dv % 8 or not 0 < dv <= d:
+        return False
+    if dtype == torch.bfloat16:
+        return (_padded(d), _padded(dv)) in BF16_WIDTHS
+    return dv == d <= 128 or (d <= 192 and dv <= 128)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, sm_scale: float | None = None,
                     q_offset: int = 0) -> torch.Tensor:
-    """q ``(BH, Sq, D)``; k, v ``(BH_kv, Skv, D)`` with ``BH % BH_kv == 0``
-    -> ``(BH, Sq, D)`` in q's type (see ``ref.attention_ref``)."""
+    """q ``(BH, Sq, D)``; k ``(BH_kv, Skv, D)``, v ``(BH_kv, Skv, Dv)`` with
+    ``BH % BH_kv == 0`` and ``Dv <= D`` -> ``(BH, Sq, Dv)`` in q's type (see
+    ``ref.attention_ref``)."""
     bh, sq, d = q.shape
     bh_kv, skv = k.shape[0], k.shape[1]
+    dv = v.shape[-1]
     if bh_kv == 0 or bh % bh_kv:
         raise ValueError(f"q rows {bh} are not a multiple of kv rows {bh_kv}")
     if q_offset < 0:
@@ -37,20 +57,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash_attention takes bfloat16 or float32, not "
                         f"{q.dtype}")
-    if d > MAX_HEAD_DIM or d % 8:
-        raise ValueError(f"head dim {d} must be a multiple of 8 and at most "
-                         f"{MAX_HEAD_DIM}")
+    if not kernel_takes(d, dv, q.dtype):
+        raise ValueError(
+            f"head dims q/k {d}, v {dv}: each must be a multiple of 8 with "
+            f"v's at most q's, and the {q.dtype} kernel has no instance for "
+            f"them (bf16 widths padded to 64: {BF16_WIDTHS}; float32: equal "
+            "widths up to 128, or up to 192 with v's up to 128)")
     if sq == 0 or skv == 0:
         raise ValueError("flash_attention needs at least one query and key")
     dev = require_cuda({"q": q, "k": k, "v": v},
                        dict.fromkeys("qkv", q.dtype),
                        {"q": (bh, sq, d), "k": (bh_kv, skv, d),
-                        "v": (bh_kv, skv, d)})
+                        "v": (bh_kv, skv, dv)})
     require_aligned(q=q, k=k, v=v)
-    out = torch.empty_like(q)
+    out = q.new_empty((bh, sq, dv))
     rc = build.library("flash_attention").repro_flash_attention(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), bh, bh_kv,
-        sq, skv, d, float(sm_scale), int(causal), int(q_offset),
+        sq, skv, d, dv, float(sm_scale), int(causal), int(q_offset),
         int(q.dtype == torch.bfloat16), build.stream(dev))
     build.check(rc, "flash_attention kernel")
     flash_attention.launches += 1

@@ -10,8 +10,9 @@ NEG_INF = -1e30
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, sm_scale: float | None = None,
                   q_offset: int = 0) -> torch.Tensor:
-    """q ``(BH, Sq, D)``; k, v ``(BH_kv, Skv, D)`` -> ``(BH, Sq, D)`` in
-    q's type.  q row ``bh`` attends kv row ``bh // (BH // BH_kv)``; causal
+    """q ``(BH, Sq, D)``; k ``(BH_kv, Skv, D)``, v ``(BH_kv, Skv, Dv)`` ->
+    ``(BH, Sq, Dv)`` in q's type (``Dv`` may differ from ``D``, as in
+    MLA).  q row ``bh`` attends kv row ``bh // (BH // BH_kv)``; causal
     attention keeps the keys ``j <= q_offset + i``."""
     bh, sq, d = q.shape
     group = bh // k.shape[0]

@@ -1,10 +1,11 @@
-"""Serving entry point: batched prefill + KV-cached decode of a dense decoder,
-with per-token latency and the decode step's memory energy scored by the
-paper's power model.
+"""Serving entry point: batched prefill + KV-cached decode of a decoder (GQA
+or MLA, dense or MoE), with per-token latency and the decode step's memory
+energy scored by the paper's power model.
 
 A port of ``repro.launch.serve`` for one card.  Prefill runs every layer's
 attention through the hand-written flash-attention kernel; decode runs
-``decode_attention`` over the cache.
+``decode_attention`` over the K/V cache, or MLA's absorbed-matrix
+attention over the latent cache.
 
 ``--power-report`` turns on the power side: the decode step's device-memory
 traffic (:func:`decode_traffic_bytes`, an analytic count of the bytes one
@@ -20,6 +21,9 @@ committed quick fit when omitted).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
         --smoke --device cpu --power-report
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v2-lite-16b --no-smoke --prompt-len 2048 \\
+        --power-report --power-impl cuda        # on the card
 
 Weights are random, drawn from ``--seed`` by a ``torch.Generator``;
 temperature sampling draws from a generator seeded from ``--seed`` too, so
@@ -141,12 +145,16 @@ def tree_nbytes(tree) -> int:
 
 def decode_traffic_bytes(lm: LM, params, caches, batch: int) -> float:
     """The device-memory bytes one decode step must move: every parameter
-    byte read once, every KV-cache byte read once (``decode_attention``
-    reads the whole ``max_len`` cache under its mask), the new K/V slots
-    (and their scales) written, and the float32 logits written.  The
-    reference counts the compiled step's HLO traffic instead."""
-    cache_bytes = tree_nbytes(caches["sub0"])
-    max_len = caches["sub0"]["k"].shape[2]
+    byte read once (MoE included: the dispatch runs every expert on its
+    ``cap >= 8`` slots), every cache byte read once (``decode_attention``
+    and ``mla_decode`` read the whole ``max_len`` cache under their mask),
+    the new slots written (K/V and their scales, or the MLA latent and RoPE
+    key), and the float32 logits written.  The reference counts the
+    compiled step's HLO traffic instead."""
+    layer_caches = {k: v for k, v in caches.items() if k != "pos"}
+    cache_bytes = tree_nbytes(layer_caches)
+    # every cache leaf is (layers, batch, max_len, ...)
+    max_len = next(iter(next(iter(layer_caches.values())).values())).shape[2]
     new_slots = cache_bytes // max_len
     logits = batch * lm.cfg.vocab_padded * 4
     return float(tree_nbytes(params) + cache_bytes + new_slots + logits)

@@ -1,7 +1,9 @@
-"""Model layers of the dense decoder: norms, RoPE, blockwise (flash)
-attention with GQA, the KV-cached decode step, and the gated MLP.
+"""Model layers: norms, RoPE, blockwise (flash) attention with GQA, the
+KV-cached decode step, MLA (DeepSeek-V2's latent attention), the gated MLP
+and MoE.
 
-A port of the dense subset of ``repro.models.layers``.
+A port of ``repro.models.layers`` but Mamba2, cross-attention and the
+shard-mapped MoE.
 
 Conventions
 -----------
@@ -16,11 +18,18 @@ Conventions
   version for CPU tensors.  In the reference the pure-jnp blockwise scan
   computes the same function and the Pallas kernel substitutes for it on a
   TPU.
-* The decode step writes the new K/V slot into the cache tensors in place
-  (the reference updates functionally and its serving loop donates the
-  cache): the returned cache holds the same tensors.
+* The decode steps write the new K/V (or latent) slot into the cache
+  tensors in place (the reference updates functionally and its serving
+  loop donates the cache): the returned cache holds the same tensors.
+* MoE dispatch departs from the reference in one place (ROADMAP R9): a
+  dropped assignment goes to the spare row ``n_experts * capacity`` of the
+  dispatch buffer, where the reference's ``t * top_k`` can be a kept
+  token's slot.  The combine sums each token's expert outputs in a fixed
+  order (ascending expert id, as the reference's scatter-add does), with
+  no atomics, so the card gives the same bits every run.
 
-MLA, MoE, Mamba2 and cross-attention are not ported yet (ROADMAP).
+Mamba2, cross-attention and ``moe_apply_shardmap`` are not ported yet
+(ROADMAP).
 """
 from __future__ import annotations
 
@@ -71,23 +80,25 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 def blockwise_attention(q, k, v, *, causal: bool, block: int = 512,
                         q_offset: int = 0):
-    """q: (B, Sq, H, D); k/v: (B, Skv, Kh, D) -> (B, Sq, H, D).
+    """q: (B, Sq, H, D); k: (B, Skv, Kh, D), v: (B, Skv, Kh, Dv) ->
+    (B, Sq, H, Dv).
 
     The flash-attention kernel in the reference's ``(B*H, S, D)`` layout:
     q head ``h`` of batch row ``b`` reads kv head ``h // (H // Kh)``.  The
     kernel picks its own tiles and masks ragged lengths itself, so
     ``block`` (the reference scan's kv block) does not change the result
     and is accepted for the reference's signature."""
-    b, sq, h, d = q.shape
-    skv, kh = k.shape[1], k.shape[2]
+    b, sq, h, _ = q.shape
+    skv, kh, dv = k.shape[1], k.shape[2], v.shape[-1]
 
     def heads_major(x, n_heads, s):
-        return x.permute(0, 2, 1, 3).reshape(b * n_heads, s, d).contiguous()
+        return x.permute(0, 2, 1, 3).reshape(b * n_heads, s,
+                                             x.shape[-1]).contiguous()
 
     o = fa_ops.flash_attention(heads_major(q, h, sq), heads_major(k, kh, skv),
                                heads_major(v, kh, skv), causal=causal,
                                q_offset=q_offset)
-    return o.reshape(b, h, sq, d).permute(0, 2, 1, 3)
+    return o.reshape(b, h, sq, dv).permute(0, 2, 1, 3)
 
 
 def decode_attention(q, k_cache, v_cache, kv_len):
@@ -198,6 +209,95 @@ def attn_decode(params, x, cache, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): compressed KV latent attention
+# ---------------------------------------------------------------------------
+def mla_meta(cfg: ModelConfig) -> dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    return {
+        "wq": ParamMeta((d, h * (m.d_nope + m.d_rope)), ("embed", "heads_dh")),
+        "w_dkv": ParamMeta((d, m.kv_lora), ("embed", None)),
+        "w_kr": ParamMeta((d, m.d_rope), ("embed", None)),
+        "w_uk": ParamMeta((m.kv_lora, h * m.d_nope), (None, "heads_dh")),
+        "w_uv": ParamMeta((m.kv_lora, h * m.d_v), (None, "heads_dh")),
+        "wo": ParamMeta((h * m.d_v, d), ("heads_dh", "embed")),
+        "norm": rmsnorm_meta(d),
+        "kv_norm": ParamMeta((m.kv_lora,), (None,), init="ones"),
+    }
+
+
+def _mla_q_latent(params, xn, cfg: ModelConfig, positions):
+    """The queries split into their no-RoPE and RoPE parts, the latent
+    ``c_kv`` and the shared RoPE key, from the normed input."""
+    m = cfg.mla
+    b, s, _ = xn.shape
+    q = (xn @ params["wq"].to(xn.dtype)).reshape(b, s, cfg.n_heads,
+                                                 m.d_nope + m.d_rope)
+    q_nope, q_rope = q[..., :m.d_nope], q[..., m.d_nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv = rmsnorm(xn @ params["w_dkv"].to(xn.dtype), params["kv_norm"],
+                   cfg.norm_eps)                       # (B, S, kv_lora)
+    k_rope = apply_rope((xn @ params["w_kr"].to(xn.dtype))[:, :, None, :],
+                        positions, cfg.rope_theta)     # (B, S, 1, d_rope)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_apply(params, x, cfg: ModelConfig, positions=None):
+    """Prefill MLA: K and V expanded from the latent, blockwise attention
+    with q/k ``d_nope + d_rope`` wide and v ``d_v`` wide.  Returns (out,
+    (c_kv, k_rope)) for cache seeding."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    xn = rmsnorm(x, params["norm"], cfg.norm_eps)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q_nope, q_rope, c_kv, k_rope = _mla_q_latent(params, xn, cfg, positions)
+    k_nope = (c_kv @ params["w_uk"].to(x.dtype)).reshape(b, s, h, m.d_nope)
+    v = (c_kv @ params["w_uv"].to(x.dtype)).reshape(b, s, h, m.d_v)
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, m.d_rope)], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    o = blockwise_attention(q_full, k, v, causal=True,
+                            block=cfg.attention_block)
+    o = o.reshape(b, s, h * m.d_v)
+    return o @ params["wo"].to(x.dtype), (c_kv, k_rope[:, :, 0, :])
+
+
+def mla_decode(params, x, cache, cfg: ModelConfig):
+    """Absorbed-matrix MLA decode: attention runs in float32 directly over
+    the latent cache ``ckv`` (B, S, kv_lora) and the shared RoPE key ``kr``
+    (B, S, d_rope); the new slot is written into them in place."""
+    m = cfg.mla
+    b = x.shape[0]
+    h = cfg.n_heads
+    xn = rmsnorm(x, params["norm"], cfg.norm_eps)
+    pos = int(cache["pos"])
+    positions = torch.full((b, 1), pos, device=x.device)
+    q_nope, q_rope, c_new, kr_new = _mla_q_latent(params, xn, cfg, positions)
+    ckv, kr = cache["ckv"], cache["kr"]
+    ckv[:, pos] = c_new[:, 0]
+    kr[:, pos] = kr_new[:, 0, 0]
+
+    # absorb W_uk into q: q' = q_nope . W_uk^T -> (B, H, kv_lora)
+    w_uk = params["w_uk"].reshape(m.kv_lora, h, m.d_nope)
+    q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, 0].to(F32), w_uk.to(F32))
+    s_len = ckv.shape[1]
+    scores = (torch.einsum("bhl,bsl->bhs", q_lat, ckv.to(F32))
+              + torch.einsum("bhr,bsr->bhs", q_rope[:, 0].to(F32),
+                             kr.to(F32)))
+    scores = scores * ((m.d_nope + m.d_rope) ** -0.5)
+    mask = torch.arange(s_len, device=x.device) < pos + 1
+    scores = torch.where(mask, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhs,bsl->bhl", p, ckv.to(F32))  # (B, H, kv_lora)
+    w_uv = params["w_uv"].to(x.dtype).reshape(m.kv_lora, h, m.d_v)
+    o = torch.einsum("bhl,lhv->bhv", o_lat, w_uv.to(F32))  # (B, H, d_v)
+    o = o.reshape(b, 1, h * m.d_v).to(x.dtype)
+    return o @ params["wo"].to(x.dtype), {"ckv": ckv, "kr": kr,
+                                          "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 def mlp_meta(cfg: ModelConfig, d_ff: int | None = None) -> dict:
@@ -215,3 +315,126 @@ def mlp_apply(params, x, cfg: ModelConfig):
     xn = rmsnorm(x, params["norm"], cfg.norm_eps)
     h = F.silu(xn @ params["wg"].to(x.dtype)) * (xn @ params["wu"].to(x.dtype))
     return h @ params["wd"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k routing, capacity-based dispatch, optional shared experts)
+# ---------------------------------------------------------------------------
+def moe_meta(cfg: ModelConfig) -> dict:
+    e = cfg.moe
+    d = cfg.d_model
+    meta = {
+        "router": ParamMeta((d, e.n_experts), ("embed", None), scale=0.02),
+        "wg": ParamMeta((e.n_experts, d, e.d_ff_expert),
+                        ("experts", "embed", "ffn")),
+        "wu": ParamMeta((e.n_experts, d, e.d_ff_expert),
+                        ("experts", "embed", "ffn")),
+        "wd": ParamMeta((e.n_experts, e.d_ff_expert, d),
+                        ("experts", "ffn", "embed")),
+        "norm": rmsnorm_meta(d),
+    }
+    if e.n_shared:
+        meta["shared"] = {
+            "wg": ParamMeta((d, e.d_ff_expert * e.n_shared), ("embed", "ffn")),
+            "wu": ParamMeta((d, e.d_ff_expert * e.n_shared), ("embed", "ffn")),
+            "wd": ParamMeta((e.d_ff_expert * e.n_shared, d), ("ffn", "embed")),
+        }
+    return meta
+
+
+def moe_route(params, x, cfg: ModelConfig):
+    """The router of ``x`` (B, S, d): the normed tokens (T, d), the
+    float32 probabilities (T, E), and the top-k experts (T, k) with their
+    gates renormalised to sum to 1.  Equal probabilities go to the lower
+    expert id first, as in ``jax.lax.top_k`` (a stable descending sort):
+    the router logits are products in the config dtype, so in bf16 exact
+    ties are common at full width."""
+    e = cfg.moe
+    xn = rmsnorm(x, params["norm"], cfg.norm_eps)
+    xf = xn.reshape(-1, x.shape[-1])
+    logits = (xf @ params["router"].to(x.dtype)).to(F32)
+    probs = torch.softmax(logits, dim=-1)
+    ranked, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, expert = ranked[:, :e.top_k], order[:, :e.top_k]
+    gate = gate / torch.clamp(gate.sum(dim=-1, keepdim=True), min=1e-9)
+    return xf, probs, gate, expert
+
+
+def moe_capacity(cfg: ModelConfig, t: int) -> int:
+    """Slots per expert for ``t`` tokens: the reference's arithmetic,
+    rounded up to a multiple of 128 once it reaches 128."""
+    e = cfg.moe
+    cap = max(8, int(t * e.top_k / e.n_experts * e.capacity_factor))
+    if cap >= 128:
+        cap = -(-cap // 128) * 128
+    return cap
+
+
+def moe_dispatch(expert, cfg: ModelConfig):
+    """Capacity dispatch of the (T, k) chosen experts: the assignments in
+    ascending expert order (a stable sort, so tokens keep their order within
+    an expert) as ``order``, whether each is kept, its slot in the
+    ``(E * cap + 1)``-row buffer (a drop goes to the spare last row), and
+    the capacity."""
+    e = cfg.moe
+    t = expert.shape[0]
+    n = t * e.top_k
+    flat_e = expert.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    starts = torch.searchsorted(
+        sorted_e, torch.arange(e.n_experts, device=expert.device,
+                               dtype=sorted_e.dtype), side="left")
+    pos_in_e = torch.arange(n, device=expert.device) - starts[sorted_e]
+    cap = moe_capacity(cfg, t)
+    keep = pos_in_e < cap
+    slot = torch.where(keep, sorted_e * cap + pos_in_e, e.n_experts * cap)
+    return order, keep, slot, cap
+
+
+def moe_apply(params, x, cfg: ModelConfig):
+    """x: (B, S, d).  Deterministic argsort dispatch with capacity drops:
+    every expert runs on its ``cap`` slots as one batched product, and each
+    token sums its kept experts' gated outputs in ascending expert id."""
+    e = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    xf, _, gate, expert = moe_route(params, x, cfg)
+    order, keep, slot, cap = moe_dispatch(expert, cfg)
+    tok = order // e.top_k                    # the token of each assignment
+
+    xbuf = x.new_zeros((e.n_experts * cap + 1, d))
+    xbuf[slot] = xf[tok]                      # duplicates only on the spare
+    xe = xbuf[:-1].view(e.n_experts, cap, d)
+    h = F.silu(torch.bmm(xe, params["wg"].to(x.dtype))) \
+        * torch.bmm(xe, params["wu"].to(x.dtype))
+    ybuf = torch.bmm(h, params["wd"].to(x.dtype)).view(e.n_experts * cap, d)
+
+    flat_g = gate.reshape(-1)[order]
+    contrib = torch.where(keep, flat_g, 0.0)[:, None].to(x.dtype) \
+        * ybuf[torch.clamp(slot, max=e.n_experts * cap - 1)]
+    # each token's k assignments by their place in `order` (ascending
+    # expert id), summed in that order
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(t * e.top_k, device=x.device)
+    by_expert = torch.sort(rank.view(t, e.top_k), dim=-1).values
+    y = contrib[by_expert[:, 0]]
+    for j in range(1, e.top_k):
+        y = y + contrib[by_expert[:, j]]
+
+    if "shared" in params:
+        sh = params["shared"]
+        hs = F.silu(xf @ sh["wg"].to(x.dtype)) * (xf @ sh["wu"].to(x.dtype))
+        y = y + hs @ sh["wd"].to(x.dtype)
+    return y.reshape(b, s, d)
+
+
+def moe_aux_loss(params, x, cfg: ModelConfig):
+    """Load-balancing auxiliary loss (Switch-style)."""
+    e = cfg.moe
+    _, probs, _, expert = moe_route(params, x, cfg)
+    counts = torch.bincount(expert.reshape(-1),
+                            minlength=e.n_experts).to(F32)
+    frac_tokens = counts / torch.clamp(counts.sum(), min=1.0)
+    frac_probs = probs.mean(dim=0)
+    return e.n_experts * (frac_tokens * frac_probs).sum()

@@ -1,17 +1,24 @@
-"""The dense decoder LM (GQA attention + gated MLP per layer), in PyTorch.
+"""The decoder LM (GQA or MLA attention, a gated MLP or MoE per layer), in
+PyTorch.
 
-A port of the dense subset of ``repro.models.lm``: ``forward`` (with
-``logits_last_only``), ``prefill``, the KV cache layout and
-``decode_step``.  The reference scans one stacked ``(R, ...)`` parameter
-tree with ``lax.scan``; here ``params["layers"]`` is a list of per-layer
-dicts walked by a Python loop (``repro_torch.convert.lm_params_from_jax``
-maps one onto the other), while the decode cache keeps the reference's
-stacked ``(layers, batch, seq, kv_heads, d_head)`` tensors.
+A port of ``repro.models.lm`` for the attention decoders: ``forward``
+(with ``logits_last_only`` and the summed MoE auxiliary loss),
+``prefill``, the decode cache layout and ``decode_step``.  The reference
+scans one stacked ``(R, ...)`` parameter tree of ``period`` sub-layers
+with ``lax.scan``; here ``params["layers"]`` is a list of per-layer dicts
+walked by a Python loop (``repro_torch.convert.lm_params_from_jax`` maps
+one onto the other), while the decode cache keeps the reference's stacked
+tensors: ``sub{j}`` holds layers ``j, j + period, ...`` as
+``(R, batch, seq, kv_heads, d_head)`` K/V, or for MLA the
+``(R, batch, seq, kv_lora)`` latent ``ckv`` and ``(R, batch, seq, d_rope)``
+RoPE key ``kr``.
 
-Configurations with MoE, MLA, Mamba2, cross-attention or an encoder are
-refused: those layers are not ported yet (ROADMAP queue 1 item 11).
+Configurations with Mamba2, cross-attention or an encoder are refused:
+those layers are not ported yet (ROADMAP queue 1 item 7).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -36,10 +43,8 @@ def _mask_pad_vocab(logits, cfg: ModelConfig):
 
 def _unsupported(cfg: ModelConfig) -> list[str]:
     found = [f"layer kind {k!r}" for k in cfg.pattern if k != "attn"]
-    if cfg.attn_kind != "gqa":
+    if cfg.attn_kind not in ("gqa", "mla"):
         found.append(f"attention kind {cfg.attn_kind!r}")
-    if cfg.moe is not None:
-        found.append("MoE")
     if cfg.n_encoder_layers or cfg.aux_seq:
         found.append("an encoder / auxiliary cross-attention")
     return found
@@ -51,10 +56,18 @@ class LM:
         if missing:
             raise NotImplementedError(
                 f"{cfg.name}: {', '.join(missing)} not ported to repro_torch "
-                "yet (ROADMAP queue 1 item 11); the port runs the dense GQA "
-                "decoders")
+                "yet (ROADMAP queue 1 item 7); the port runs the GQA and MLA "
+                "decoders, dense or MoE")
         self.cfg = cfg
-        # int8 KV cache (decode): None = config dtype
+        self.mla = cfg.attn_kind == "mla"
+        self.period = len(cfg.pattern)
+        if cfg.moe is not None:
+            self.period = math.lcm(self.period, cfg.moe.every)
+        if cfg.n_layers % self.period:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not a "
+                             f"multiple of the period {self.period}")
+        # int8 KV cache (decode; GQA only, as in the reference): None =
+        # config dtype
         self.kv_cache_dtype: torch.dtype | None = None
 
     # ------------------------------------------------------------ metadata
@@ -65,13 +78,18 @@ class LM:
             "embed": ParamMeta((cfg.vocab_padded, d), ("vocab", "embed"),
                                scale=0.02),
             "final_norm": L.rmsnorm_meta(d),
-            "layers": [{"mixer": L.attn_meta(cfg), "mlp": L.mlp_meta(cfg)}
-                       for _ in range(cfg.n_layers)],
+            "layers": [self._layer_meta(i) for i in range(cfg.n_layers)],
         }
         if not cfg.tie_embeddings:
             meta["unembed"] = ParamMeta((d, cfg.vocab_padded),
                                         ("embed", "vocab"))
         return meta
+
+    def _layer_meta(self, i: int) -> dict:
+        cfg = self.cfg
+        return {"mixer": L.mla_meta(cfg) if self.mla else L.attn_meta(cfg),
+                "mlp": (L.moe_meta(cfg) if cfg.is_moe_layer(i)
+                        else L.mlp_meta(cfg))}
 
     def init(self, generator: torch.Generator) -> dict:
         """Random weights in the config dtype on ``generator``'s device."""
@@ -86,28 +104,42 @@ class LM:
         return _mask_pad_vocab((x @ unembed.to(x.dtype)).to(F32), cfg)
 
     # ------------------------------------------------------------- forward
+    def _mlp(self, i: int, p, x):
+        """Layer ``i``'s MLP or MoE residual step."""
+        mlp = L.moe_apply if self.cfg.is_moe_layer(i) else L.mlp_apply
+        return x + mlp(p, x, self.cfg)
+
     def forward(self, params, tokens, with_cache: bool = False,
                 logits_last_only: bool = False):
-        """tokens (B, S) -> logits (B, S, V) and the auxiliary loss (zero:
-        no MoE).  With ``with_cache`` also the stacked per-layer K/V
-        (prefill).  ``logits_last_only`` skips the full (B, S, V)
-        unembedding — prefill needs only the last position."""
+        """tokens (B, S) -> logits (B, S, V) and the auxiliary loss (the sum
+        of ``moe_aux_loss`` over the MoE layers).  With ``with_cache`` also
+        the stacked per-layer caches (prefill).  ``logits_last_only`` skips
+        the full (B, S, V) unembedding — prefill needs only the last
+        position."""
         cfg = self.cfg
         x = params["embed"][tokens].to(_dtype(cfg))
-        ks, vs = [], []
-        for p in params["layers"]:
-            a, (k, v) = L.attn_apply(p["mixer"], x, cfg, causal=True)
+        aux_loss = torch.zeros((), dtype=F32, device=x.device)
+        kv = []
+        for i, p in enumerate(params["layers"]):
+            if self.mla:
+                a, pair = L.mla_apply(p["mixer"], x, cfg)
+            else:
+                a, pair = L.attn_apply(p["mixer"], x, cfg, causal=True)
             if with_cache:
-                ks.append(k)
-                vs.append(v)
+                kv.append(pair)
             x = x + a
-            x = x + L.mlp_apply(p["mlp"], x, cfg)
+            if cfg.is_moe_layer(i):
+                aux_loss = aux_loss + L.moe_aux_loss(p["mlp"], x, cfg)
+            x = self._mlp(i, p["mlp"], x)
         if logits_last_only:
             x = x[:, -1:]
         logits = self._logits(params, x)
-        aux_loss = torch.zeros((), dtype=F32, device=logits.device)
         if with_cache:
-            caches = {"sub0": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+            names = ("ckv", "kr") if self.mla else ("k", "v")
+            caches = {f"sub{j}": {
+                name: torch.stack([kv[i][n] for i in range(
+                    j, cfg.n_layers, self.period)])
+                for n, name in enumerate(names)} for j in range(self.period)}
             return logits, caches, aux_loss
         return logits, aux_loss
 
@@ -122,8 +154,8 @@ class LM:
         return logits[:, -1], caches
 
     def _grow_caches(self, caches, s: int, max_len: int):
-        """Pad the seq axis of the stacked KV caches (axis 2: layers,
-        batch, seq) to ``max_len``."""
+        """Pad the seq axis of the stacked caches (axis 2: layers, batch,
+        seq) to ``max_len``."""
         if max_len <= s:
             return caches
         out = {}
@@ -138,33 +170,49 @@ class LM:
         return out
 
     def init_cache_meta(self, batch: int, max_len: int) -> dict:
-        """The decode-cache structure: per stacked layer axis, the K and V
-        slots (and, for an int8 cache, their float32 scales)."""
+        """The decode-cache structure: per sub-layer ``sub{j}`` of the
+        period, stacked over its ``R`` layers, the K and V slots (and, for
+        an int8 cache, their float32 scales), or for MLA the latent and the
+        RoPE key in the config dtype (``kv_cache_dtype`` does not apply)."""
         cfg = self.cfg
-        r = cfg.n_layers
-        kvdt = self.kv_cache_dtype or _dtype(cfg)
-        axes = ("layers", "batch", "kv_seq", "kv_heads", None)
-        sub = {name: ParamMeta((r, batch, max_len, cfg.n_kv, cfg.d_head),
-                               axes, dtype=kvdt) for name in ("k", "v")}
-        if self.kv_cache_dtype is not None:
-            for name in ("k_s", "v_s"):
-                sub[name] = ParamMeta((r, batch, max_len, cfg.n_kv, 1), axes,
-                                      dtype=F32)
-        return {"sub0": sub, "pos": ParamMeta((), (), dtype=torch.int32)}
+        r = cfg.n_layers // self.period
+        if self.mla:
+            m = cfg.mla
+            axes = ("layers", "batch", "kv_seq", None)
+            sub = {name: ParamMeta((r, batch, max_len, width), axes,
+                                   dtype=_dtype(cfg))
+                   for name, width in (("ckv", m.kv_lora),
+                                       ("kr", m.d_rope))}
+        else:
+            kvdt = self.kv_cache_dtype or _dtype(cfg)
+            axes = ("layers", "batch", "kv_seq", "kv_heads", None)
+            sub = {name: ParamMeta((r, batch, max_len, cfg.n_kv, cfg.d_head),
+                                   axes, dtype=kvdt) for name in ("k", "v")}
+            if self.kv_cache_dtype is not None:
+                for name in ("k_s", "v_s"):
+                    sub[name] = ParamMeta((r, batch, max_len, cfg.n_kv, 1),
+                                          axes, dtype=F32)
+        caches: dict = {f"sub{j}": dict(sub) for j in range(self.period)}
+        caches["pos"] = ParamMeta((), (), dtype=torch.int32)
+        return caches
 
     def decode_step(self, params, caches, tokens):
         """tokens (B, 1) -> (logits (B, V), updated caches).  The new K/V
-        slot is written into the cache tensors in place; the returned
-        caches hold the same tensors with ``pos`` advanced."""
+        (or latent) slot is written into the cache tensors in place; the
+        returned caches hold the same tensors with ``pos`` advanced."""
         cfg = self.cfg
         x = params["embed"][tokens].to(_dtype(cfg))
         pos = int(caches["pos"])
-        stacked = caches["sub0"]
+        decode = L.mla_decode if self.mla else L.attn_decode
         for i, p in enumerate(params["layers"]):
-            layer_cache = {name: t[i] for name, t in stacked.items()}
+            stacked = caches[f"sub{i % self.period}"]
+            layer_cache = {name: t[i // self.period]
+                           for name, t in stacked.items()}
             layer_cache["pos"] = pos
-            a, _ = L.attn_decode(p["mixer"], x, layer_cache, cfg)
+            a, _ = decode(p["mixer"], x, layer_cache, cfg)
             x = x + a
-            x = x + L.mlp_apply(p["mlp"], x, cfg)
+            x = self._mlp(i, p["mlp"], x)
         logits = self._logits(params, x[:, 0])
-        return logits, {"sub0": stacked, "pos": pos + 1}
+        out = {name: sub for name, sub in caches.items() if name != "pos"}
+        out["pos"] = pos + 1
+        return logits, out

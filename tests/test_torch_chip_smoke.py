@@ -1,5 +1,5 @@
-"""``chip_smoke.py``'s charge-kernel, line-kernel, flash-attention,
-study, HBM and serve phases rehearsed on the CPU at a tiny size: the
+"""``chip_smoke.py``'s charge-kernel, line-kernel, flash-attention (also
+at MLA's widths), study, HBM, serve and serve-mla phases rehearsed on the CPU at a tiny size: the
 same code that runs on the card, with the CUDA event timers and the
 device synchronisation stubbed, and the launch counts (which CPU tensors
 never raise) read as launched."""
@@ -118,6 +118,32 @@ def test_attention_flops_count_the_causal_pairs(smoke):
     ms, by = smoke.bound(2 * (2 * 64 + 2 * 8) * 2048 * 128, ops,
                          smoke.BF16_OPS_PER_S)
     assert by == "operations" and abs(ms - 0.0695) < 1e-3
+
+
+def test_attention_flops_and_bound_at_the_mla_prefill(smoke):
+    """deepseek-v2-lite-16b's prefill attention: B*H*S^2*(D+Dv) = 85.9
+    GFLOP, bound by operations at 0.0869 ms; q, k, v and out 167.8 MB."""
+    bh, s, d, dv = 64, 2048, 192, 128
+    ops = smoke.attention_flops(bh, s, s, d, True, dv=dv)
+    assert ops == 2 * bh * (s * (s + 1) // 2) * (d + dv)
+    assert abs(ops / 1e9 - 85.9) < 0.1
+    nbytes = 2 * bh * s * (2 * d + 2 * dv)
+    assert abs(nbytes / 1e6 - 167.8) < 0.1
+    ms, by = smoke.bound(nbytes, ops, smoke.BF16_OPS_PER_S)
+    assert by == "operations" and abs(ms - 0.0869) < 1e-4
+
+
+def test_flash_mla_kernel_phase_row(smoke, capsys):
+    (row,) = smoke.flash_mla_kernel_phase(0, "cpu", device="cpu",
+                                          shape=(1, 2, 40, 48, 32),
+                                          ragged=33)
+    assert row["name"] == "flash_attention_mla" and row["err"] == 0.0
+    assert row["source"] == "src/repro_torch/csrc/flash_attention.cu"
+    assert row["replaces"].endswith("flash_attention.py:73")
+    assert row["library_ms"] == 1.0 and row["fn"]().shape == (2, 40, 32)
+    out = capsys.readouterr().out
+    assert out.count("[kernel] flash_attention (MLA 48/48/32)") == 1
+    assert "ragged_err=0.000e+00" in out and "f32_err=0.000e+00" in out
 
 
 def test_flash_kernel_phase_row(smoke, capsys):
@@ -329,3 +355,35 @@ def test_autotune_phase(smoke, monkeypatch, capsys):
     assert out.count("[autotune] baseline_energy ") == 2
     assert out.count("[autotune] baseline_energy_surface ") == 2
     assert "[autotune] sweep vampire_energy t2n512 V=3: 12 candidates" in out
+
+
+def test_serve_mla_phase_at_smoke_size(smoke, monkeypatch, capsys):
+    real = smoke.read_counters
+    monkeypatch.setattr(smoke, "read_counters", lambda: {
+        k: (2 if k == "flash_attention" else max(v, 1))
+        for k, v in real().items()})
+    launched = smoke.serve_mla_phase(0, "cpu", device="cpu", smoke=True,
+                                     batch=2, prompt_len=40,
+                                     decode_tokens=4)
+    assert launched["flash_attention"] == 2       # one per layer
+    out = capsys.readouterr().out
+    assert out.count("[serve-mla]") == 6
+    assert "deepseek-v2-lite-16b-smoke: layers=2" in out
+    assert "flash_launches_per_prefill=2" in out
+    assert "power[vampire] impl=cuda" in out
+    assert "same_bits_twice=True" in out and "2 layers" in out
+
+
+def test_routed_alike_reports_each_rows_first_flip(smoke):
+    """Rows whose last token takes the same experts at every layer in the
+    prefill and the decode step, and for the others the first layer that
+    differs with the smaller margin."""
+    same = torch.tensor([[0, 3], [1, 2], [4, 5]])
+    other = torch.tensor([[0, 3], [1, 6], [4, 5]])
+    wide = torch.tensor([0.5, 0.5, 0.5])
+    near = torch.tensor([0.5, 0.001, 0.5])
+    rows, flips = smoke.routed_alike(
+        [(same, wide), (other, near), (same, wide)],
+        [(same, wide), (same, wide), (other, wide)])
+    assert rows.tolist() == [True, False, True]
+    assert flips == {1: (1, pytest.approx(0.001))}

@@ -421,6 +421,105 @@ def test_flash_attention_kernel_takes_any_scale(device, sm_scale, shape):
                                    err_msg=f"causal={causal}")
 
 
+# (BH, Sq, BH_kv, Skv, D, Dv): MLA's (192, 128) at group 1 and 2, ragged,
+# the deepseek smoke widths on the (64, 64) instance, (160, 96) padded
+MLA_SHAPES = [(64, 256, 64, 256, 192, 128), (16, 300, 16, 300, 192, 128),
+              (32, 200, 16, 200, 192, 128), (8, 77, 8, 77, 48, 32),
+              (8, 100, 8, 100, 160, 96), (6, 40, 6, 13, 192, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MLA_SHAPES)
+def test_flash_attention_kernel_takes_narrower_values(device, dtype, shape):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    bh, sq, bh_kv, skv, d, dv = shape
+    gen = torch.Generator().manual_seed(sum(shape))
+    q, k, v = (torch.randn(*s, generator=gen).to(device, dtype)
+               for s in ((bh, sq, d), (bh_kv, skv, d), (bh_kv, skv, dv)))
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    for causal, q_offset in ((True, 0), (False, 0), (True, skv - sq + 3)):
+        if causal and sq > skv:
+            continue
+        before = fa.flash_attention.launches
+        got = fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches == before + 1
+        want = fa_ref.attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+        assert got.dtype == dtype and got.shape == (bh, sq, dv)
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), atol=atol,
+                                   err_msg=f"causal={causal} off={q_offset}")
+
+
+def test_flash_attention_refuses_widths_without_an_instance(device):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    q = torch.randn(4, 64, 128, device=device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no instance"):
+        fa.flash_attention(q, q, q[..., :64].contiguous())
+    with pytest.raises(ValueError, match="no instance"):
+        fa.flash_attention(q, q, torch.cat([q, q], -1))
+
+
+def _to(tree, device):
+    """A nest of dicts and lists of tensors, moved to ``device``."""
+    if torch.is_tensor(tree):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return [_to(v, device) for v in tree]
+
+
+def test_mla_moe_model_on_the_card(device):
+    """deepseek-v2-lite-16b's smoke model in bf16 on the card: one flash
+    launch per layer of the prefill, logits within the MLA bar of the same
+    weights on the CPU (the plain attention), the same bits twice."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models.lm import LM
+    cfg = registry.get_config("deepseek-v2-lite-16b", smoke=True)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 70)))
+    want, _ = lm.prefill(params, tokens)
+    on_card = _to(params, device)
+    before = fa.flash_attention.launches
+    got, caches = lm.prefill(on_card, tokens.to(device), max_len=72)
+    assert fa.flash_attention.launches == before + cfg.n_layers
+    again, _ = lm.prefill(on_card, tokens.to(device), max_len=72)
+    assert torch.equal(got, again)
+    err = float((got.cpu() - want)[:, :cfg.vocab].abs().max())
+    assert err < 0.5 * float(want[:, :cfg.vocab].std())
+    step, _ = lm.decode_step(on_card, caches, tokens[:, -1:].to(device))
+    assert bool(torch.isfinite(step[:, :cfg.vocab]).all())
+
+
+def test_moe_apply_is_deterministic_on_the_card(device):
+    """The combine adds without atomics: the same bits every run at a
+    width where drops happen (cf 1.25, routing skewed)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models import layers as L
+    from repro_torch.models.meta import materialize
+    cfg = registry.get_config("deepseek-v2-lite-16b", smoke=True)
+    cfg = dataclasses.replace(cfg, d_model=256, moe=dataclasses.replace(
+        cfg.moe, n_experts=64, top_k=6, d_ff_expert=128))
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = materialize(L.moe_meta(cfg), gen, dtype=torch.bfloat16)
+    params["router"] = params["router"] * 20
+    x = torch.randn(4, 1024, cfg.d_model, generator=gen, device=device,
+                    dtype=torch.bfloat16)
+    _, _, _, expert = L.moe_route(params, x, cfg)
+    _, keep, _, _ = L.moe_dispatch(expert, cfg)
+    assert not bool(keep.all())
+    first = L.moe_apply(params, x, cfg)
+    assert bool(torch.isfinite(first).all())
+    for _ in range(3):
+        assert torch.equal(L.moe_apply(params, x, cfg), first)
+
+
 def test_flash_attention_wrapper_checks_its_inputs(device):
     from repro_torch.kernels.flash_attention import flash_attention as fa
     q = torch.randn(4, 64, 32, device=device, dtype=torch.bfloat16)

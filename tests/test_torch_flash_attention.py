@@ -2,7 +2,8 @@
 (what the wrapper runs for CPU tensors) against ``flash_attention_pallas``
 in interpret mode on the reference's own sweep, against ``attention_ref``
 on ragged lengths the Pallas kernel refuses, and the model-level
-``blockwise_attention`` against the reference's pure-jnp twin.  Inputs are
+``blockwise_attention`` against the reference's pure-jnp twin, also with
+v narrower than q and k (MLA); the kernel's instances by widths.  Inputs are
 seeded numpy arrays handed to both packages."""
 import jax.numpy as jnp
 import numpy as np
@@ -91,3 +92,50 @@ def test_blockwise_attention_matches_reference(b, s, h, kh, d, block, causal):
     got = PL.blockwise_attention(pq, pk, pv, causal=causal, block=block)
     assert got.shape == (b, s, h, d)
     _close(got, want, 3e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,h,kh,d,dv,block", [
+    (2, 40, 4, 4, 48, 32, 32),       # deepseek-v2-lite-16b's smoke MLA
+    (2, 256, 4, 2, 48, 32, 64), (1, 70, 2, 2, 192, 128, 32)])
+def test_blockwise_attention_with_narrower_values_matches_reference(
+        b, s, h, kh, d, dv, block, causal):
+    """MLA's shape: q and k ``d_nope + d_rope`` wide, v ``d_v`` wide; the
+    output takes v's width."""
+    (q, k, v), (pq, pk, pv) = _inputs(s + d + dv, (b, s, h, d),
+                                      (b, s, kh, d), (b, s, kh, dv))
+    want = RL.blockwise_attention(q, k, v, causal=causal, block=block)
+    got = PL.blockwise_attention(pq, pk, pv, causal=causal, block=block)
+    assert got.shape == want.shape == (b, s, h, dv)
+    _close(got, want, 3e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,skv,h,kh,d,dv", [
+    (64, 64, 4, 4, 192, 128), (40, 72, 6, 3, 48, 32)])
+def test_plain_version_takes_narrower_values(dtype, sq, skv, h, kh, d, dv):
+    (q, k, v), (pq, pk, pv) = _inputs(sq + dv, (h, sq, d), (kh, skv, d),
+                                      (kh, skv, dv), dtype=dtype)
+    for causal in (True, False):
+        if causal and sq != skv:
+            continue
+        want = rref.attention_ref(q, k, v, causal=causal)
+        got = pfa.flash_attention(pq, pk, pv, causal=causal)
+        assert got.shape == (h, sq, dv) and got.dtype == pq.dtype
+        _close(got, want, ATOL[dtype])
+
+
+@pytest.mark.parametrize("d,dv,dtype,takes", [
+    (128, 128, torch.bfloat16, True), (64, 64, torch.bfloat16, True),
+    (192, 128, torch.bfloat16, True),     # MLA
+    (48, 32, torch.bfloat16, True),       # the (64, 64) instance, padded
+    (160, 96, torch.bfloat16, True),      # the (192, 128) instance, padded
+    (128, 64, torch.bfloat16, False), (192, 192, torch.bfloat16, False),
+    (192, 64, torch.bfloat16, False), (256, 128, torch.bfloat16, False),
+    (128, 128, torch.float32, True), (192, 128, torch.float32, True),
+    (48, 32, torch.float32, True), (192, 136, torch.float32, False),
+    (64, 128, torch.bfloat16, False), (30, 30, torch.bfloat16, False)])
+def test_kernel_instances_by_widths(d, dv, dtype, takes):
+    """Which (q/k, v) widths the kernel takes: on a card anything else
+    raises rather than running the plain version."""
+    assert pfa.kernel_takes(d, dv, dtype) is takes

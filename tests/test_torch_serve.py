@@ -1,9 +1,10 @@
 """The port's serving entry point against the reference's: ``run`` at smoke
-size on the CPU returns the reference's keys and shapes; ``power_report``
+size on the CPU returns the reference's keys and shapes (qwen2.5-3b, and
+deepseek-v2-lite-16b's MLA + MoE); ``power_report``
 scores the same logits, tokens, step time and traffic to the reference's
 energies (the reference's HLO traffic count is patched, in this test only,
 to the port's analytic ``decode_traffic_bytes``); that count equals a
-hand count; and a protocol-illegal trace is refused with the reference's
+hand count, for a K/V cache and for MLA's latent cache; and a protocol-illegal trace is refused with the reference's
 structured error."""
 import pathlib
 
@@ -49,6 +50,22 @@ def test_run_returns_the_reference_keys_and_shapes(runs):
     assert 0.0 <= pw["hbm_ones_frac"] <= 1.0
     assert pw["serving"]["admitted"] == 2 and pw["serving"]["rejected"] == 0
     assert port["prefill_s"] > 0 and port["tokens_per_s"] > 0
+
+
+def test_mla_moe_run_returns_the_reference_keys_and_shapes():
+    job = dict(JOB, arch="deepseek-v2-lite-16b", prompt_len=40,
+               decode_tokens=3)
+    ref = rserve.run(rserve.ServeJob(**job))
+    port = pserve.run(pserve.ServeJob(**job, device="cpu"))
+    assert set(port) == set(ref)
+    assert port["tokens"].shape == ref["tokens"].shape == (2, 3)
+    assert port["tokens"].dtype == ref["tokens"].dtype
+    assert (port["tokens"] < 256).all()
+    pw, rpw = port["power"], ref["power"]
+    assert set(pw) == set(rpw) and set(pw["serving"]) == set(rpw["serving"])
+    assert pw["ddr_energy_pj_per_seq_step"].shape == (2, 3)
+    assert (pw["ddr_energy_pj_per_seq_step"] > 0).all()
+    assert pw["serving"]["admitted"] == 2 and pw["serving"]["rejected"] == 0
 
 
 def test_temperature_sampling_and_mesh_arguments():
@@ -151,3 +168,28 @@ def test_corrupt_trace_is_refused_with_a_structured_error(monkeypatch):
                             torch.from_numpy(tokens), step_seconds=1e-3)
     assert ei.value.origin == "serve.power_report"
     assert {d.rule for d in ei.value.diagnostics} == {"tRCD"}
+
+
+def test_decode_traffic_bytes_of_an_mla_moe_cache():
+    """deepseek-v2-lite-16b's smoke widths: MLA weights, every routed and
+    shared expert's weights, the latent ``ckv`` and RoPE key ``kr`` read
+    whole, one new slot of each written, and the float32 logits."""
+    cfg = preg.get_config("deepseek-v2-lite-16b", smoke=True)
+    lm = LM(cfg)
+    lm.kv_cache_dtype = torch.int8              # does not apply to MLA
+    params = lm.init(torch.Generator().manual_seed(0))
+    b, max_len = 3, 20
+    meta = lm.init_cache_meta(b, max_len)
+    caches = {"sub0": {k: torch.zeros(m.shape, dtype=m.dtype)
+                       for k, m in meta["sub0"].items()}, "pos": 7}
+    d, v, el, h = cfg.d_model, cfg.vocab_padded, 2, cfg.n_heads   # bf16
+    m, e = cfg.mla, cfg.moe
+    mla = (d * h * (m.d_nope + m.d_rope) + d * m.kv_lora + d * m.d_rope
+           + m.kv_lora * h * (m.d_nope + m.d_v) + h * m.d_v * d + d
+           + m.kv_lora)
+    moe = (d * e.n_experts + 3 * e.n_experts * d * e.d_ff_expert + d
+           + 3 * d * e.d_ff_expert * e.n_shared)
+    weights = (2 * v * d + d + cfg.n_layers * (mla + moe)) * el
+    slot = cfg.n_layers * b * (m.kv_lora + m.d_rope) * el
+    want = weights + slot * max_len + slot + b * v * 4
+    assert pserve.decode_traffic_bytes(lm, params, caches, b) == want

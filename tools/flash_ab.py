@@ -8,7 +8,9 @@ checkout's own, in turns, on one card.
 
 Compiles each given source with the port's ``nvcc`` flags into
 ``build/flash_ab/`` (its ``-Xptxas -v`` report is printed) and loads it
-beside the checkout's ``csrc/flash_attention.cu`` ("new").  At the serving
+beside the checkout's ``csrc/flash_attention.cu`` ("new"); a source from
+before the kernel took a separate value width (no ``dv`` argument) is
+called with its own argument list.  At the serving
 prefill shape (qwen2.5-3b, batch 4, prompt 2048: q 64 x 2048 x 128, k/v 8
 x 2048 x 128, causal bf16) and at qwen2-7b's (q 112, k/v 16), each is
 checked against the plain version (atol 2e-2) and then timed with
@@ -36,7 +38,9 @@ SHAPES = (("qwen2.5-3b", 4, 16, 2, 2048, 128),
           ("qwen2-7b", 4, 28, 4, 2048, 128))
 
 
-def build_source(source: pathlib.Path) -> ctypes.CDLL:
+def build_source(source: pathlib.Path) -> tuple[ctypes.CDLL, bool]:
+    """The library built from ``source`` and whether its entry point takes
+    the value width ``dv``."""
     from repro_torch.kernels import build
     out_dir = ROOT / "build" / "flash_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -49,13 +53,17 @@ def build_source(source: pathlib.Path) -> ctypes.CDLL:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}")
     lib = ctypes.CDLL(str(target))
-    lib.repro_flash_attention.argtypes = \
-        build.SIGNATURES["flash_attention"]["repro_flash_attention"]
+    argtypes = list(build.SIGNATURES["flash_attention"]
+                    ["repro_flash_attention"])
+    takes_dv = "int dv," in source.read_text()
+    if not takes_dv:
+        del argtypes[9]
+    lib.repro_flash_attention.argtypes = argtypes
     lib.repro_flash_attention.restype = ctypes.c_int
-    return lib
+    return lib, takes_dv
 
 
-def launcher(lib, q, k, v):
+def launcher(lib, takes_dv, q, k, v):
     """A call of ``lib``'s kernel on (q, k, v), causal bf16, into a fresh
     output, as the port's wrapper makes it."""
     import torch
@@ -64,11 +72,13 @@ def launcher(lib, q, k, v):
     bh, sq, d = q.shape
     bh_kv, skv = k.shape[:2]
 
+    widths = (d, d) if takes_dv else (d,)
+
     def run():
         out = torch.empty_like(q)
         build.check(lib.repro_flash_attention(
             build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), bh,
-            bh_kv, sq, skv, d, d ** -0.5, 1, 0, 1,
+            bh_kv, sq, skv, *widths, d ** -0.5, 1, 0, 1,
             build.stream(q.device)), "flash_attention")
         return out
     return run
@@ -94,7 +104,7 @@ def main(argv=None) -> int:
 
     card = chip_smoke.card_line()
     libs = {src.stem: build_source(src) for src in args.sources}
-    libs["new"] = build.library("flash_attention")
+    libs["new"] = (build.library("flash_attention"), True)
     olds = [tag for tag in libs if tag != "new"]
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     flush_buf = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
@@ -103,7 +113,7 @@ def main(argv=None) -> int:
                                dtype=torch.bfloat16)
                    for rows in (b * h, b * kh, b * kh))
         want = ref.attention_ref(q, k, v, causal=True).float()
-        fns = {tag: launcher(lib, q, k, v) for tag, lib in libs.items()}
+        fns = {tag: launcher(*lib, q, k, v) for tag, lib in libs.items()}
         for tag, fn in fns.items():
             err = float((fn().float() - want).abs().max())
             print(f"[ab] {name} {tag} max_abs_err={err:.3e}", flush=True)

@@ -20,8 +20,9 @@ itself).  Phases, each printing its numbers:
    call, and GB/s beside the time), the line kernels (popcount,
    toggle, byte LUT, BDI) bit-exact on a seeded 32 MiB bf16 tensor, with
    ``torch.take`` timed beside the byte LUT (run after phase 5); the
-   flash-attention kernel at the qwen2.5-3b prefill shape and at the MLA
-   prefill shape of deepseek-v2-lite-16b (q and k 192 wide, v 128);
+   flash-attention kernel at the qwen2.5-3b prefill shape, at the MLA
+   prefill shape of deepseek-v2-lite-16b (q and k 192 wide, v 128) and at
+   the cross-attention and encoder shapes (below);
 5. ``estimate`` end to end for 3 kinds x 4 modes through ``impl='cuda'``
    against ``impl='vectorized'`` (rtol 1e-5), surface summing to mean, pad
    rows and pad commands adding zero, every kernel of the path launched;
@@ -101,9 +102,32 @@ itself).  Phases, each printing its numbers:
    ``capacity_factor`` 16 layer by layer on the prefill's own inputs (the
    whole decode step's difference reported beside it), the report's
    ``'cuda'`` against ``'vectorized'``; flash must launch 27 times in the
-   prefill.
+   prefill;
+15. ``[serve-ssm]``: the entry point on mamba2-780m at full width and
+   depth (48 Mamba2 blocks, d_model 1536): batch 4, prompt 2048, 32 decode
+   tokens, the power report through ``'cuda'``; no flash launch; the same
+   bits twice, teacher forcing for two decode steps, layer 0's chunked
+   scan against its recurrence in float32 (the reference's bars);
+16. ``[serve-xattn]``: llama-3.2-vision-11b at full width and depth (40
+   layers, 8 cross-attention layers over 1601 patch embeddings): batch 4,
+   prompt 2048, 32 decode tokens; flash 40 times in the prefill (8 at Sq
+   2048 against 1601 keys) and 8 times a decode step (Sq = 1); on seeded
+   N(0, 1) embeddings every flash call against the plain attention and
+   teacher forcing;
+17. ``[serve-enc]``: whisper-small at its published widths and depth (12
+   encoder + 12 decoder layers, 1500 frames): batch 4, prompt 416, 32
+   decode tokens; flash 36 times in the prefill and 12 a decode step; the
+   checks of 16;
+18. ``[serve-hybrid]``: jamba's hybrid pattern at its smoke widths through
+   ``LM.prefill`` and ``decode_step``: one flash launch per period,
+   teacher forcing at ``capacity_factor`` 16.
 
-Each main path (5 to 14) runs with the kernels' launch counts set to 0
+Phase 4 also times the flash kernel at the shapes of 16 and 17 (the cross
+prefill, the encoder, a cross decode step at Sq = 1) and checks Sq = 1
+against 1500 and 1601 keys; ``[faults] F7`` shows that the kernel refuses
+inputs that require grad under grad mode (it has no backward).
+
+Each main path (5 to 18) runs with the kernels' launch counts set to 0
 just before it and read just after; every kernel must have been launched.
 Any failed check exits non-zero.  The last lines are one JSON object of
 per-kernel numbers, the card's ``name, power.limit`` line, and
@@ -114,6 +138,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -665,6 +690,110 @@ def flash_mla_kernel_phase(seed: int, card: str, device="cuda",
     return [row]
 
 
+def flash_cross_kernel_phase(seed: int, card: str, device="cuda",
+                             xattn=(4, 32, 8, 2048, 1601, 128),
+                             encoder=(4, 12, 1500, 64),
+                             decode_keys=(1500, 1601)) -> list[dict]:
+    """Phase 4, fifth part: the flash-attention kernel at the call shapes
+    of the cross-attention and encoder paths, non-causal bf16, each against
+    its plain version at atol 2e-2 and timed beside its bound and one
+    ``scaled_dot_product_attention`` call (k/v expanded to every q head):
+    llama-3.2-vision's cross prefill ``xattn`` = (B, H, Kh, Sq, Skv, D)
+    (q ``(B*H, Sq, D)`` over the 1601 patch embeddings' K/V ``(B*Kh, Skv,
+    D)``, group 4), whisper-small's encoder ``encoder`` = (B, H, S, D)
+    (group 1, S = 1500) and a cross-attention decode step (that q at
+    ``Sq = 1`` over the same K/V).  Checked only: ``Sq = 1`` against each
+    of ``decode_keys`` keys at groups 1 and 4, bf16 and float32 (atol
+    2e-5).  Their launches are those of ``[serve-xattn]`` and
+    ``[serve-enc]``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    gen = torch.Generator(device=device).manual_seed(seed + 9)
+
+    def qkv(rows, kv_rows, s_q, s_kv, dim, dtype=torch.bfloat16):
+        return tuple(torch.randn(*dims, generator=gen, device=device,
+                                 dtype=dtype)
+                     for dims in ((rows, s_q, dim), (kv_rows, s_kv, dim),
+                                  (kv_rows, s_kv, dim)))
+
+    decode_errs = {}
+    for skv in decode_keys:
+        for group in (1, 4):
+            for dtype in (torch.bfloat16, torch.float32):
+                d = 64 if skv == decode_keys[0] else 128
+                q, k, v = qkv(8 * group, 8, 1, skv, d, dtype)
+                got = fa.flash_attention(q, k, v, causal=False)
+                want = fa_ref.attention_ref(q, k, v, causal=False)
+                atol = FLASH_ATOL[str(dtype).split(".")[-1]]
+                err = float((got.float() - want.float()).abs().max())
+                check(bool(torch.isfinite(got).all()) and err <= atol,
+                      f"flash_attention Sq=1 Skv={skv} group {group} D={d} "
+                      f"{dtype}: max abs err {err:.3e} beyond atol {atol}")
+                decode_errs[skv, group, str(dtype).split(".")[-1]] = err
+
+    b, h, kh, sq, skv, d = xattn
+    eb, eh, es, ed = encoder
+    cases = {  # name: (B, H, Kh, Sq, Skv, D), what it is
+        "flash_attention_xattn": ((b, h, kh, sq, skv, d), "cross prefill"),
+        "flash_attention_encoder": ((eb, eh, eh, es, es, ed), "encoder"),
+        "flash_attention_xdecode": ((b, h, kh, 1, skv, d),
+                                    "cross decode, Sq = 1")}
+    flush_buf = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+    flush = flush_buf.zero_
+    rows = []
+    for name, ((cb, ch, ckh, csq, cskv, cd), what) in cases.items():
+        q, k, v = qkv(cb * ch, cb * ckh, csq, cskv, cd)
+        got = fa.flash_attention(q, k, v, causal=False)
+        want = fa_ref.attention_ref(q, k, v, causal=False)
+        err = float((got.float() - want.float()).abs().max())
+        atol = FLASH_ATOL["bfloat16"]
+        check(bool(torch.isfinite(got).all()) and err <= atol,
+              f"flash_attention {what} (BH={cb * ch}, Sq={csq}, "
+              f"BH_kv={cb * ckh}, Skv={cskv}, D={cd}): max abs err "
+              f"{err:.3e} beyond atol {atol}")
+        del got, want
+        q4 = q.view(cb, ch, csq, cd)
+        k4, v4 = (x.view(cb, ckh, cskv, cd).repeat_interleave(ch // ckh,
+                                                              dim=1)
+                  for x in (k, v))
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        ops = attention_flops(cb * ch, csq, cskv, cd, False)
+        row = dict(
+            name=name,
+            fn=lambda q=q, k=k, v=v: fa.flash_attention(q, k, v,
+                                                        causal=False),
+            plain=lambda q=q, k=k, v=v: fa_ref.attention_ref(q, k, v,
+                                                             causal=False),
+            library=lambda q4=q4, k4=k4, v4=v4:
+                F.scaled_dot_product_attention(q4, k4, v4),
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/flash_attention.py:73",
+            err=err, bound=bound(nbytes, ops, BF16_OPS_PER_S))
+        row["ms"] = event_ms(row["fn"], 20, flush)
+        row["plain_ms"] = event_ms(row["plain"], 3, flush)
+        row["library_ms"] = event_ms(row["library"], 20, flush)
+        print(f"[kernel] flash_attention ({what}): ms={row['ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.4f} "
+              f"bound_ms={row['bound'][0]:.4f} ({row['bound'][1]}) "
+              f"share_of_bound={row['bound'][0] / row['ms']:.3f} "
+              f"tflops={ops / row['ms'] / 1e9:.1f} "
+              f"library_ms={row['library_ms']:.4f} (sdpa, k/v expanded) "
+              f"max_abs_err={err:.3e} shape=(BH={cb * ch}, Sq={csq}, "
+              f"BH_kv={cb * ckh}, Skv={cskv}, D={cd}, group "
+              f"{ch // ckh}, non-causal, bf16) card=\"{card}\"", flush=True)
+        rows.append(row)
+        del q4, k4, v4
+    print(f"[kernel] flash_attention Sq=1 checks (BH_kv=8, non-causal): "
+          + " ".join(f"Skv={s_kv}/group{g}/{dt}={e:.3e}"
+                     for (s_kv, g, dt), e in decode_errs.items())
+          + f" card=\"{card}\"", flush=True)
+    del flush_buf
+    return rows
+
+
 def counters():
     from repro_torch.kernels.baseline_energy import baseline_energy as be
     from repro_torch.kernels.bdi import bdi
@@ -909,6 +1038,43 @@ def faults_phase(models, device="cuda") -> None:
           f"make_trace and by estimate in {n} (address, kind, impl, mode) "
           f"cases; a batch of empty traces gives zeros in 3 kinds x 4 modes "
           f"x 3 impls", flush=True)
+
+
+def f7_phase(card: str, device="cuda") -> None:
+    """``[faults] F7``: the card's flash attention has no backward, so a q
+    that requires grad under grad mode makes its wrapper raise; the same
+    call under ``torch.no_grad()`` runs and matches the plain version."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    gen = torch.Generator(device=device).manual_seed(21)
+    q, k, v = (torch.randn(8, 200, 64, generator=gen, device=device,
+                           dtype=torch.bfloat16) for _ in range(3))
+    q.requires_grad_(True)
+    before = fa.flash_attention.launches
+    try:
+        fa.flash_attention(q, k, v)
+    except RuntimeError as exc:
+        check("F7" in str(exc), f"F7: the refusal does not name F7: {exc}")
+        message = str(exc)
+    else:
+        raise CheckFailed("F7: a q that requires grad ran the card's flash "
+                          "attention under grad mode")
+    check(fa.flash_attention.launches == before,
+          "F7: the refused call launched the kernel")
+    with torch.no_grad():
+        got = fa.flash_attention(q, k, v)
+    err = float((got.float() - fa_ref.attention_ref(q, k, v).detach()
+                 .float()).abs().max())
+    check(fa.flash_attention.launches == before + 1
+          and err <= FLASH_ATOL["bfloat16"],
+          f"F7: under no_grad the kernel launched "
+          f"{fa.flash_attention.launches - before} times, err {err:.3e}")
+    print(f"[faults] F7: requires_grad q under grad mode refused "
+          f"(RuntimeError: {message[:60]}...); under no_grad it runs, max "
+          f"abs err {err:.3e} against the plain version card=\"{card}\"",
+          flush=True)
 
 
 PAPER_OWI_SAVING = 0.122      # the paper's average OWI energy reduction
@@ -1961,31 +2127,63 @@ def vocab_bar(got, want, vocab: int, rel: float = 0.15,
 def prefill_work(cfg, batch: int, seq: int, weight_bytes: int
                  ) -> tuple[float, str]:
     """The least time one prefill could take: the bf16 matrix products of
-    every layer over ``batch * seq`` tokens (MLA's projections; an MoE
-    layer's router, its routed tokens' ``top_k`` expert products and the
-    shared experts), causal attention, and the last position's
+    every layer over ``batch * seq`` tokens (GQA or MLA projections and
+    causal attention; an MoE layer's router, its routed tokens' ``top_k``
+    expert products and the shared experts; a Mamba2 layer's projections
+    in bf16 and its chunked scan in float32 at the float32 rate; a
+    cross-attention layer's query and output projections, the memory's
+    K/V projection and non-causal attention over ``aux_seq`` keys; the
+    encoder's layers over ``aux_seq`` frames), and the last position's
     unembedding, against reading every weight once."""
-    d, f, dh, h = cfg.d_model, cfg.d_ff, cfg.d_head, cfg.n_heads
-    t = batch * seq
-    if cfg.attn_kind == "mla":
-        m = cfg.mla
-        attn = (d * h * (m.d_nope + m.d_rope) + d * (m.kv_lora + m.d_rope)
-                + m.kv_lora * h * (m.d_nope + m.d_v) + h * m.d_v * d)
-        scores = attention_flops(batch * h, seq, seq, m.d_nope + m.d_rope,
-                                 True, dv=m.d_v)
-    else:
-        attn = d * (h + 2 * cfg.n_kv) * dh + h * dh * d
-        scores = attention_flops(batch * h, seq, seq, dh, True)
-    ops = 2 * batch * d * cfg.vocab_padded
+    d, f, dh, h, kv = (cfg.d_model, cfg.d_ff, cfg.d_head, cfg.n_heads,
+                       cfg.n_kv)
+    t, aux = batch * seq, cfg.aux_seq
+    gqa = d * (h + 2 * kv) * dh + h * dh * d
+    cross = (2 * t * 2 * d * h * dh + 2 * batch * aux * 2 * d * kv * dh
+             + attention_flops(batch * h, seq, aux, dh, False))
+    ops, f32_ops = 2 * batch * d * cfg.vocab_padded, 0
     for i in range(cfg.n_layers):
+        kind = cfg.layer_kind(i)
+        if kind == "attn" and cfg.attn_kind == "mla":
+            m = cfg.mla
+            ops += 2 * t * (d * h * (m.d_nope + m.d_rope)
+                            + d * (m.kv_lora + m.d_rope)
+                            + m.kv_lora * h * (m.d_nope + m.d_v)
+                            + h * m.d_v * d)
+            ops += attention_flops(batch * h, seq, seq, m.d_nope + m.d_rope,
+                                   True, dv=m.d_v)
+        elif kind == "attn":
+            ops += 2 * t * gqa + attention_flops(batch * h, seq, seq, dh,
+                                                 True)
+            if cfg.n_encoder_layers:
+                ops += cross
+        elif kind == "mamba":
+            s = cfg.ssm
+            di, nh = s.d_inner(d), s.n_heads(d)
+            gn = s.n_groups * s.d_state
+            ops += 2 * t * (d * (2 * di + 2 * gn + nh) + di * d)
+            cl = min(s.chunk, seq)
+            padded = -(-seq // cl) * cl
+            # C B^T within each chunk, its (cl x cl) weights times x, each
+            # chunk's state and the carried-in state's term
+            f32_ops += 2 * batch * padded * cl * (s.n_groups * s.d_state
+                                                  + nh * s.head_dim)
+            f32_ops += 2 * 2 * batch * padded * nh * s.d_state * s.head_dim
+        else:
+            ops += cross
         if cfg.is_moe_layer(i):
             e = cfg.moe
-            mlp = (d * e.n_experts + 3 * d * e.d_ff_expert
-                   * (e.top_k + e.n_shared))
-        else:
-            mlp = 3 * d * f
-        ops += 2 * t * (attn + mlp) + scores
-    return bound(weight_bytes, ops, BF16_OPS_PER_S)
+            ops += 2 * t * (d * e.n_experts + 3 * d * e.d_ff_expert
+                            * (e.top_k + e.n_shared))
+        elif f > 0:
+            ops += 2 * t * 3 * d * f
+    ta = batch * aux
+    ops += cfg.n_encoder_layers * (2 * ta * (gqa + 3 * d * f)
+                                   + attention_flops(batch * h, aux, aux,
+                                                     dh, False))
+    return bound(weight_bytes,
+                 ops + f32_ops * BF16_OPS_PER_S / FP32_OPS_PER_S,
+                 BF16_OPS_PER_S)
 
 
 def power_impls_agree(job, res: dict, traffic: float, logits,
@@ -2019,82 +2217,28 @@ def power_impls_agree(job, res: dict, traffic: float, logits,
 def serve_phase(seed: int, card: str, device="cuda", arch="qwen2.5-3b",
                 smoke=False, batch=4, prompt_len=2048,
                 decode_tokens=32) -> dict[str, int]:
-    """Phase 8: the serving entry point at full width through the entry point a
-    user calls, then its checks on weights drawn again from the same seed.
-    Returns the launches of the ``run``."""
+    """Phase 13, ``[serve]``: the serving entry point at full width
+    (:func:`serve_run`), flash launched once per layer of the prefill;
+    then teacher forcing, a prefill with the plain attention against the
+    kernel's, where the time goes and the power report's impls.  Returns
+    the launches of the ``run``."""
     import functools
     from unittest import mock
 
-    import numpy as np
-    import torch
-
-    from repro_torch.configs import registry
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.launch import serve
-    from repro_torch.models.lm import LM
-    cfg = registry.get_config(arch, smoke=smoke)
-    job = serve.ServeJob(arch=arch, smoke=smoke, batch=batch,
-                         prompt_len=prompt_len, decode_tokens=decode_tokens,
-                         seed=seed, power_report=True, power_impl="cuda",
-                         device=device)
-    reset_counters()
-    t0 = time.perf_counter()
-    res = serve.run(job)
-    run_s = time.perf_counter() - t0
-    launched = read_counters()
+    tag = "[serve]"
+    ctx = serve_run(tag, seed, card, device, arch, smoke, batch, prompt_len,
+                    decode_tokens)
+    cfg, lm, params, prompts = (ctx[k] for k in ("cfg", "lm", "params",
+                                                 "prompts"))
+    launched = ctx["launched"]
     check(launched["flash_attention"] == cfg.n_layers,
           f"serve: {launched['flash_attention']} flash-attention launches in "
           f"one prefill of {cfg.n_layers} layers")
-    pw = res["power"]
-    traffic = pw["traffic_bytes_per_step"]
-    check(res["tokens"].shape == (batch, decode_tokens),
-          f"serve: tokens of shape {res['tokens'].shape}")
-    check(bool((pw["ddr_energy_pj_per_seq_step"] > 0).all())
-          and pw["hbm_step_energy_uj"] > 0, "serve: energy not positive")
-
-    lm = LM(cfg)
-    params = lm.init(torch.Generator(device=device).manual_seed(seed))
-    weight_bytes = serve.tree_nbytes(params)
-    decode_bound = traffic / HBM_BYTES_PER_S * 1e3
-    prefill_bound = prefill_work(cfg, batch, prompt_len, weight_bytes)
-    print(f"[serve] {cfg.name}: layers={cfg.n_layers} d_model={cfg.d_model} "
-          f"heads={cfg.n_heads} kv={cfg.n_kv} d_ff={cfg.d_ff} "
-          f"vocab={cfg.vocab} dtype={cfg.dtype} weight_bytes={weight_bytes} "
-          f"batch={batch} prompt={prompt_len} decode_tokens={decode_tokens} "
-          f"run_s={run_s:.3f} card=\"{card}\"", flush=True)
-    print(f"[serve] prefill_s={res['prefill_s']:.4f} prefill_bound_ms="
-          f"{prefill_bound[0]:.3f} ({prefill_bound[1]}) decode_p50_ms="
-          f"{res['decode_p50_ms']:.3f} decode_p99_ms="
-          f"{res['decode_p99_ms']:.3f} tokens_per_s="
-          f"{res['tokens_per_s']:.1f} traffic_bytes_per_step={traffic:.0f} "
-          f"decode_bound_ms={decode_bound:.3f} decode_share_of_bound="
-          f"{decode_bound / max(res['decode_p50_ms'], 1e-9):.3f} "
-          f"flash_launches_per_prefill={launched['flash_attention']} "
-          f"card=\"{card}\"", flush=True)
-    svc = pw["serving"]
-    print(f"[serve] power[{pw['power_model']}] impl=cuda "
-          f"ddr_uj_per_token_mean={pw['ddr_energy_uj_per_token_mean']:.4f} "
-          f"hbm_step_uj={pw['hbm_step_energy_uj']:.2f} "
-          f"hbm_ones_frac={pw['hbm_ones_frac']:.6f} "
-          f"hbm_toggle_frac={pw['hbm_toggle_frac']:.6f} "
-          f"vendors={pw['vendors']} service: admitted={svc['admitted']} "
-          f"dispatches={svc['dispatches']} batch_fill={svc['batch_fill']} "
-          f"dispatch_p50_ms={svc['dispatch_p50_ms']:.3f} "
-          f"engine_programs={svc['engine_programs']}", flush=True)
-
-    # checks: teacher forcing, plain attention, the report's impls
-    rng = np.random.default_rng(seed)
-    prompts = torch.as_tensor(rng.integers(0, cfg.vocab,
-                                           size=(batch, prompt_len)),
-                              dtype=torch.long, device=device)
-    s = prompt_len - 1
+    tf_err, tf_bar, step = teacher_forcing(lm, params, prompts)
+    check(tf_err < tf_bar, f"serve: decode differs from the prefill by "
+                           f"{tf_err:.4f} (bar {tf_bar:.4f})")
     full, _ = lm.prefill(params, prompts)
-    _, caches = lm.prefill(params, prompts[:, :s], max_len=prompt_len)
-    step, _ = lm.decode_step(params, caches, prompts[:, s:])
-    tf_err, tf_bar = vocab_bar(step, full, cfg.vocab)
-    check(tf_err < tf_bar, f"serve: decode after a prefill of {s} differs "
-                           f"from the prefill of {s + 1} by {tf_err:.4f} "
-                           f"(bar {tf_bar:.4f})")
     plain_fn = functools.partial(fa_ops.flash_attention, use_kernel=False)
     with mock.patch.object(fa_ops, "flash_attention", plain_fn):
         plain, _ = lm.prefill(params, prompts)
@@ -2102,21 +2246,14 @@ def serve_phase(seed: int, card: str, device="cuda", arch="qwen2.5-3b",
     check(pl_err < pl_bar, f"serve: the kernel's prefill differs from the "
                            f"plain attention's by {pl_err:.4f} "
                            f"(bar {pl_bar:.4f})")
-    # where the time goes: a warm prefill and one decode step, profiled
-    prefill_ms = wall_ms(lambda: lm.prefill(params, prompts), 3)
-    device_profile(lambda: lm.prefill(params, prompts), "prefill (warm)",
-                   prefill_ms, card, tag="[serve]", top=6)
-    step_ms = wall_ms(lambda: lm.decode_step(params, caches,
-                                             prompts[:, s:]), 5)
-    device_profile(lambda: lm.decode_step(params, caches, prompts[:, s:]),
-                   "decode_step", step_ms, card, tag="[serve]", top=6)
-    err = power_impls_agree(job, res, traffic, step, "serve")
-    print(f"[serve] checks: teacher_forcing_err={tf_err:.4f} (bar "
+    where_time_goes(tag, lm, params, prompts, card)
+    err = power_impls_agree(ctx["job"], ctx["res"], ctx["traffic"], step,
+                            "serve")
+    print(f"{tag} checks: teacher_forcing_err={tf_err:.4f} (bar "
           f"{tf_bar:.4f}) plain_vs_kernel_err={pl_err:.4f} (bar "
           f"{pl_bar:.4f}) power cuda vs vectorized max_abs_err={err:.3e} "
           f"pJ (rtol {RTOL}) launches="
           f"{ {k: v for k, v in launched.items() if v} }", flush=True)
-    del params, caches
     return launched
 
 
@@ -2285,92 +2422,29 @@ def mla_teacher_forcing(lm, params, prompts, tag: str) -> str:
 def serve_mla_phase(seed: int, card: str, device="cuda",
                     arch="deepseek-v2-lite-16b", smoke=False, batch=4,
                     prompt_len=2048, decode_tokens=32) -> dict[str, int]:
-    """Phase 14: the serving entry point on deepseek-v2-lite-16b at full
-    width and depth (MLA + MoE, 27 layers, random bf16 weights from the
-    seed; the earlier phases' weights are released first), then its checks
-    on the weights drawn again once the run's are released: the same bits
-    from the same prompt twice (prefill and a decode step: the MoE combine
-    has no atomics), each layer's flash-attention output against the plain
-    attention on the same inputs (the flash bf16 bar), teacher forcing
-    (:func:`mla_teacher_forcing`), and the power report's ``'cuda'``
-    energies against ``'vectorized'``.  Returns the launches of the
-    ``run``."""
+    """Phase 14, ``[serve-mla]``: the serving entry point on
+    deepseek-v2-lite-16b at full width and depth (MLA + MoE, 27 layers;
+    :func:`serve_run`), flash launched once per layer of the prefill; then
+    the same bits from the same prompt twice (prefill and a decode step:
+    the MoE combine has no atomics), each layer's flash-attention output
+    against the plain attention on the same inputs (the flash bf16 bar),
+    teacher forcing (:func:`mla_teacher_forcing`), where the time goes and
+    the power report's impls.  Returns the launches of the ``run``."""
     import dataclasses
-    import gc
-    from unittest import mock
 
-    import numpy as np
     import torch
 
-    from repro_torch.configs import registry
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.launch import serve
     from repro_torch.models.lm import LM
-    gc.collect()
-    if device == "cuda":
-        torch.cuda.empty_cache()
     tag = "[serve-mla]"
-    cfg = registry.get_config(arch, smoke=smoke)
-    m, e = cfg.mla, cfg.moe
-    job = serve.ServeJob(arch=arch, smoke=smoke, batch=batch,
-                         prompt_len=prompt_len, decode_tokens=decode_tokens,
-                         seed=seed, power_report=True, power_impl="cuda",
-                         device=device)
-    reset_counters()
-    t0 = time.perf_counter()
-    res = serve.run(job)
-    run_s = time.perf_counter() - t0
-    launched = read_counters()
+    ctx = serve_run(tag, seed, card, device, arch, smoke, batch, prompt_len,
+                    decode_tokens)
+    cfg, lm, params, prompts = (ctx[k] for k in ("cfg", "lm", "params",
+                                                 "prompts"))
+    launched = ctx["launched"]
     check(launched["flash_attention"] == cfg.n_layers,
           f"serve-mla: {launched['flash_attention']} flash-attention "
           f"launches in one prefill of {cfg.n_layers} layers")
-    pw = res["power"]
-    traffic = pw["traffic_bytes_per_step"]
-    check(res["tokens"].shape == (batch, decode_tokens)
-          and bool((res["tokens"] < cfg.vocab).all()),
-          f"serve-mla: tokens of shape {res['tokens'].shape}")
-    check(bool((pw["ddr_energy_pj_per_seq_step"] > 0).all())
-          and pw["hbm_step_energy_uj"] > 0, "serve-mla: energy not positive")
-
-    lm = LM(cfg)
-    params = lm.init(torch.Generator(device=device).manual_seed(seed))
-    weight_bytes = serve.tree_nbytes(params)
-    decode_bound = traffic / HBM_BYTES_PER_S * 1e3
-    prefill_bound = prefill_work(cfg, batch, prompt_len, weight_bytes)
-    print(f"{tag} {cfg.name}: layers={cfg.n_layers} d_model={cfg.d_model} "
-          f"heads={cfg.n_heads} mla=(kv_lora {m.kv_lora}, d_nope "
-          f"{m.d_nope}, d_rope {m.d_rope}, d_v {m.d_v}) moe=({e.n_experts} "
-          f"experts top-{e.top_k} + {e.n_shared} shared, d_ff "
-          f"{e.d_ff_expert}, capacity_factor {e.capacity_factor}) "
-          f"vocab={cfg.vocab} dtype={cfg.dtype} weight_bytes={weight_bytes} "
-          f"batch={batch} prompt={prompt_len} decode_tokens={decode_tokens} "
-          f"run_s={run_s:.3f} card=\"{card}\"", flush=True)
-    print(f"{tag} prefill_s={res['prefill_s']:.4f} prefill_bound_ms="
-          f"{prefill_bound[0]:.3f} ({prefill_bound[1]}) decode_p50_ms="
-          f"{res['decode_p50_ms']:.3f} decode_p99_ms="
-          f"{res['decode_p99_ms']:.3f} tokens_per_s="
-          f"{res['tokens_per_s']:.1f} traffic_bytes_per_step={traffic:.0f} "
-          f"decode_bound_ms={decode_bound:.3f} decode_share_of_bound="
-          f"{decode_bound / max(res['decode_p50_ms'], 1e-9):.3f} "
-          f"flash_launches_per_prefill={launched['flash_attention']} "
-          f"card=\"{card}\"", flush=True)
-    svc = pw["serving"]
-    print(f"{tag} power[{pw['power_model']}] impl=cuda "
-          f"ddr_uj_per_token_mean={pw['ddr_energy_uj_per_token_mean']:.4f} "
-          f"hbm_step_uj={pw['hbm_step_energy_uj']:.2f} "
-          f"hbm_ones_frac={pw['hbm_ones_frac']:.6f} "
-          f"hbm_toggle_frac={pw['hbm_toggle_frac']:.6f} "
-          f"vendors={pw['vendors']} service: admitted={svc['admitted']} "
-          f"dispatches={svc['dispatches']} "
-          f"dispatch_p50_ms={svc['dispatch_p50_ms']:.3f} card=\"{card}\"",
-          flush=True)
-
-    rng = np.random.default_rng(seed)
-    prompts = torch.as_tensor(rng.integers(0, cfg.vocab,
-                                           size=(batch, prompt_len)),
-                              dtype=torch.long, device=device)
     s = prompt_len - 1
-    # the same bits twice
     first, caches = lm.prefill(params, prompts[:, :s], max_len=prompt_len)
     again, _ = lm.prefill(params, prompts[:, :s], max_len=prompt_len)
     step, _ = lm.decode_step(params, caches, prompts[:, s:])
@@ -2380,41 +2454,506 @@ def serve_mla_phase(seed: int, card: str, device="cuda",
           "serve-mla: logits not finite")
     check(torch.equal(first, again) and torch.equal(step, step2),
           "serve-mla: the same prompt gave other bits")
-    del again, step2
-    # each layer's kernel output against the plain attention's
-    errs = []
-    kernel = fa_ops.flash_attention
-
-    def both(q, k, v, **kw):
-        got = kernel(q, k, v, **kw)
-        want = kernel(q, k, v, use_kernel=False, **kw)
-        errs.append(float((got.float() - want.float()).abs().max()))
-        return got
-    with mock.patch.object(fa_ops, "flash_attention", both):
-        lm.prefill(params, prompts)
+    del first, again, step2, caches
+    _, calls = kernel_vs_plain(lambda: lm.prefill(params, prompts))
+    errs = [err for _, _, _, err, _ in calls]
     atol = FLASH_ATOL["bfloat16"]
     check(len(errs) == cfg.n_layers and max(errs) <= atol,
           f"serve-mla: per-layer kernel vs plain attention errors {errs} "
           f"(atol {atol})")
     tf_lm = LM(dataclasses.replace(cfg, moe=dataclasses.replace(
-        e, capacity_factor=16.0)))
+        cfg.moe, capacity_factor=16.0)))
     teacher = mla_teacher_forcing(tf_lm, params, prompts, tag)
-    # where the time goes: a warm prefill and one decode step, profiled
-    prefill_ms = wall_ms(lambda: lm.prefill(params, prompts), 2)
-    device_profile(lambda: lm.prefill(params, prompts), "prefill (warm)",
-                   prefill_ms, card, tag=tag, top=6)
-    step_ms = wall_ms(lambda: lm.decode_step(params, caches,
-                                             prompts[:, s:]), 5)
-    device_profile(lambda: lm.decode_step(params, caches, prompts[:, s:]),
-                   "decode_step", step_ms, card, tag=tag, top=8)
-    err = power_impls_agree(job, res, traffic, step, "serve-mla")
+    where_time_goes(tag, lm, params, prompts, card)
+    err = power_impls_agree(ctx["job"], ctx["res"], ctx["traffic"], step,
+                            "serve-mla")
     print(f"{tag} checks: same_bits_twice=True "
           f"plain_vs_kernel_max_err_by_layer={max(errs):.3e} (atol {atol}, "
           f"{len(errs)} layers) {teacher} power "
           f"cuda vs vectorized max_abs_err={err:.3e} pJ (rtol {RTOL}) "
           f"launches={ {k: v for k, v in launched.items() if v} } "
           f"card=\"{card}\"", flush=True)
-    del params, caches
+    return launched
+
+
+def flash_calls():
+    """A context manager that records every call the model layers make of
+    the flash-attention op as ``(q shape, k shape, causal)`` and passes it
+    on (the wrapper's own counter still counts the launches)."""
+    import contextlib
+    from unittest import mock
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    @contextlib.contextmanager
+    def recording():
+        calls = []
+        real = fa_ops.flash_attention
+
+        def rec(q, k, v, **kw):
+            calls.append((tuple(q.shape), tuple(k.shape),
+                          kw.get("causal", True)))
+            return real(q, k, v, **kw)
+        with mock.patch.object(fa_ops, "flash_attention", rec):
+            yield calls
+    return recording()
+
+
+def kernel_vs_plain(fn):
+    """Run ``fn`` with every flash-attention call of the model layers also
+    computed by the plain version on the same inputs.  Returns (fn's
+    result, [(q shape, k shape, causal, max abs err, max |plain|)])."""
+    from unittest import mock
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    errs = []
+    kernel = fa_ops.flash_attention
+
+    def both(q, k, v, **kw):
+        got = kernel(q, k, v, **kw)
+        want = kernel(q, k, v, use_kernel=False, **kw)
+        errs.append((tuple(q.shape), tuple(k.shape), kw.get("causal", True),
+                     float((got.float() - want.float()).abs().max()),
+                     float(want.float().abs().max())))
+        return got
+    with mock.patch.object(fa_ops, "flash_attention", both):
+        out = fn()
+    return out, errs
+
+
+def serve_run(tag: str, seed: int, card: str, device: str, arch: str,
+              smoke: bool, batch: int, prompt_len: int,
+              decode_tokens: int) -> dict:
+    """One run of the serving entry point (``launch.serve.run``, the power
+    report through ``'cuda'``) with the launch counts set to 0 just before
+    it and read just after, its flash calls by shape, and its numbers
+    beside their bounds; then the model's weights drawn again from the
+    seed for the phase's checks (the earlier phases' weights are released
+    first)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import LM
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    cfg = registry.get_config(arch, smoke=smoke)
+    job = serve.ServeJob(arch=arch, smoke=smoke, batch=batch,
+                         prompt_len=prompt_len, decode_tokens=decode_tokens,
+                         seed=seed, power_report=True, power_impl="cuda",
+                         device=device)
+    reset_counters()
+    t0 = time.perf_counter()
+    with flash_calls() as calls:
+        res = serve.run(job)
+    run_s = time.perf_counter() - t0
+    launched = read_counters()
+    pw = res["power"]
+    traffic = pw["traffic_bytes_per_step"]
+    check(res["tokens"].shape == (batch, decode_tokens)
+          and bool((res["tokens"] < cfg.vocab).all()),
+          f"{tag}: tokens of shape {res['tokens'].shape}")
+    check(bool((pw["ddr_energy_pj_per_seq_step"] > 0).all())
+          and pw["hbm_step_energy_uj"] > 0, f"{tag}: energy not positive")
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=device).manual_seed(seed))
+    weight_bytes = serve.tree_nbytes(params)
+    decode_bound = traffic / HBM_BYTES_PER_S * 1e3
+    prefill_bound = prefill_work(cfg, batch, prompt_len, weight_bytes)
+    kinds = {k: sum(cfg.layer_kind(i) == k for i in range(cfg.n_layers))
+             for k in dict.fromkeys(cfg.pattern)}
+    parts = " ".join(f"{name}={getattr(cfg, name)}"
+                     for name in ("mla", "moe", "ssm")
+                     if getattr(cfg, name) is not None)
+    print(f"{tag} {cfg.name}: layers={cfg.n_layers} {kinds} "
+          f"encoder_layers={cfg.n_encoder_layers} aux_seq={cfg.aux_seq} "
+          f"d_model={cfg.d_model} heads={cfg.n_heads} kv={cfg.n_kv} "
+          f"d_head={cfg.d_head} d_ff={cfg.d_ff} {parts} "
+          f"vocab={cfg.vocab} dtype={cfg.dtype} weight_bytes={weight_bytes} "
+          f"batch={batch} prompt={prompt_len} decode_tokens={decode_tokens} "
+          f"run_s={run_s:.3f} card=\"{card}\"", flush=True)
+    prefill_calls = sum(q[1] > 1 for q, _, _ in calls)
+    print(f"{tag} prefill_s={res['prefill_s']:.4f} prefill_bound_ms="
+          f"{prefill_bound[0]:.3f} ({prefill_bound[1]}) decode_p50_ms="
+          f"{res['decode_p50_ms']:.3f} decode_p99_ms="
+          f"{res['decode_p99_ms']:.3f} tokens_per_s="
+          f"{res['tokens_per_s']:.1f} traffic_bytes_per_step={traffic:.0f} "
+          f"decode_bound_ms={decode_bound:.3f} decode_share_of_bound="
+          f"{decode_bound / max(res['decode_p50_ms'], 1e-9):.3f} "
+          f"flash_launches={launched['flash_attention']} (prefill "
+          f"{prefill_calls}, decode {len(calls) - prefill_calls}) "
+          f"card=\"{card}\"", flush=True)
+    svc = pw["serving"]
+    print(f"{tag} power[{pw['power_model']}] impl=cuda "
+          f"ddr_uj_per_token_mean={pw['ddr_energy_uj_per_token_mean']:.4f} "
+          f"hbm_step_uj={pw['hbm_step_energy_uj']:.2f} "
+          f"hbm_ones_frac={pw['hbm_ones_frac']:.6f} "
+          f"hbm_toggle_frac={pw['hbm_toggle_frac']:.6f} "
+          f"vendors={pw['vendors']} service: admitted={svc['admitted']} "
+          f"dispatches={svc['dispatches']} batch_fill={svc['batch_fill']} "
+          f"dispatch_p50_ms={svc['dispatch_p50_ms']:.3f} "
+          f"engine_programs={svc['engine_programs']} card=\"{card}\"",
+          flush=True)
+    rng = np.random.default_rng(seed)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                           size=(batch, prompt_len)),
+                              dtype=torch.long, device=device)
+    return dict(cfg=cfg, job=job, res=res, launched=launched, calls=calls,
+                lm=lm, params=params, prompts=prompts, traffic=traffic)
+
+
+def teacher_forcing(lm, params, prompts, aux=None):
+    """Two decode steps after a prefill of all but the last two prompt
+    tokens, each against the prefill that ends at its token, at the
+    reference's bar (test_decode_matches_teacher_forcing).  Returns the
+    worst (err, bar) by err / bar and the last step's logits."""
+    s = prompts.shape[1] - 2
+    _, caches = lm.prefill(params, prompts[:, :s], aux=aux,
+                           max_len=s + 2)
+    worst = (0.0, 1.0)
+    for t in (s, s + 1):
+        want, _ = lm.prefill(params, prompts[:, :t + 1], aux=aux)
+        got, caches = lm.decode_step(params, caches, prompts[:, t:t + 1])
+        err, bar = vocab_bar(got, want, lm.cfg.vocab)
+        worst = max(worst, (err, bar), key=lambda e: e[0] / e[1])
+    return (*worst, got)
+
+
+def where_time_goes(tag: str, lm, params, prompts, card: str, aux=None):
+    """A warm prefill and one decode step, each on the host clock and
+    profiled on the card (the idle share is the rest)."""
+    s = prompts.shape[1] - 1
+    prefill_ms = wall_ms(lambda: lm.prefill(params, prompts, aux=aux), 2)
+    device_profile(lambda: lm.prefill(params, prompts, aux=aux),
+                   "prefill (warm)", prefill_ms, card, tag=tag, top=6)
+    _, caches = lm.prefill(params, prompts[:, :s], aux=aux,
+                           max_len=s + 1)
+
+    def step():
+        caches["pos"] = s             # the step rewrites slot s itself
+        return lm.decode_step(params, caches, prompts[:, s:])
+    step_ms = wall_ms(step, 5)
+    device_profile(step, "decode_step", step_ms, card, tag=tag, top=6)
+
+
+def rec_close(got, want, atol: float = 2e-3, rtol: float = 2e-2) -> float:
+    """|got - want| <= atol + rtol |want| element-wise (the reference's
+    chunked-vs-recurrent bars); returns the max abs error."""
+    err = (got.double() - want.double()).abs()
+    ok = bool((err <= atol + rtol * want.double().abs()).all())
+    check(ok, f"chunked scan against the recurrence: max abs err "
+              f"{float(err.max()):.3e} beyond atol {atol}, rtol {rtol}")
+    return float(err.max())
+
+
+def ssm_teacher_forcing(lm, params, prompts, tag: str) -> str:
+    """Teacher forcing of a Mamba2 model, three ways.  In float32 (the
+    weights cast from the run's bf16 draws): two decode steps after a
+    prefill of all but the last two prompt tokens, each against the
+    prefill ending at its token, at the reference's bar.  In the config
+    dtype, layer by layer on the prefill's own inputs: each layer's
+    chunked scan over all but the last token, then its one-token
+    recurrence on the last, against its chunked output over all the
+    tokens, at the same bar.  And
+    the whole bf16 step, reported beside them: with random weights a
+    one-ulp bf16 difference between the two paths grows from layer to
+    layer (the reference's own bf16 model reaches its bar at 12 layers).
+    Returns the summary."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import LM
+    cfg = lm.cfg
+
+    def f32(tree):
+        if isinstance(tree, dict):
+            return {k: f32(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [f32(v) for v in tree]
+        return tree.float()
+    lm32 = LM(dataclasses.replace(cfg, dtype="float32"))
+    err32, bar32, _ = teacher_forcing(lm32, f32(params), prompts)
+    check(err32 < bar32, f"{tag}: float32 decode differs from the prefill "
+                         f"by {err32:.5f} (bar {bar32:.4f})")
+    s = prompts.shape[1] - 1
+    rec = []
+    real = L.mamba_apply
+
+    def recording(p, x, c):
+        out = real(p, x, c)
+        rec.append((x.clone(), out[0][:, -1:].clone()))
+        return out
+    with mock.patch.object(L, "mamba_apply", recording):
+        lm.prefill(params, prompts)
+    worst, worst_layer = 0.0, 0
+    for i, p in enumerate(params["layers"]):
+        x, want = rec[i]
+        _, cache = L.mamba_apply(p["mixer"], x[:, :s], cfg)
+        got, _ = L.mamba_decode(p["mixer"], x[:, s:], cache, cfg)
+        err, bar = vocab_bar(got, want, cfg.d_model)
+        check(err < bar, f"{tag} layer {i}: the recurrence differs from "
+                         f"the chunked scan by {err:.4f} (bar {bar:.4f})")
+        if err / bar > worst:
+            worst, worst_layer = err / bar, i
+    err16, bar16, _ = teacher_forcing(lm, params, prompts)
+    return (f"teacher forcing (two steps after a prefill of {s - 1}): "
+            f"float32 err={err32:.5f} (bar {bar32:.4f}); {cfg.dtype} by "
+            f"layer on the prefill's inputs worst err/bar {worst:.3f} "
+            f"(layer {worst_layer} of {len(rec)}); {cfg.dtype} whole step "
+            f"err={err16:.4f} (bar {bar16:.4f}, reported)")
+
+
+def serve_ssm_phase(seed: int, card: str, device="cuda", arch="mamba2-780m",
+                    smoke=False, batch=4, prompt_len=2048, decode_tokens=32,
+                    scan_len=600) -> dict[str, int]:
+    """Phase 15, ``[serve-ssm]``: the serving entry point on mamba2-780m at
+    full width and depth (48 Mamba2 blocks, d_model 1536, no attention:
+    the flash kernel must launch 0 times), then its checks: the same bits
+    from the same prompt twice (prefill, the state and conv caches, a
+    decode step), teacher forcing at the reference's bar for two decode
+    steps after a prefill of ``prompt_len - 2`` tokens (not a multiple of
+    the chunk: the front pad runs), layer 0's chunked scan against its
+    one-token recurrence in float32 over ``scan_len`` tokens at the
+    reference's bars, the power report's ``'cuda'`` against
+    ``'vectorized'``, and where the time goes.  Returns the launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import layers as L
+    tag = "[serve-ssm]"
+    ctx = serve_run(tag, seed, card, device, arch, smoke, batch, prompt_len,
+                    decode_tokens)
+    cfg, lm, params, prompts = (ctx[k] for k in ("cfg", "lm", "params",
+                                                 "prompts"))
+    launched = ctx["launched"]
+    check(launched["flash_attention"] == 0 and not ctx["calls"],
+          f"{tag}: {launched['flash_attention']} flash launches in a model "
+          "with no attention")
+    s = prompt_len - 2
+    first, caches = lm.prefill(params, prompts[:, :s], max_len=prompt_len)
+    again, caches2 = lm.prefill(params, prompts[:, :s], max_len=prompt_len)
+    step, _ = lm.decode_step(params, caches, prompts[:, s:s + 1])
+    step2, _ = lm.decode_step(params, caches2, prompts[:, s:s + 1])
+    check(bool(torch.isfinite(first[:, :cfg.vocab]).all())
+          and bool(torch.isfinite(step[:, :cfg.vocab]).all()),
+          f"{tag}: logits not finite")
+    check(torch.equal(first, again) and torch.equal(step, step2)
+          and all(torch.equal(caches[sub][n], caches2[sub][n])
+                  for sub in caches if sub != "pos" for n in caches[sub]),
+          f"{tag}: the same prompt gave other bits")
+    del first, again, caches, caches2
+    teacher = ssm_teacher_forcing(lm, params, prompts, tag)
+    # layer 0's chunked scan against the recurrence, in float32
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p0 = {k: v.float() for k, v in params["layers"][0]["mixer"].items()}
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    x = torch.randn(2, scan_len, cfg.d_model, generator=gen,
+                    device=device) * 0.3
+    full, final = L.mamba_apply(p0, x, cfg32)
+    meta = lm.init_cache_meta(2, 1)["sub0"]
+    cache = {k: torch.zeros(m.shape[1:], dtype=torch.float32, device=device)
+             for k, m in meta.items()}
+    outs = [L.mamba_decode(p0, x[:, t:t + 1], cache, cfg32)[0]
+            for t in range(scan_len)]
+    scan_err = rec_close(torch.cat(outs, 1), full)
+    state_err = rec_close(cache["state"], final["state"])
+    del full, final, outs, cache
+    where_time_goes(tag, lm, params, prompts, card)
+    err = power_impls_agree(ctx["job"], ctx["res"], ctx["traffic"], step,
+                            "serve-ssm")
+    print(f"{tag} checks: same_bits_twice=True {teacher} "
+          f"chunked_vs_recurrent (layer 0, float32, S={scan_len}, "
+          f"chunk {cfg.ssm.chunk}) out_err={scan_err:.3e} state_err="
+          f"{state_err:.3e} (atol 2e-3, rtol 2e-2) power cuda vs vectorized "
+          f"max_abs_err={err:.3e} pJ (rtol {RTOL}) launches="
+          f"{ {k: v for k, v in launched.items() if v} } card=\"{card}\"",
+          flush=True)
+    return launched
+
+
+def cross_checks(tag: str, ctx: dict, seed: int, card: str, device: str,
+                 expect: dict[str, int], classes) -> dict[str, int]:
+    """The checks of a model that cross-attends: the run's flash calls by
+    class (``classes(calls)`` -> counts, held to ``expect``); then on
+    seeded N(0, 1) aux embeddings (zeros make every cross K/V zero and the
+    kernel's comparison trivial) every flash call of a prefill and a
+    decode step against the plain attention on the same inputs (the bf16
+    bar), and teacher forcing at the reference's bar; where the time goes;
+    the power report's impls.  Returns the class counts."""
+    import numpy as np
+    import torch
+    cfg, lm, params, prompts = (ctx[k] for k in ("cfg", "lm", "params",
+                                                 "prompts"))
+    got = classes(ctx["calls"])
+    check(got == expect and ctx["launched"]["flash_attention"]
+          == len(ctx["calls"]),
+          f"{tag}: flash calls {got} (want {expect}), launches "
+          f"{ctx['launched']['flash_attention']}")
+    aux = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (prompts.shape[0], cfg.aux_seq, cfg.d_model)),
+        dtype=torch.float32).to(device, getattr(torch, cfg.dtype))
+    s = prompts.shape[1] - 1
+
+    def prefill_and_step():
+        _, caches = lm.prefill(params, prompts[:, :s], aux=aux,
+                               max_len=s + 1)
+        return lm.decode_step(params, caches, prompts[:, s:])
+    (step, _), errs = kernel_vs_plain(prefill_and_step)
+    atol = FLASH_ATOL["bfloat16"]
+    by_class, ulps = {}, 0.0
+    for q, k, causal, err, amax in errs:
+        name = ("decode" if q[1] == 1 else "causal" if causal
+                else "encoder" if q[1] == k[1] == cfg.aux_seq
+                and cfg.n_encoder_layers else "cross")
+        by_class[name] = max(by_class.get(name, 0.0), err)
+        if causal:
+            # the self-attention layers behind a cross layer: one bf16 ulp
+            # of the largest output (2e-2 is under one ulp from 4 up)
+            ulp = 2.0 ** (math.floor(math.log2(max(amax, 1e-30))) - 7)
+            ulps = max(ulps, err / ulp)
+            check(err <= max(atol, ulp), f"{tag}: a causal call's kernel "
+                                         f"output differs from the plain "
+                                         f"attention's by {err:.3e}, more "
+                                         f"than one ulp ({ulp:.3e})")
+    check(bool(torch.isfinite(step[:, :cfg.vocab]).all())
+          and max(v for k, v in by_class.items() if k != "causal") <= atol,
+          f"{tag}: kernel vs plain attention, worst by call class "
+          f"{by_class} (atol {atol} but causal)")
+    tf_err, tf_bar, _ = teacher_forcing(lm, params, prompts, aux=aux)
+    check(tf_err < tf_bar, f"{tag}: decode differs from the prefill by "
+                           f"{tf_err:.4f} (bar {tf_bar:.4f})")
+    where_time_goes(tag, lm, params, prompts, card, aux=aux)
+    err = power_impls_agree(ctx["job"], ctx["res"], ctx["traffic"], step,
+                            tag)
+    print(f"{tag} checks: flash calls {got} over the run; on seeded N(0, 1) "
+          f"aux, kernel vs plain attention worst by call class "
+          f"{ {k: float(f'{v:.3e}') for k, v in by_class.items()} } "
+          f"({len(errs)} calls; atol {atol}, causal calls within "
+          f"{ulps:.2f} ulp of their largest output) teacher_forcing_err="
+          f"{tf_err:.4f} (bar {tf_bar:.4f}) power cuda vs vectorized "
+          f"max_abs_err={err:.3e} pJ launches="
+          f"{ {k: v for k, v in ctx['launched'].items() if v} } "
+          f"card=\"{card}\"", flush=True)
+    return got
+
+
+def serve_xattn_phase(seed: int, card: str, device="cuda",
+                      arch="llama-3.2-vision-11b", smoke=False, batch=4,
+                      prompt_len=2048, decode_tokens=32
+                      ) -> tuple[dict[str, int], dict[str, int]]:
+    """Phase 16, ``[serve-xattn]``: the serving entry point on
+    llama-3.2-vision-11b at full width and depth (40 layers, d_model 4096,
+    8 cross-attention layers over 1601 patch embeddings; the run feeds
+    zeros, as the reference does): one flash launch per layer in the
+    prefill (32 causal, 8 cross at Sq = prompt against 1601 keys) and one
+    per cross layer in each decode step (Sq = 1); then
+    :func:`cross_checks`.  Returns the launches and the call counts."""
+    tag = "[serve-xattn]"
+    ctx = serve_run(tag, seed, card, device, arch, smoke, batch, prompt_len,
+                    decode_tokens)
+    cfg = ctx["cfg"]
+    n_cross = sum(cfg.layer_kind(i) == "xattn" for i in range(cfg.n_layers))
+
+    def classes(calls):
+        return {"causal": sum(c for _, _, c in calls),
+                "cross": sum(not c and q[1] > 1 for q, _, c in calls),
+                "decode": sum(q[1] == 1 for q, _, _ in calls)}
+    expect = {"causal": cfg.n_layers - n_cross, "cross": n_cross,
+              "decode": n_cross * (decode_tokens - 1)}
+    return ctx["launched"], cross_checks(tag, ctx, seed, card, device,
+                                         expect, classes)
+
+
+def serve_enc_phase(seed: int, card: str, device="cuda", arch="whisper-small",
+                    smoke=False, batch=4, prompt_len=416, decode_tokens=32
+                    ) -> tuple[dict[str, int], dict[str, int]]:
+    """Phase 17, ``[serve-enc]``: the serving entry point on whisper-small
+    at its published widths and depth (12 encoder layers over 1500 frames,
+    12 decoder layers each with cross-attention; prompt 416 + 32 decode
+    tokens = the 448-token text context): the prefill launches flash once
+    per encoder layer (non-causal, 1500 x 1500), once per decoder layer's
+    self-attention (causal) and once per cross-attention (416 against 1500
+    keys), and each decode step once per cross-attention (Sq = 1); then
+    :func:`cross_checks`.  Returns the launches and the call counts."""
+    tag = "[serve-enc]"
+    ctx = serve_run(tag, seed, card, device, arch, smoke, batch, prompt_len,
+                    decode_tokens)
+    cfg = ctx["cfg"]
+    n_enc, n_dec = cfg.n_encoder_layers, cfg.n_layers
+
+    def classes(calls):
+        enc = calls[:n_enc]
+        return {"encoder": sum(not c and q[1] == k[1] == cfg.aux_seq
+                               for q, k, c in enc),
+                "causal": sum(c for _, _, c in calls),
+                "cross": sum(not c and q[1] > 1 for q, _, c in calls[n_enc:]),
+                "decode": sum(q[1] == 1 for q, _, _ in calls)}
+    expect = {"encoder": n_enc, "causal": n_dec, "cross": n_dec,
+              "decode": n_dec * (decode_tokens - 1)}
+    return ctx["launched"], cross_checks(tag, ctx, seed, card, device,
+                                         expect, classes)
+
+
+def serve_hybrid_phase(seed: int, card: str, device="cuda",
+                       arch="jamba-1.5-large-398b", batch=4,
+                       prompt_len=64) -> dict[str, int]:
+    """Phase 18, ``[serve-hybrid]``: jamba's hybrid pattern (Mamba2 and
+    attention 1:7, MoE every second layer) at its smoke widths (at its
+    published widths it is 397.7 B parameters, 795 GB in bf16: more than
+    one card), through ``LM.prefill`` and ``decode_step`` with
+    ``capacity_factor`` 16 (no drops, as the reference's test): one flash
+    launch per period in the prefill (d_head 16 on the (64, 64) instance),
+    teacher forcing at the reference's bar.  Returns the launches."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models.lm import LM
+    tag = "[serve-hybrid]"
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    cfg = registry.get_config(arch, smoke=True)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=16.0))
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=device).manual_seed(seed))
+    prompts = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, size=(batch, prompt_len)), dtype=torch.long,
+        device=device)
+    reset_counters()
+    with flash_calls() as calls:
+        _, caches = lm.prefill(params, prompts[:, :-2], max_len=prompt_len)
+        in_prefill = len(calls)
+        for t in (prompt_len - 2, prompt_len - 1):
+            logits, caches = lm.decode_step(params, caches,
+                                            prompts[:, t:t + 1])
+    launched = read_counters()
+    periods = cfg.n_layers // lm.period
+    check(in_prefill == periods and launched["flash_attention"] == periods
+          and bool(torch.isfinite(logits[:, :cfg.vocab]).all()),
+          f"{tag}: {in_prefill} flash calls in the prefill, "
+          f"{launched['flash_attention']} launches (want {periods}, one a "
+          "period)")
+    tf_err, tf_bar, _ = teacher_forcing(lm, params, prompts)
+    check(tf_err < tf_bar, f"{tag}: decode differs from the prefill by "
+                           f"{tf_err:.4f} (bar {tf_bar:.4f})")
+    print(f"{tag} {cfg.name}: layers={cfg.n_layers} pattern={cfg.pattern} "
+          f"moe every {cfg.moe.every} (capacity_factor 16) d_model="
+          f"{cfg.d_model} d_head={cfg.d_head} batch={batch} prompt="
+          f"{prompt_len}: flash launches in the prefill {in_prefill} (one a "
+          f"period), teacher_forcing_err={tf_err:.4f} (bar {tf_bar:.4f}) "
+          f"launches={ {k: v for k, v in launched.items() if v} } "
+          f"card=\"{card}\"", flush=True)
     return launched
 
 
@@ -2482,7 +3021,8 @@ def main(argv=None) -> int:
     # after phase 5, whose timings then run before any profiler session)
     charge = kernel_phase(tb, models, card)
     flash = (flash_kernel_phase(args.seed, card)
-             + flash_mla_kernel_phase(args.seed, card))
+             + flash_mla_kernel_phase(args.seed, card)
+             + flash_cross_kernel_phase(args.seed, card))
 
     # phase 5: the estimation path end to end
     launches, times = e2e_phase(tb, trs, models,
@@ -2494,13 +3034,15 @@ def main(argv=None) -> int:
     toggles_gib_phase(args.seed, card)
     oracle_phase(models, trs)
     faults_phase(models)
+    f7_phase(card)
     analysis_phase(tb, models["vampire"], card)
     autotune_phase(card)
     del tb
 
-    # phases 6-14: the encoding study, the HBM statistics, the
+    # phases 6-18: the encoding study, the HBM statistics, the
     # characterization campaign, fleet scale, validation, the Section 9.3
-    # applications, online recalibration, serving (GQA, then MLA + MoE)
+    # applications, online recalibration, serving (GQA, MLA + MoE, Mamba2,
+    # cross-attention, the encoder, the hybrid)
     paths = [study_phase(args.seed, models["vampire"], card),
              hbm_phase(args.seed, models["vampire"], card),
              campaign_phase(card), fleet_phase(card)]
@@ -2513,13 +3055,29 @@ def main(argv=None) -> int:
     t3 = time.perf_counter()
     print(f"[phases] validation_s={t1 - t0:.3f} apps_s={t2 - t1:.3f} "
           f"recal_s={t3 - t2:.3f} (wall, kernel rows included)", flush=True)
+    t0 = time.perf_counter()
     paths.append(serve_phase(args.seed, card))
-    paths.append(serve_mla_phase(args.seed, card))
+    mla = serve_mla_phase(args.seed, card)
+    t1 = time.perf_counter()
+    paths += [mla, serve_ssm_phase(args.seed, card)]
+    t2 = time.perf_counter()
+    xattn, xattn_calls = serve_xattn_phase(args.seed, card)
+    enc, enc_calls = serve_enc_phase(args.seed, card)
+    paths += [xattn, enc, serve_hybrid_phase(args.seed, card)]
+    print(f"[phases] serve+serve-mla_s={t1 - t0:.3f} serve-ssm_s="
+          f"{t2 - t1:.3f} xattn+enc+hybrid_s={time.perf_counter() - t2:.3f}"
+          " (wall)", flush=True)
     for path in paths:
         for name, c in path.items():
             launches[name] += c
-    # the MLA row's launches: those of the deepseek prefill
-    launches["flash_attention_mla"] = paths[-1]["flash_attention"]
+    # the flash rows of other shapes: the launches of their paths at those
+    # shapes (the deepseek prefill; the cross and encoder calls and the
+    # Sq = 1 decode calls of llama-3.2-vision and whisper)
+    launches["flash_attention_mla"] = mla["flash_attention"]
+    launches["flash_attention_xattn"] = xattn_calls["cross"]
+    launches["flash_attention_encoder"] = enc_calls["encoder"]
+    launches["flash_attention_xdecode"] = (xattn_calls["decode"]
+                                           + enc_calls["decode"])
     for r in rows:
         check(launches[r["name"]] > 0,
               f"kernel {r['name']} was not launched on a main path")

@@ -9,13 +9,15 @@ file) into the port's tensors.
   the neutral all-ones surface when absent, and the low-power LUT entries
   defaulting to the fast power-down current ``i_pd``.
 * :func:`fleet_model_from_numpy` — a whole ``FleetModel``.
-* :func:`lm_params_from_jax` / :func:`lm_caches_from_jax` — the
-  decoder's parameters (``repro.models.lm.LM.init``'s tree, each
-  sub-layer of the period stacked on a leading layer axis; GQA or MLA
-  mixers, MLP or MoE with its nested ``shared`` experts) and a prefill's
-  decode cache (K/V or the MLA latent ``ckv`` and RoPE key ``kr``), as
-  numpy arrays, into the port's per-layer parameter dicts and stacked
-  cache tensors.
+* :func:`lm_params_from_jax` / :func:`lm_caches_from_jax` — the LM's
+  parameters (``repro.models.lm.LM.init``'s tree, each sub-layer of the
+  period stacked on a leading layer axis: GQA, MLA, Mamba2 or
+  cross-attention mixers, an optional per-layer ``xattn``, an MLP, MoE
+  with its nested ``shared`` experts or none; the encoder's layers
+  stacked over ``n_encoder_layers``) and a prefill's decode cache (K/V,
+  the MLA latent ``ckv`` and RoPE key ``kr``, Mamba2's ``state`` and
+  ``conv``, the cross K/V), as numpy arrays, into the port's per-layer
+  parameter dicts and stacked cache tensors.
 """
 from __future__ import annotations
 
@@ -107,26 +109,35 @@ def _layer_slice(tree, i: int, device):
 
 def lm_params_from_jax(params_np: dict, cfg, device="cpu") -> dict:
     """The reference LM's parameter tree (numpy leaves: ``embed``,
-    ``final_norm``, optional ``unembed``, and ``layers/sub{j}/{mixer,mlp}``
-    nests stacked on a leading axis over the layers ``j, j + period, ...``)
-    -> the port's ``LM`` parameters: one dict per layer."""
+    ``final_norm``, optional ``unembed``, ``layers/sub{j}/{mixer, xattn,
+    mlp}`` nests stacked on a leading axis over the layers ``j, j +
+    period, ...``, and with an encoder ``encoder/layers/{attn, mlp}``
+    stacked over its ``n_encoder_layers`` and ``encoder/final_norm``) ->
+    the port's ``LM`` parameters: one dict per layer, with the parts that
+    layer has."""
     layers = params_np["layers"]
     period = len(layers)
     out = {name: _tensor(params_np[name], device)
            for name in ("embed", "final_norm", "unembed")
            if name in params_np}
     out["layers"] = [
-        {part: _layer_slice(layers[f"sub{i % period}"][part], i // period,
-                            device)
-         for part in ("mixer", "mlp")}
+        {part: _layer_slice(tree, i // period, device)
+         for part, tree in layers[f"sub{i % period}"].items()}
         for i in range(cfg.n_layers)]
+    if "encoder" in params_np:
+        enc = params_np["encoder"]
+        out["encoder"] = {
+            "layers": [_layer_slice(enc["layers"], i, device)
+                       for i in range(cfg.n_encoder_layers)],
+            "final_norm": _tensor(enc["final_norm"], device)}
     return out
 
 
 def lm_caches_from_jax(caches_np: dict, device="cpu") -> dict:
     """A reference prefill's decode cache (numpy leaves) -> the port's:
-    the same stacked K/V (and scale) or ``ckv``/``kr`` tensors under each
-    ``sub{j}``, ``pos`` as an int."""
+    the same stacked tensors (K/V and scales, ``ckv``/``kr``, ``state``/
+    ``conv``, cross K/V) under each ``sub{j}`` and ``sub{j}_x``, ``pos``
+    as an int."""
     out = {sub: {name: _tensor(x, device) for name, x in leaves.items()}
            for sub, leaves in caches_np.items() if sub != "pos"}
     out["pos"] = int(np.asarray(caches_np["pos"]))

@@ -4,9 +4,11 @@
 :func:`flash_attention` launches the kernel for CUDA tensors (and raises on
 anything it cannot take) and uses the plain version of ``ref.py`` only for
 tensors on the CPU.  ``flash_attention.launches`` counts the kernel
-launches.  Unlike the Pallas kernel, the lengths need not be multiples of
-a tile: the kernel masks the ragged edge itself, and v may be narrower than
-q and k (MLA's 128-wide values under 192-wide queries and keys).
+launches.  The kernel has no backward (ROADMAP F7): :func:`refuse_grad`
+stops a launch whose inputs would need one.  Unlike the Pallas kernel,
+the lengths need not be multiples of a tile: the kernel masks the ragged
+edge itself, and v may be narrower than q and k (MLA's 128-wide values
+under 192-wide queries and keys).
 """
 from __future__ import annotations
 
@@ -36,6 +38,19 @@ def kernel_takes(d: int, dv: int, dtype: torch.dtype) -> bool:
     return dv == d <= 128 or (d <= 192 and dv <= 128)
 
 
+def refuse_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """F7's guard: raise when grad mode is on and q, k or v requires grad.
+    The kernel's output has no ``grad_fn``, so a backward through it would
+    leave the attention's projections without gradients and say nothing;
+    the plain version (CPU tensors) stays differentiable."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention (F7): an input requires grad under grad mode, "
+            "but the card's attention has no backward yet (ROADMAP queue 1 "
+            "item 3); call it under torch.no_grad() or on tensors that do "
+            "not require grad")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, sm_scale: float | None = None,
                     q_offset: int = 0) -> torch.Tensor:
@@ -54,6 +69,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if on_cpu(q, k, v):
         return ref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale,
                                  q_offset=q_offset)
+    refuse_grad(q, k, v)
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash_attention takes bfloat16 or float32, not "
                         f"{q.dtype}")

@@ -1,11 +1,18 @@
-"""Serving entry point: batched prefill + KV-cached decode of a decoder (GQA
-or MLA, dense or MoE), with per-token latency and the decode step's memory
-energy scored by the paper's power model.
+"""Serving entry point: batched prefill + cached decode of any of the ten
+architectures (GQA or MLA decoders, dense or MoE; Mamba2 and the jamba
+hybrid; whisper's encoder-decoder and llama-3.2-vision's cross-attention
+decoder), with per-token latency and the decode step's memory energy
+scored by the paper's power model.
 
-A port of ``repro.launch.serve`` for one card.  Prefill runs every layer's
-attention through the hand-written flash-attention kernel; decode runs
-``decode_attention`` over the K/V cache, or MLA's absorbed-matrix
-attention over the latent cache.
+A port of ``repro.launch.serve`` for one card.  Prefill runs every
+attention layer (self, cross and the encoder's) through the hand-written
+flash-attention kernel and Mamba2's chunked scan in eager torch; decode
+runs ``decode_attention`` over the K/V cache, MLA's absorbed-matrix
+attention over the latent cache, Mamba2's one-token recurrence, and
+cross-attention through the flash kernel at one query.  Where the config
+cross-attends (``aux_seq``), the stub frontend's embeddings are zeros of
+shape ``(batch, aux_seq, d_model)`` in the config dtype, as in the
+reference.
 
 ``--power-report`` turns on the power side: the decode step's device-memory
 traffic (:func:`decode_traffic_bytes`, an analytic count of the bytes one
@@ -24,6 +31,8 @@ committed quick fit when omitted).
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-v2-lite-16b --no-smoke --prompt-len 2048 \\
         --power-report --power-impl cuda        # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+        --no-smoke --prompt-len 2048 --power-report --power-impl cuda
 
 Weights are random, drawn from ``--seed`` by a ``torch.Generator``;
 temperature sampling draws from a generator seeded from ``--seed`` too, so
@@ -90,8 +99,13 @@ def run(job: ServeJob) -> dict:
         rng.integers(0, cfg.vocab, size=(job.batch, job.prompt_len)),
         dtype=torch.long, device=device)
 
+    aux = None
+    if cfg.aux_seq:
+        aux = torch.zeros((job.batch, cfg.aux_seq, cfg.d_model),
+                          dtype=getattr(torch, cfg.dtype), device=device)
+
     t0 = time.perf_counter()
-    logits, caches = lm.prefill(params, prompts, max_len=max_len)
+    logits, caches = lm.prefill(params, prompts, aux=aux, max_len=max_len)
     _sync(device)
     t_prefill = time.perf_counter() - t0
 
@@ -147,17 +161,22 @@ def decode_traffic_bytes(lm: LM, params, caches, batch: int) -> float:
     """The device-memory bytes one decode step must move: every parameter
     byte read once (MoE included: the dispatch runs every expert on its
     ``cap >= 8`` slots), every cache byte read once (``decode_attention``
-    and ``mla_decode`` read the whole ``max_len`` cache under their mask),
-    the new slots written (K/V and their scales, or the MLA latent and RoPE
-    key), and the float32 logits written.  The reference counts the
-    compiled step's HLO traffic instead."""
+    and ``mla_decode`` read the whole ``max_len`` cache under their mask,
+    cross-attention the whole memory), the new self-attention slots
+    written (K/V and their scales, or the MLA latent and RoPE key), Mamba2's
+    state and conv window written whole, and the float32 logits written.
+    The reference counts the compiled step's HLO traffic instead."""
     layer_caches = {k: v for k, v in caches.items() if k != "pos"}
-    cache_bytes = tree_nbytes(layer_caches)
-    # every cache leaf is (layers, batch, max_len, ...)
-    max_len = next(iter(next(iter(layer_caches.values())).values())).shape[2]
-    new_slots = cache_bytes // max_len
+    written = 0
+    for sub, leaves in layer_caches.items():
+        for name, t in leaves.items():
+            if lm.grows(sub, name):        # (layers, batch, max_len, ...)
+                written += tree_nbytes(t) // t.shape[2]
+            elif name in ("state", "conv"):
+                written += tree_nbytes(t)
     logits = batch * lm.cfg.vocab_padded * 4
-    return float(tree_nbytes(params) + cache_bytes + new_slots + logits)
+    return float(tree_nbytes(params) + tree_nbytes(layer_caches) + written
+                 + logits)
 
 
 def _load_estimator(job: ServeJob, device):

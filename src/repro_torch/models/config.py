@@ -1,6 +1,5 @@
 """Model configuration shared by all 10 assigned architectures (a copy of
-``repro.models.config``: pure Python, no JAX).  The port runs the GQA
-and MLA decoders, dense or MoE; ``models.lm.LM`` refuses the others."""
+``repro.models.config``: pure Python, no JAX)."""
 from __future__ import annotations
 
 import dataclasses

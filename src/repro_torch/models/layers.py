@@ -1,9 +1,9 @@
 """Model layers: norms, RoPE, blockwise (flash) attention with GQA, the
-KV-cached decode step, MLA (DeepSeek-V2's latent attention), the gated MLP
-and MoE.
+KV-cached decode step, cross-attention, MLA (DeepSeek-V2's latent
+attention), the gated MLP, MoE and Mamba2 (the chunked SSD scan and its
+one-token recurrence).
 
-A port of ``repro.models.layers`` but Mamba2, cross-attention and the
-shard-mapped MoE.
+A port of ``repro.models.layers`` but the shard-mapped MoE.
 
 Conventions
 -----------
@@ -18,18 +18,29 @@ Conventions
   version for CPU tensors.  In the reference the pure-jnp blockwise scan
   computes the same function and the Pallas kernel substitutes for it on a
   TPU.
-* The decode steps write the new K/V (or latent) slot into the cache
-  tensors in place (the reference updates functionally and its serving
-  loop donates the cache): the returned cache holds the same tensors.
+* The decode steps write the new K/V (or latent) slot, or Mamba2's new
+  state and conv window, into the cache tensors in place (the reference
+  updates functionally and its serving loop donates the cache): the
+  returned cache holds the same tensors.
+* Cross-attention (``xattn_apply``) is non-causal attention of the
+  decoder's queries over K/V projected once from the auxiliary memory
+  (``xattn_kv``), in prefill and at every decode step alike, so on the
+  card it runs the flash kernel at ``Sq = 1`` in decode.
 * MoE dispatch departs from the reference in one place (ROADMAP R9): a
   dropped assignment goes to the spare row ``n_experts * capacity`` of the
   dispatch buffer, where the reference's ``t * top_k`` can be a kept
   token's slot.  The combine sums each token's expert outputs in a fixed
   order (ascending expert id, as the reference's scatter-add does), with
   no atomics, so the card gives the same bits every run.
+* Mamba2 is eager torch: the reference has no Pallas kernel for the SSD
+  scan.  ``mamba_apply`` computes every chunk's intra-chunk term and
+  state contribution in one batched pass and carries the
+  ``(B, heads, N, P)`` state across chunks in a Python loop (the
+  counterpart of the reference's ``lax.scan``); it zeroes the front pad's
+  inputs after the convolution, so the pad adds nothing whatever the conv
+  bias (ROADMAP R11).
 
-Mamba2, cross-attention and ``moe_apply_shardmap`` are not ported yet
-(ROADMAP).
+``moe_apply_shardmap`` is not ported yet (ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -117,7 +128,9 @@ def decode_attention(q, k_cache, v_cache, kv_len):
     return o.reshape(b, 1, h, d).to(q.dtype)
 
 
-def attn_meta(cfg: ModelConfig) -> dict:
+def attn_meta(cfg: ModelConfig, cross: bool = False) -> dict:
+    """Self-attention's weights, or with ``cross`` cross-attention's (no
+    QKV bias)."""
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head
     meta = {
         "wq": ParamMeta((d, h * dh), ("embed", "heads_dh")),
@@ -126,7 +139,7 @@ def attn_meta(cfg: ModelConfig) -> dict:
         "wo": ParamMeta((h * dh, d), ("heads_dh", "embed")),
         "norm": rmsnorm_meta(d),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         meta["bq"] = ParamMeta((h * dh,), ("heads_dh",), init="zeros")
         meta["bk"] = ParamMeta((kv * dh,), ("kv_dh",), init="zeros")
         meta["bv"] = ParamMeta((kv * dh,), ("kv_dh",), init="zeros")
@@ -206,6 +219,31 @@ def attn_decode(params, x, cache, cfg: ModelConfig):
         o = decode_attention(q, cache["k"], cache["v"], pos + 1)
     o = o.reshape(b, 1, cfg.n_heads * cfg.d_head)
     return o @ params["wo"].to(x.dtype), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (vision adapters, enc-dec): K/V from auxiliary embeddings
+# ---------------------------------------------------------------------------
+def xattn_apply(params, x, aux_kv, cfg: ModelConfig):
+    """aux_kv: precomputed (k, v): (B, S_aux, Kh, Dh).  Non-causal, with no
+    RoPE on the queries, as in the reference."""
+    b, s, _ = x.shape
+    xn = rmsnorm(x, params["norm"], cfg.norm_eps)
+    h, dh = cfg.n_heads, cfg.d_head
+    q = (xn @ params["wq"].to(x.dtype)).reshape(b, s, h, dh)
+    k, v = aux_kv
+    o = blockwise_attention(q, k, v, causal=False, block=cfg.attention_block)
+    o = o.reshape(b, s, h * dh)
+    return o @ params["wo"].to(x.dtype)
+
+
+def xattn_kv(params, aux, cfg: ModelConfig):
+    """Project auxiliary embeddings once: (B, S_aux, d) -> (k, v)."""
+    b, s, _ = aux.shape
+    kv, dh = cfg.n_kv, cfg.d_head
+    k = (aux @ params["wk"].to(aux.dtype)).reshape(b, s, kv, dh)
+    v = (aux @ params["wv"].to(aux.dtype)).reshape(b, s, kv, dh)
+    return k, v
 
 
 # ---------------------------------------------------------------------------
@@ -438,3 +476,164 @@ def moe_aux_loss(params, x, cfg: ModelConfig):
     frac_tokens = counts / torch.clamp(counts.sum(), min=1.0)
     frac_probs = probs.mean(dim=0)
     return e.n_experts * (frac_tokens * frac_probs).sum()
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD: state space duality, chunked scan)
+# ---------------------------------------------------------------------------
+def mamba_meta(cfg: ModelConfig) -> dict:
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.d_inner(d)
+    nh = s.n_heads(d)
+    conv_dim = di + 2 * s.n_groups * s.d_state
+    return {
+        "in_proj": ParamMeta((d, 2 * di + 2 * s.n_groups * s.d_state + nh),
+                             ("embed", "heads_dh")),
+        "conv_w": ParamMeta((s.conv_width, conv_dim), (None, "heads_dh"),
+                            scale=0.5),
+        "conv_b": ParamMeta((conv_dim,), ("heads_dh",), init="zeros"),
+        "a_log": ParamMeta((nh,), ("heads",), init="zeros"),
+        "d_skip": ParamMeta((nh,), ("heads",), init="ones"),
+        "dt_bias": ParamMeta((nh,), ("heads",), init="zeros"),
+        "out_norm": ParamMeta((di,), ("heads_dh",), init="ones"),
+        "out_proj": ParamMeta((di, d), ("heads_dh", "embed")),
+        "norm": rmsnorm_meta(d),
+    }
+
+
+def _mamba_split(params, xn, cfg: ModelConfig):
+    """The input projection split into the gate ``z`` (d_inner), the conv
+    input ``xbc`` (d_inner + 2 G N) and the raw step ``dt`` (heads)."""
+    s = cfg.ssm
+    di = s.d_inner(cfg.d_model)
+    gn = s.n_groups * s.d_state
+    nh = s.n_heads(cfg.d_model)
+    proj = xn @ params["in_proj"].to(xn.dtype)
+    z, xbc, dt = torch.split(proj, [di, di + 2 * gn, nh], dim=-1)
+    return z, xbc, dt, di, gn, nh
+
+
+def _causal_conv(xbc, w, b, prev=None):
+    """Depthwise causal conv along the sequence. xbc: (B, S, C); w: (W, C);
+    ``prev``: the (B, W-1, C) inputs before ``xbc`` (zeros when None).
+    Returns the activations and the last W-1 inputs (the decode window)."""
+    width = w.shape[0]
+    if prev is None:
+        prev = xbc.new_zeros((xbc.shape[0], width - 1, xbc.shape[2]))
+    xp = torch.cat([prev.to(xbc.dtype), xbc], dim=1)
+    out = torch.zeros_like(xbc)
+    for i in range(width):
+        out = out + xp[:, i:i + xbc.shape[1]] * w[i].to(xbc.dtype)
+    return F.silu(out + b.to(xbc.dtype)), xp[:, -(width - 1):]
+
+
+def _mamba_gates(params, dt):
+    """The float32 step ``softplus(dt + dt_bias)`` and the decay rate
+    ``a = -exp(a_log)``."""
+    dt = F.softplus(dt.to(F32) + params["dt_bias"].to(F32))
+    return dt, -torch.exp(params["a_log"].to(F32))
+
+
+def _mamba_out(params, y, xs, z, cfg: ModelConfig, dtype):
+    """The float32 skip term ``xs * d_skip`` added to the scan's ``y``
+    (..., heads, P), cast to the config dtype, gated by ``silu(z)``, normed
+    and projected out."""
+    y = y + xs.to(F32) * params["d_skip"].to(F32)[:, None]
+    y = y.reshape(*z.shape).to(dtype)
+    y = rmsnorm(y * F.silu(z), params["out_norm"], cfg.norm_eps)
+    return y @ params["out_proj"].to(dtype)
+
+
+def mamba_apply(params, x, cfg: ModelConfig):
+    """Chunked SSD forward (prefill). x: (B, S, d) -> (out, {"state":
+    float32 (B, heads, N, P), "conv": (B, W-1, conv_dim)}).
+
+    The sequence is padded at the front to whole chunks, as in the
+    reference (a zero state stays zero through the pad, unlike a tail pad
+    that would corrupt the carried-out state), and the pad's conv outputs
+    are zeroed so it adds nothing even with a non-zero conv bias.  B and C
+    stay in their group form (no (B, S, heads, N) broadcast): heads are
+    indexed (group, head in group).  Every chunk's intra-chunk term and its
+    contribution to the state come from one batched pass; the state is
+    carried across the chunks by a loop over them; the carried-in state's
+    term is again batched.  All three are float32; the projections run in
+    the config dtype."""
+    s = cfg.ssm
+    b, s0, _ = x.shape
+    xn = rmsnorm(x, params["norm"], cfg.norm_eps)
+    front = (-s0) % min(s.chunk, max(s0, 1))
+    if front:
+        xn = F.pad(xn, (0, 0, front, 0))
+    seq = s0 + front
+    z, xbc, dt, di, gn, nh = _mamba_split(params, xn, cfg)
+    xbc, conv_tail = _causal_conv(xbc, params["conv_w"], params["conv_b"])
+    if front:
+        xbc = xbc.clone()
+        xbc[:, :front] = 0
+    xs, b_in, c_in = torch.split(xbc, [di, gn, gn], dim=-1)
+    p, n, g = s.head_dim, s.d_state, s.n_groups
+    hg = nh // g
+    cl = min(s.chunk, seq)
+    nc = seq // cl
+    dt, a = _mamba_gates(params, dt)                        # (B, S, nh)
+    xc = xs.reshape(b, nc, cl, g, hg, p).to(F32)
+    bc = b_in.reshape(b, nc, cl, g, n).to(F32)
+    cc = c_in.reshape(b, nc, cl, g, n).to(F32)
+    dtc = dt.reshape(b, nc, cl, g, hg)
+    cum = torch.cumsum((dt * a).reshape(b, nc, cl, g, hg), dim=2)
+
+    # intra-chunk: y_i = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j
+    causal = torch.ones(cl, cl, dtype=torch.bool, device=x.device).tril()
+    decay = (cum[:, :, :, None] - cum[:, :, None]).exp_()   # (B,c,i,j,g,h)
+    decay.masked_fill_(~causal[:, :, None, None], 0.0)
+    scores = torch.einsum("bcign,bcjgn->bcijg", cc, bc)
+    w = scores[..., None] * decay * dtc[:, :, None]
+    del decay
+    y = torch.einsum("bcijgh,bcjghp->bcighp", w, xc)
+    del w
+    # each chunk's own contribution to the state at its end
+    to_end = torch.exp(cum[:, :, -1:] - cum) * dtc          # (B,c,j,g,h)
+    chunk_state = torch.einsum("bcjgn,bcjghp->bcghnp", bc,
+                               xc * to_end[..., None])
+    # the carry: the state entering each chunk
+    chunk_decay = torch.exp(cum[:, :, -1])                  # (B,c,g,h)
+    state = xc.new_zeros((b, g, hg, n, p))
+    entering = []
+    for c in range(nc):
+        entering.append(state)
+        state = state * chunk_decay[:, c, ..., None, None] + chunk_state[:, c]
+    entering = torch.stack(entering, dim=1)                 # (B,c,g,h,N,P)
+    y = y + torch.einsum("bcign,bcghnp->bcighp", cc, entering) \
+        * torch.exp(cum)[..., None]
+    out = _mamba_out(params, y.reshape(b, seq, nh, p),
+                     xs.reshape(b, seq, nh, p), z, cfg, x.dtype)
+    return out[:, front:], {"state": state.reshape(b, nh, n, p),
+                            "conv": conv_tail}
+
+
+def mamba_decode(params, x, cache, cfg: ModelConfig):
+    """Single-token recurrent step. x: (B, 1, d); cache: {"state": float32
+    (B, heads, N, P), "conv": (B, W-1, conv_dim)}, both written in place."""
+    s = cfg.ssm
+    b = x.shape[0]
+    xn = rmsnorm(x, params["norm"], cfg.norm_eps)
+    z, xbc, dt, di, gn, nh = _mamba_split(params, xn, cfg)
+    xbc, conv_tail = _causal_conv(xbc, params["conv_w"], params["conv_b"],
+                                  prev=cache["conv"])
+    xs, b_in, c_in = torch.split(xbc, [di, gn, gn], dim=-1)
+    p, n, g = s.head_dim, s.d_state, s.n_groups
+    hg = nh // g
+    dt, a = _mamba_gates(params, dt[:, 0])                  # (B, nh)
+    xh = xs.reshape(b, g, hg, p).to(F32)
+    bg = b_in.reshape(b, g, n).to(F32)
+    cg = c_in.reshape(b, g, n).to(F32)
+    state = cache["state"].view(b, g, hg, n, p)
+    new = state * torch.exp(dt * a).view(b, g, hg, 1, 1) + torch.einsum(
+        "bgn,bghp->bghnp", bg, xh * dt.view(b, g, hg, 1))
+    y = torch.einsum("bgn,bghnp->bghp", cg, new)
+    state.copy_(new)
+    cache["conv"].copy_(conv_tail)
+    out = _mamba_out(params, y.reshape(b, 1, nh, p),
+                     xs.reshape(b, 1, nh, p), z, cfg, x.dtype)
+    return out, {"state": cache["state"], "conv": cache["conv"]}

@@ -1,20 +1,33 @@
-"""The decoder LM (GQA or MLA attention, a gated MLP or MoE per layer), in
-PyTorch.
+"""The generic LM of the layer library, in PyTorch: all ten assigned
+architectures.
 
-A port of ``repro.models.lm`` for the attention decoders: ``forward``
-(with ``logits_last_only`` and the summed MoE auxiliary loss),
-``prefill``, the decode cache layout and ``decode_step``.  The reference
-scans one stacked ``(R, ...)`` parameter tree of ``period`` sub-layers
-with ``lax.scan``; here ``params["layers"]`` is a list of per-layer dicts
+* mixer pattern per layer (``"attn"`` | ``"mamba"`` | ``"xattn"``), cycled
+  with period P (the pattern's length, or its lcm with the MoE period);
+* a gated MLP, an MoE every k-th layer, or no MLP (``d_ff == 0``: pure
+  Mamba2 blocks);
+* GQA or MLA attention;
+* an optional bidirectional encoder whose output every self-attention
+  layer cross-attends (whisper), or cross-attention layers over the
+  auxiliary embeddings themselves (llama-3.2-vision).  ``aux`` is the
+  stub frontend's (B, aux_seq, d_model) embeddings.
+
+A port of ``repro.models.lm``: ``forward`` (with ``logits_last_only`` and
+the summed MoE auxiliary loss), ``encode``, ``prefill``, the decode cache
+layout and ``decode_step``.  The reference scans one stacked ``(R, ...)``
+parameter tree of ``period`` sub-layers with ``lax.scan``; here
+``params["layers"]`` (and the encoder's) is a list of per-layer dicts
 walked by a Python loop (``repro_torch.convert.lm_params_from_jax`` maps
 one onto the other), while the decode cache keeps the reference's stacked
 tensors: ``sub{j}`` holds layers ``j, j + period, ...`` as
-``(R, batch, seq, kv_heads, d_head)`` K/V, or for MLA the
+``(R, batch, seq, kv_heads, d_head)`` K/V, for MLA the
 ``(R, batch, seq, kv_lora)`` latent ``ckv`` and ``(R, batch, seq, d_rope)``
-RoPE key ``kr``.
-
-Configurations with Mamba2, cross-attention or an encoder are refused:
-those layers are not ported yet (ROADMAP queue 1 item 7).
+RoPE key ``kr``, for Mamba2 the float32 ``(R, batch, heads, N, P)``
+``state`` and the ``(R, batch, W-1, conv_dim)`` ``conv`` window, for a
+cross-attention layer the ``(R, batch, aux_seq, kv_heads, d_head)`` K/V
+of the memory (under ``sub{j}_x`` when it sits beside self-attention).
+Only the self-attention leaves grow along the sequence
+(:meth:`LM.grows`): the reference picks the leaves to pad by the length
+of their axis 2 (ROADMAP R10).
 """
 from __future__ import annotations
 
@@ -41,13 +54,28 @@ def _mask_pad_vocab(logits, cfg: ModelConfig):
     return torch.where(ids < cfg.vocab, logits, -1e30)
 
 
+KINDS = ("attn", "mamba", "xattn")
+# the self-attention cache leaves whose axis 2 is the sequence
+SEQ_LEAVES = ("k", "v", "k_s", "v_s", "ckv", "kr")
+
+
 def _unsupported(cfg: ModelConfig) -> list[str]:
-    found = [f"layer kind {k!r}" for k in cfg.pattern if k != "attn"]
+    found = [f"layer kind {k!r}" for k in cfg.pattern if k not in KINDS]
     if cfg.attn_kind not in ("gqa", "mla"):
         found.append(f"attention kind {cfg.attn_kind!r}")
-    if cfg.n_encoder_layers or cfg.aux_seq:
-        found.append("an encoder / auxiliary cross-attention")
     return found
+
+
+def _stack(per_layer: list[dict]) -> dict:
+    """{sub: {leaf: (R, ...)}} from the layers' {sub: {leaf: tensor}}, in
+    layer order."""
+    out: dict = {}
+    for layer in per_layer:
+        for sub, leaves in layer.items():
+            for name, t in leaves.items():
+                out.setdefault(sub, {}).setdefault(name, []).append(t)
+    return {sub: {name: torch.stack(ts) for name, ts in leaves.items()}
+            for sub, leaves in out.items()}
 
 
 class LM:
@@ -55,9 +83,8 @@ class LM:
         missing = _unsupported(cfg)
         if missing:
             raise NotImplementedError(
-                f"{cfg.name}: {', '.join(missing)} not ported to repro_torch "
-                "yet (ROADMAP queue 1 item 7); the port runs the GQA and MLA "
-                "decoders, dense or MoE")
+                f"{cfg.name}: {', '.join(missing)} unknown to repro_torch "
+                f"(layer kinds {KINDS}, attention gqa or mla)")
         self.cfg = cfg
         self.mla = cfg.attn_kind == "mla"
         self.period = len(cfg.pattern)
@@ -66,9 +93,19 @@ class LM:
         if cfg.n_layers % self.period:
             raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not a "
                              f"multiple of the period {self.period}")
+        self.repeats = cfg.n_layers // self.period
+        self._self_attn = {f"sub{j}" for j in range(self.period)
+                           if cfg.layer_kind(j) == "attn"}
         # int8 KV cache (decode; GQA only, as in the reference): None =
         # config dtype
         self.kv_cache_dtype: torch.dtype | None = None
+
+    def grows(self, sub: str, leaf: str) -> bool:
+        """Whether cache leaf ``leaf`` of sub-layer ``sub`` runs along the
+        sequence (a self-attention layer's K/V, scales or MLA latent), so
+        a prompt shorter than ``max_len`` pads it: chosen by name, never by
+        the length of an axis."""
+        return sub in self._self_attn and leaf in SEQ_LEAVES
 
     # ------------------------------------------------------------ metadata
     def param_meta(self) -> dict:
@@ -83,13 +120,31 @@ class LM:
         if not cfg.tie_embeddings:
             meta["unembed"] = ParamMeta((d, cfg.vocab_padded),
                                         ("embed", "vocab"))
+        if cfg.n_encoder_layers:
+            meta["encoder"] = {
+                "layers": [{"attn": L.attn_meta(cfg), "mlp": L.mlp_meta(cfg)}
+                           for _ in range(cfg.n_encoder_layers)],
+                "final_norm": L.rmsnorm_meta(d),
+            }
         return meta
 
     def _layer_meta(self, i: int) -> dict:
         cfg = self.cfg
-        return {"mixer": L.mla_meta(cfg) if self.mla else L.attn_meta(cfg),
-                "mlp": (L.moe_meta(cfg) if cfg.is_moe_layer(i)
-                        else L.mlp_meta(cfg))}
+        kind = cfg.layer_kind(i)
+        meta: dict = {}
+        if kind == "attn":
+            meta["mixer"] = L.mla_meta(cfg) if self.mla else L.attn_meta(cfg)
+            if cfg.n_encoder_layers:
+                meta["xattn"] = L.attn_meta(cfg, cross=True)
+        elif kind == "mamba":
+            meta["mixer"] = L.mamba_meta(cfg)
+        else:
+            meta["mixer"] = L.attn_meta(cfg, cross=True)
+        if cfg.is_moe_layer(i):
+            meta["mlp"] = L.moe_meta(cfg)
+        elif cfg.d_ff > 0:
+            meta["mlp"] = L.mlp_meta(cfg)     # Mamba2 blocks have no MLP
+        return meta
 
     def init(self, generator: torch.Generator) -> dict:
         """Random weights in the config dtype on ``generator``'s device."""
@@ -103,50 +158,101 @@ class LM:
                    else params["unembed"])
         return _mask_pad_vocab((x @ unembed.to(x.dtype)).to(F32), cfg)
 
+    # ------------------------------------------------------------- encoder
+    def encode(self, params, aux):
+        """Whisper-style bidirectional encoder over frame embeddings
+        (B, aux_seq, d) -> the normed memory of the same shape."""
+        cfg = self.cfg
+        x = aux
+        for p in params["encoder"]["layers"]:
+            a, _ = L.attn_apply(p["attn"], x, cfg, causal=False)
+            x = x + a
+            x = x + L.mlp_apply(p["mlp"], x, cfg)
+        return L.rmsnorm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+
+    def _aux_memory(self, params, aux):
+        """The cross-attention memory: the encoder's output (enc-dec) or
+        the auxiliary embeddings themselves (vision); None without
+        cross-attention."""
+        cfg = self.cfg
+        if not (cfg.n_encoder_layers or "xattn" in cfg.pattern):
+            return None
+        if aux is None:
+            raise ValueError(f"{cfg.name} cross-attends auxiliary "
+                             f"embeddings: pass aux of shape (batch, "
+                             f"{cfg.aux_seq}, {cfg.d_model})")
+        return self.encode(params, aux) if cfg.n_encoder_layers else aux
+
     # ------------------------------------------------------------- forward
     def _mlp(self, i: int, p, x):
-        """Layer ``i``'s MLP or MoE residual step."""
-        mlp = L.moe_apply if self.cfg.is_moe_layer(i) else L.mlp_apply
-        return x + mlp(p, x, self.cfg)
+        """Layer ``i``'s MLP or MoE residual step (none in a Mamba2
+        block)."""
+        if self.cfg.is_moe_layer(i):
+            return x + L.moe_apply(p["mlp"], x, self.cfg)
+        if "mlp" in p:
+            return x + L.mlp_apply(p["mlp"], x, self.cfg)
+        return x
 
-    def forward(self, params, tokens, with_cache: bool = False,
+    def _layer(self, i: int, p, x, memory):
+        """Layer ``i``'s mixer (and cross-attention) residual steps: the
+        new ``x`` and the layer's decode-cache leaves by sub-layer name."""
+        cfg = self.cfg
+        sub = f"sub{i % self.period}"
+        kind = cfg.layer_kind(i)
+        cache: dict = {}
+        if kind == "attn":
+            if self.mla:
+                a, (ckv, kr) = L.mla_apply(p["mixer"], x, cfg)
+                cache[sub] = {"ckv": ckv, "kr": kr}
+            else:
+                a, (k, v) = L.attn_apply(p["mixer"], x, cfg, causal=True)
+                cache[sub] = {"k": k, "v": v}
+            x = x + a
+            if cfg.n_encoder_layers:
+                kv = L.xattn_kv(p["xattn"], memory, cfg)
+                x = x + L.xattn_apply(p["xattn"], x, kv, cfg)
+                cache[f"{sub}_x"] = {"k": kv[0], "v": kv[1]}
+        elif kind == "mamba":
+            a, cache[sub] = L.mamba_apply(p["mixer"], x, cfg)
+            x = x + a
+        else:
+            kv = L.xattn_kv(p["mixer"], memory, cfg)
+            x = x + L.xattn_apply(p["mixer"], x, kv, cfg)
+            cache[sub] = {"k": kv[0], "v": kv[1]}
+        return x, cache
+
+    def forward(self, params, tokens, aux=None, with_cache: bool = False,
                 logits_last_only: bool = False):
-        """tokens (B, S) -> logits (B, S, V) and the auxiliary loss (the sum
+        """tokens (B, S) (and ``aux`` (B, aux_seq, d) where the model
+        cross-attends) -> logits (B, S, V) and the auxiliary loss (the sum
         of ``moe_aux_loss`` over the MoE layers).  With ``with_cache`` also
         the stacked per-layer caches (prefill).  ``logits_last_only`` skips
         the full (B, S, V) unembedding — prefill needs only the last
         position."""
         cfg = self.cfg
         x = params["embed"][tokens].to(_dtype(cfg))
+        memory = self._aux_memory(params, aux)
         aux_loss = torch.zeros((), dtype=F32, device=x.device)
-        kv = []
+        per_layer = []
         for i, p in enumerate(params["layers"]):
-            if self.mla:
-                a, pair = L.mla_apply(p["mixer"], x, cfg)
-            else:
-                a, pair = L.attn_apply(p["mixer"], x, cfg, causal=True)
+            x, cache = self._layer(i, p, x, memory)
             if with_cache:
-                kv.append(pair)
-            x = x + a
+                per_layer.append(cache)
             if cfg.is_moe_layer(i):
                 aux_loss = aux_loss + L.moe_aux_loss(p["mlp"], x, cfg)
-            x = self._mlp(i, p["mlp"], x)
+            x = self._mlp(i, p, x)
         if logits_last_only:
             x = x[:, -1:]
         logits = self._logits(params, x)
         if with_cache:
-            names = ("ckv", "kr") if self.mla else ("k", "v")
-            caches = {f"sub{j}": {
-                name: torch.stack([kv[i][n] for i in range(
-                    j, cfg.n_layers, self.period)])
-                for n, name in enumerate(names)} for j in range(self.period)}
-            return logits, caches, aux_loss
+            return logits, _stack(per_layer), aux_loss
         return logits, aux_loss
 
     # ------------------------------------------------------------- serving
-    def prefill(self, params, tokens, max_len: int | None = None):
+    def prefill(self, params, tokens, aux=None, max_len: int | None = None):
         """Run the full prompt, return (last-token logits, decode cache)."""
-        logits, caches, _ = self.forward(params, tokens, with_cache=True,
+        logits, caches, _ = self.forward(params, tokens, aux=aux,
+                                         with_cache=True,
                                          logits_last_only=True)
         s = tokens.shape[1]
         caches = self._grow_caches(caches, s, max_len or s)
@@ -154,64 +260,113 @@ class LM:
         return logits[:, -1], caches
 
     def _grow_caches(self, caches, s: int, max_len: int):
-        """Pad the seq axis of the stacked caches (axis 2: layers, batch,
-        seq) to ``max_len``."""
+        """Pad the sequence axis (axis 2: layers, batch, seq) of the
+        self-attention leaves (:meth:`grows`) to ``max_len``, each in its
+        own dtype; every other leaf stays as it is."""
         if max_len <= s:
             return caches
         out = {}
         for name, sub in caches.items():
-            grown = {}
+            out[name] = dict(sub)
             for key, x in sub.items():
-                shape = list(x.shape)
-                shape[2] = max_len
-                grown[key] = x.new_zeros(shape)
-                grown[key][:, :, :s] = x
-            out[name] = grown
+                if self.grows(name, key):
+                    shape = list(x.shape)
+                    shape[2] = max_len
+                    out[name][key] = x.new_zeros(shape)
+                    out[name][key][:, :, :s] = x
         return out
 
     def init_cache_meta(self, batch: int, max_len: int) -> dict:
         """The decode-cache structure: per sub-layer ``sub{j}`` of the
-        period, stacked over its ``R`` layers, the K and V slots (and, for
-        an int8 cache, their float32 scales), or for MLA the latent and the
-        RoPE key in the config dtype (``kv_cache_dtype`` does not apply)."""
+        period, stacked over its ``R`` layers.  Self-attention: the K and V
+        slots (and, for an int8 cache, their float32 scales), or for MLA
+        the latent and the RoPE key in the config dtype
+        (``kv_cache_dtype`` does not apply); with an encoder also the
+        cross K/V under ``sub{j}_x``.  Mamba2: the float32 state and the
+        conv window in the config dtype.  Cross-attention: the memory's
+        K/V in the config dtype."""
         cfg = self.cfg
-        r = cfg.n_layers // self.period
-        if self.mla:
-            m = cfg.mla
-            axes = ("layers", "batch", "kv_seq", None)
-            sub = {name: ParamMeta((r, batch, max_len, width), axes,
-                                   dtype=_dtype(cfg))
-                   for name, width in (("ckv", m.kv_lora),
-                                       ("kr", m.d_rope))}
-        else:
-            kvdt = self.kv_cache_dtype or _dtype(cfg)
-            axes = ("layers", "batch", "kv_seq", "kv_heads", None)
-            sub = {name: ParamMeta((r, batch, max_len, cfg.n_kv, cfg.d_head),
-                                   axes, dtype=kvdt) for name in ("k", "v")}
-            if self.kv_cache_dtype is not None:
-                for name in ("k_s", "v_s"):
-                    sub[name] = ParamMeta((r, batch, max_len, cfg.n_kv, 1),
-                                          axes, dtype=F32)
-        caches: dict = {f"sub{j}": dict(sub) for j in range(self.period)}
+        r, dt = self.repeats, _dtype(cfg)
+        caches: dict = {}
+        for j in range(self.period):
+            kind = cfg.layer_kind(j)
+            if kind == "attn":
+                caches[f"sub{j}"] = self._attn_cache_meta(batch, max_len)
+                if cfg.n_encoder_layers:
+                    caches[f"sub{j}_x"] = self._xattn_cache_meta(batch)
+            elif kind == "mamba":
+                s = cfg.ssm
+                nh = s.n_heads(cfg.d_model)
+                conv_dim = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state
+                caches[f"sub{j}"] = {
+                    "state": ParamMeta((r, batch, nh, s.d_state, s.head_dim),
+                                       ("layers", "batch", "heads", None,
+                                        None), dtype=F32),
+                    "conv": ParamMeta((r, batch, s.conv_width - 1, conv_dim),
+                                      ("layers", "batch", None, "heads_dh"),
+                                      dtype=dt),
+                }
+            else:
+                caches[f"sub{j}"] = self._xattn_cache_meta(batch)
         caches["pos"] = ParamMeta((), (), dtype=torch.int32)
         return caches
 
+    def _attn_cache_meta(self, batch: int, max_len: int) -> dict:
+        cfg = self.cfg
+        r = self.repeats
+        if self.mla:
+            m = cfg.mla
+            axes = ("layers", "batch", "kv_seq", None)
+            return {name: ParamMeta((r, batch, max_len, width), axes,
+                                    dtype=_dtype(cfg))
+                    for name, width in (("ckv", m.kv_lora),
+                                        ("kr", m.d_rope))}
+        kvdt = self.kv_cache_dtype or _dtype(cfg)
+        axes = ("layers", "batch", "kv_seq", "kv_heads", None)
+        sub = {name: ParamMeta((r, batch, max_len, cfg.n_kv, cfg.d_head),
+                               axes, dtype=kvdt) for name in ("k", "v")}
+        if self.kv_cache_dtype is not None:
+            for name in ("k_s", "v_s"):
+                sub[name] = ParamMeta((r, batch, max_len, cfg.n_kv, 1),
+                                      axes, dtype=F32)
+        return sub
+
+    def _xattn_cache_meta(self, batch: int) -> dict:
+        cfg = self.cfg
+        shape = (self.repeats, batch, cfg.aux_seq, cfg.n_kv, cfg.d_head)
+        axes = ("layers", "batch", None, "kv_heads", None)
+        return {name: ParamMeta(shape, axes, dtype=_dtype(cfg))
+                for name in ("k", "v")}
+
     def decode_step(self, params, caches, tokens):
         """tokens (B, 1) -> (logits (B, V), updated caches).  The new K/V
-        (or latent) slot is written into the cache tensors in place; the
-        returned caches hold the same tensors with ``pos`` advanced."""
+        (or latent) slot and Mamba2's state and conv window are written
+        into the cache tensors in place, and cross-attention reads the
+        memory's K/V as the prefill left them; the returned caches hold
+        the same tensors with ``pos`` advanced."""
         cfg = self.cfg
         x = params["embed"][tokens].to(_dtype(cfg))
         pos = int(caches["pos"])
         decode = L.mla_decode if self.mla else L.attn_decode
         for i, p in enumerate(params["layers"]):
-            stacked = caches[f"sub{i % self.period}"]
-            layer_cache = {name: t[i // self.period]
-                           for name, t in stacked.items()}
-            layer_cache["pos"] = pos
-            a, _ = decode(p["mixer"], x, layer_cache, cfg)
-            x = x + a
-            x = self._mlp(i, p["mlp"], x)
+            sub, r = f"sub{i % self.period}", i // self.period
+            layer_cache = {name: t[r] for name, t in caches[sub].items()}
+            kind = cfg.layer_kind(i)
+            if kind == "attn":
+                layer_cache["pos"] = pos
+                a, _ = decode(p["mixer"], x, layer_cache, cfg)
+                x = x + a
+                if cfg.n_encoder_layers:
+                    xc = caches[f"{sub}_x"]
+                    x = x + L.xattn_apply(p["xattn"], x,
+                                          (xc["k"][r], xc["v"][r]), cfg)
+            elif kind == "mamba":
+                a, _ = L.mamba_decode(p["mixer"], x, layer_cache, cfg)
+                x = x + a
+            else:
+                x = x + L.xattn_apply(p["mixer"], x, (layer_cache["k"],
+                                                      layer_cache["v"]), cfg)
+            x = self._mlp(i, p, x)
         logits = self._logits(params, x[:, 0])
         out = {name: sub for name, sub in caches.items() if name != "pos"}
         out["pos"] = pos + 1

@@ -206,7 +206,7 @@ def test_serve_phase_at_smoke_size(smoke, monkeypatch, capsys):
     assert launched["flash_attention"] == 2       # one per layer
     out = capsys.readouterr().out
     assert out.count("[serve]") == 6
-    assert "flash_launches_per_prefill=2" in out
+    assert "flash_launches=2 (prefill 2, decode 0)" in out
     assert "power[vampire] impl=cuda" in out and "teacher_forcing_err" in out
 
 
@@ -369,7 +369,7 @@ def test_serve_mla_phase_at_smoke_size(smoke, monkeypatch, capsys):
     out = capsys.readouterr().out
     assert out.count("[serve-mla]") == 6
     assert "deepseek-v2-lite-16b-smoke: layers=2" in out
-    assert "flash_launches_per_prefill=2" in out
+    assert "flash_launches=2 (prefill 2, decode 0)" in out
     assert "power[vampire] impl=cuda" in out
     assert "same_bits_twice=True" in out and "2 layers" in out
 
@@ -387,3 +387,101 @@ def test_routed_alike_reports_each_rows_first_flip(smoke):
         [(same, wide), (same, wide), (other, wide)])
     assert rows.tolist() == [True, False, True]
     assert flips == {1: (1, pytest.approx(0.001))}
+
+
+def _flash_launches(smoke, monkeypatch, n):
+    """``read_counters`` with ``n`` flash launches (CPU tensors launch
+    nothing) and every other kernel launched."""
+    real = smoke.read_counters
+    monkeypatch.setattr(smoke, "read_counters", lambda: {
+        k: (n if k == "flash_attention" else max(v, 1))
+        for k, v in real().items()})
+
+
+def test_flash_cross_kernel_phase_rows(smoke, capsys):
+    rows = smoke.flash_cross_kernel_phase(
+        0, "cpu", device="cpu", xattn=(1, 4, 2, 40, 37, 16),
+        encoder=(1, 2, 30, 16), decode_keys=(30, 37))
+    assert [r["name"] for r in rows] == [
+        "flash_attention_xattn", "flash_attention_encoder",
+        "flash_attention_xdecode"]
+    assert all(r["err"] == 0.0 and r["library_ms"] == 1.0 for r in rows)
+    assert rows[0]["fn"]().shape == (4, 40, 16)
+    assert rows[2]["fn"]().shape == (4, 1, 16)
+    assert rows[2]["bound"][1] == "bytes"
+    out = capsys.readouterr().out
+    assert out.count("[kernel] flash_attention (") == 3
+    assert "Skv=37/group4/float32=0.000e+00" in out
+
+
+def test_f7_phase_fails_where_the_guard_does_not_fire(smoke):
+    """On CPU tensors the wrapper runs the differentiable plain version,
+    so the phase's check fails: it passes only where the card's kernel
+    refuses."""
+    with pytest.raises(smoke.CheckFailed, match="F7: a q that requires "
+                                                "grad ran"):
+        smoke.f7_phase("cpu", device="cpu")
+
+
+def test_prefill_work_counts_every_layer_kind(smoke):
+    """mamba2-780m's projections (2 x tokens x 14.6 M weights x 48 layers)
+    and its float32 scan at the float32 rate; whisper's encoder and
+    cross-attention add to the decoder's work."""
+    from repro_torch.configs import registry
+    cfg = registry.get_config("mamba2-780m")
+    ms, by = smoke.prefill_work(cfg, 4, 2048, 1)
+    proj = 2 * 8192 * 48 * (1536 * (2 * 3072 + 256 + 48) + 3072 * 1536)
+    scan = 48 * (2 * 8192 * 256 * (128 + 48 * 64) + 4 * 8192 * 48 * 128 * 64)
+    want = (proj + 2 * 4 * 1536 * cfg.vocab_padded) / smoke.BF16_OPS_PER_S \
+        + scan / smoke.FP32_OPS_PER_S
+    assert by == "operations" and ms == pytest.approx(want * 1e3, rel=1e-9)
+    whisper = registry.get_config("whisper-small")
+    plain = registry.get_config("qwen2.5-3b")
+    assert smoke.prefill_work(whisper, 4, 416, 1)[0] > smoke.prefill_work(
+        __import__("dataclasses").replace(whisper, n_encoder_layers=0),
+        4, 416, 1)[0] > 0
+    assert smoke.prefill_work(plain, 4, 2048, 1)[1] == "operations"
+
+
+def test_serve_ssm_phase_at_smoke_size(smoke, monkeypatch, capsys):
+    _flash_launches(smoke, monkeypatch, 0)
+    launched = smoke.serve_ssm_phase(0, "cpu", device="cpu", smoke=True,
+                                     batch=2, prompt_len=21, decode_tokens=4,
+                                     scan_len=21)
+    assert launched["flash_attention"] == 0
+    out = capsys.readouterr().out
+    assert "mamba2-780m-smoke: layers=2 {'mamba': 2}" in out
+    assert "same_bits_twice=True" in out and "chunked_vs_recurrent" in out
+    assert "flash_launches=0 (prefill 0, decode 0)" in out
+
+
+def test_serve_xattn_phase_at_smoke_size(smoke, monkeypatch, capsys):
+    _flash_launches(smoke, monkeypatch, 5 + 3)    # 5 layers, 3 steps x 1
+    launched, calls = smoke.serve_xattn_phase(
+        0, "cpu", device="cpu", smoke=True, batch=2, prompt_len=21,
+        decode_tokens=4)
+    assert calls == {"causal": 4, "cross": 1, "decode": 3}
+    assert launched["flash_attention"] == 8
+    out = capsys.readouterr().out
+    assert "llama-3.2-vision-11b-smoke: layers=5" in out
+    assert "kernel vs plain attention worst by call class" in out
+
+
+def test_serve_enc_phase_at_smoke_size(smoke, monkeypatch, capsys):
+    _flash_launches(smoke, monkeypatch, 2 + 2 + 2 + 2 * 3)
+    _, calls = smoke.serve_enc_phase(0, "cpu", device="cpu", smoke=True,
+                                     batch=2, prompt_len=20,
+                                     decode_tokens=4)
+    assert calls == {"encoder": 2, "causal": 2, "cross": 2, "decode": 6}
+    out = capsys.readouterr().out
+    assert "whisper-small-smoke: layers=2" in out
+    assert "encoder_layers=2 aux_seq=16" in out
+
+
+def test_serve_hybrid_phase(smoke, monkeypatch, capsys):
+    _flash_launches(smoke, monkeypatch, 1)
+    launched = smoke.serve_hybrid_phase(0, "cpu", device="cpu", batch=2,
+                                        prompt_len=20)
+    assert launched["flash_attention"] == 1
+    out = capsys.readouterr().out
+    assert "flash launches in the prefill 1 (one a period)" in out

@@ -452,6 +452,53 @@ def test_flash_attention_kernel_takes_narrower_values(device, dtype, shape):
                                    err_msg=f"causal={causal} off={q_offset}")
 
 
+# (BH, BH_kv, Skv, D): a cross-attention decode step, Sq = 1 against the
+# memory of whisper-small (1500 frames) and llama-3.2-vision (1601 patch
+# embeddings), groups 1 and 4
+DECODE_SHAPES = [(12, 12, 1500, 64), (48, 12, 1500, 64),
+                 (8, 8, 1601, 128), (32, 8, 1601, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_flash_attention_kernel_at_one_query_over_a_ragged_memory(
+        device, dtype, shape):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    bh, bh_kv, skv, d = shape
+    gen = torch.Generator().manual_seed(sum(shape))
+    q, k, v = (torch.randn(*s, generator=gen).to(device, dtype)
+               for s in ((bh, 1, d), (bh_kv, skv, d), (bh_kv, skv, d)))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = fa_ref.attention_ref(q, k, v, causal=False)
+    assert got.dtype == dtype and got.shape == (bh, 1, d)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=2e-5 if dtype == torch.float32 else 2e-2)
+
+
+def test_the_f7_guard_on_the_card(device):
+    """The kernel has no backward: a q that requires grad under grad mode
+    is refused before any launch; under no_grad the same call runs."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    q, k, v = (torch.randn(4, 100, 64, device=device, dtype=torch.bfloat16)
+               for _ in range(3))
+    q.requires_grad_(True)
+    before = fa.flash_attention.launches
+    with pytest.raises(RuntimeError, match="F7"):
+        fa.flash_attention(q, k, v)
+    assert fa.flash_attention.launches == before
+    with torch.no_grad():
+        got = fa.flash_attention(q, k, v)
+    assert fa.flash_attention.launches == before + 1
+    want = fa_ref.attention_ref(q.detach(), k, v)
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2
+
+
 def test_flash_attention_refuses_widths_without_an_instance(device):
     from repro_torch.kernels.flash_attention import flash_attention as fa
     q = torch.randn(4, 64, 128, device=device, dtype=torch.bfloat16)
@@ -493,6 +540,47 @@ def test_mla_moe_model_on_the_card(device):
     assert err < 0.5 * float(want[:, :cfg.vocab].std())
     step, _ = lm.decode_step(on_card, caches, tokens[:, -1:].to(device))
     assert bool(torch.isfinite(step[:, :cfg.vocab]).all())
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "mamba2-780m"])
+def test_encoder_and_ssm_models_on_the_card(device, arch):
+    """whisper-small's and mamba2-780m's smoke models in bf16 on the card
+    against the same weights on the CPU (plain attention): the prefill and
+    two decode steps within the teacher-forcing bar, flash launched once
+    per encoder, self- and cross-attention layer of the prefill (never for
+    Mamba2), the same bits twice."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models.lm import LM
+    cfg = registry.get_config(arch, smoke=True)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 23)))
+    aux = (torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, cfg.aux_seq, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+        if cfg.aux_seq else None)
+    on_card = _to(params, device)
+    card_aux = None if aux is None else aux.to(device)
+    outs = {}
+    for where, p, a, tok in (("cpu", params, aux, tokens),
+                             ("cuda", on_card, card_aux, tokens.to(device))):
+        before = fa.flash_attention.launches
+        logits, caches = lm.prefill(p, tok[:, :21], aux=a, max_len=23)
+        launched = fa.flash_attention.launches - before
+        steps = [lm.decode_step(p, caches, tok[:, t:t + 1])[0]
+                 for t in (21, 22)]
+        outs[where] = [x.float().cpu() for x in [logits] + steps]
+        if where == "cuda":
+            want = (0 if arch.startswith("mamba")
+                    else cfg.n_encoder_layers + 2 * cfg.n_layers)
+            assert launched == want
+            again, _ = lm.prefill(p, tok[:, :21], aux=a, max_len=23)
+            assert torch.equal(again, logits)
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        w = want[:, :cfg.vocab]
+        err = float((got[:, :cfg.vocab] - w).abs().max())
+        assert err < 0.15 * (float(w.std()) + 1e-6) + 0.05
 
 
 def test_moe_apply_is_deterministic_on_the_card(device):

@@ -139,3 +139,22 @@ def test_kernel_instances_by_widths(d, dv, dtype, takes):
     """Which (q/k, v) widths the kernel takes: on a card anything else
     raises rather than running the plain version."""
     assert pfa.kernel_takes(d, dv, dtype) is takes
+
+
+def test_the_f7_guard_refuses_grad_inputs_under_grad_mode():
+    """F7: the card's kernel has no backward, so its wrapper refuses an
+    input that requires grad while grad mode is on (called directly here:
+    CPU tensors take the plain version, which stays differentiable)."""
+    q = torch.randn(2, 8, 16, requires_grad=True)
+    k, v = torch.randn(2, 8, 16), torch.randn(2, 8, 16)
+    for args in ((q, k, v), (k, q, v), (k, v, q)):
+        with pytest.raises(RuntimeError, match="F7.*no backward"):
+            pfa.refuse_grad(*args)
+    with torch.no_grad():
+        pfa.refuse_grad(q, k, v)
+    pfa.refuse_grad(k, v, k)
+    before = pfa.flash_attention.launches
+    out = pfa.flash_attention(q, k, v)
+    out.sum().backward()
+    assert q.grad is not None and bool(torch.isfinite(q.grad).all())
+    assert pfa.flash_attention.launches == before

@@ -193,3 +193,65 @@ def test_decode_traffic_bytes_of_an_mla_moe_cache():
     slot = cfg.n_layers * b * (m.kv_lora + m.d_rope) * el
     want = weights + slot * max_len + slot + b * v * 4
     assert pserve.decode_traffic_bytes(lm, params, caches, b) == want
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "whisper-small"])
+def test_ssm_and_encoder_runs_return_the_reference_keys_and_shapes(arch):
+    """mamba2-780m (no attention: flash is never called) and whisper-small
+    (the reference's zero frame embeddings, fed through prefill)."""
+    from repro_torch.kernels.flash_attention import flash_attention as pfa
+    job = dict(JOB, arch=arch, prompt_len=21, decode_tokens=3)
+    ref = rserve.run(rserve.ServeJob(**job))
+    before = pfa.flash_attention.launches
+    port = pserve.run(pserve.ServeJob(**job, device="cpu"))
+    assert pfa.flash_attention.launches == before
+    assert set(port) == set(ref)
+    assert port["tokens"].shape == ref["tokens"].shape == (2, 3)
+    assert (port["tokens"] < preg.get_config(arch, smoke=True).vocab).all()
+    pw, rpw = port["power"], ref["power"]
+    assert set(pw) == set(rpw) and set(pw["serving"]) == set(rpw["serving"])
+    assert (pw["ddr_energy_pj_per_seq_step"] > 0).all()
+
+
+def test_cli_serves_mamba2_on_the_cpu(monkeypatch, capsys):
+    """``python -m repro_torch.launch.serve --arch mamba2-780m --smoke
+    --device cpu``."""
+    import sys
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", "mamba2-780m", "--smoke", "--device", "cpu",
+        "--batch", "2", "--prompt-len", "12", "--decode-tokens", "3"])
+    pserve.main()
+    out = capsys.readouterr().out
+    assert out.startswith("prefill=") and "tok/s" in out
+
+
+def test_decode_traffic_bytes_of_ssm_and_cross_caches():
+    """jamba's smoke widths (Mamba2 state and conv window, read and
+    written whole; one attention layer in 8) and whisper's (the cross K/V
+    read whole, never written by a decode step)."""
+    for arch in ("jamba-1.5-large-398b", "whisper-small"):
+        cfg = preg.get_config(arch, smoke=True)
+        lm = LM(cfg)
+        params = lm.init(torch.Generator().manual_seed(0))
+        b, max_len = 3, 20
+        meta = lm.init_cache_meta(b, max_len)
+        caches = {sub: {k: torch.zeros(m.shape, dtype=m.dtype)
+                        for k, m in leaves.items()}
+                  for sub, leaves in meta.items() if sub != "pos"}
+        caches["pos"] = 7
+        read = sum(t.numel() * t.element_size()
+                   for leaves in caches.values() if isinstance(leaves, dict)
+                   for t in leaves.values())
+        slot = 2 * lm.repeats * b * cfg.n_kv * cfg.d_head * 2   # bf16 K/V
+        if arch.startswith("jamba"):
+            s = cfg.ssm
+            nh = s.n_heads(cfg.d_model)
+            conv_dim = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state
+            per = b * (nh * s.d_state * s.head_dim * 4
+                       + (s.conv_width - 1) * conv_dim * 2)
+            written = 7 * lm.repeats * per + slot
+        else:
+            written = slot                  # the cross K/V is not written
+        weights = pserve.tree_nbytes(params)
+        want = weights + read + written + b * cfg.vocab_padded * 4
+        assert pserve.decode_traffic_bytes(lm, params, caches, b) == want

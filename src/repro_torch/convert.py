@@ -17,7 +17,10 @@ file) into the port's tensors.
   stacked over ``n_encoder_layers``) and a prefill's decode cache (K/V,
   the MLA latent ``ckv`` and RoPE key ``kr``, Mamba2's ``state`` and
   ``conv``, the cross K/V), as numpy arrays, into the port's per-layer
-  parameter dicts and stacked cache tensors.
+  parameter dicts and stacked cache tensors.  A gradient tree has the
+  parameters' structure and comes across the same way.
+* :func:`adamw_state_from_jax` — the reference's AdamW state (float32
+  moments or int8 ``{q, scale}`` pairs, and ``step``) into the port's.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 from repro_torch.core import params as P
 from repro_torch.core.dram import N_BANKS, N_ROW_BANDS
 from repro_torch.core.energy_model import PowerParams
+from repro_torch.optim.adamw import is_moment_pair
 
 # PowerParams leaves that may be absent (the NamedTuple's defaults)
 _OPTIONAL = {"act_surface": 1.0, "i_pd_slow": 0.0, "i_actpd": 0.0,
@@ -141,4 +145,41 @@ def lm_caches_from_jax(caches_np: dict, device="cpu") -> dict:
     out = {sub: {name: _tensor(x, device) for name, x in leaves.items()}
            for sub, leaves in caches_np.items() if sub != "pos"}
     out["pos"] = int(np.asarray(caches_np["pos"]))
+    return out
+
+
+def _pick(tree, part: str):
+    """Every int8 moment pair ``{"q", "scale"}`` of a nest of dicts
+    replaced by its ``part``."""
+    if is_moment_pair(tree):
+        return tree[part]
+    if isinstance(tree, dict):
+        return {k: _pick(v, part) for k, v in tree.items()}
+    return tree
+
+
+def _pair_up(q, scale):
+    if isinstance(q, dict):
+        return {k: _pair_up(q[k], scale[k]) for k in q}
+    if isinstance(q, list):
+        return [_pair_up(a, b) for a, b in zip(q, scale)]
+    return {"q": q, "scale": scale}
+
+
+def adamw_state_from_jax(state_np: dict, cfg, device="cpu") -> dict:
+    """The reference's ``adamw.init``/``update`` state (numpy leaves:
+    ``m`` and ``v`` in the parameters' structure, float32 or int8 ``{q,
+    scale}`` pairs, and the int32 ``step``) -> the port's, laid out as
+    :func:`lm_params_from_jax` lays out the parameters."""
+    out = {}
+    for name in ("m", "v"):
+        tree = state_np[name]
+        if is_moment_pair(tree["embed"]):
+            out[name] = _pair_up(
+                lm_params_from_jax(_pick(tree, "q"), cfg, device),
+                lm_params_from_jax(_pick(tree, "scale"), cfg, device))
+        else:
+            out[name] = lm_params_from_jax(tree, cfg, device)
+    out["step"] = torch.tensor(int(np.asarray(state_np["step"])),
+                               dtype=torch.int32, device=device)
     return out

@@ -65,6 +65,13 @@ SIGNATURES = {
         "repro_flash_attention": [_P] * 4 + [_I32] * 6 + [_F32]
         + [_I32] * 3 + [_P],
     },
+    # the backward's K0-K2: tensors, (bh, bh_kv, sq, skv, d, dv), the
+    # scale, (causal, is_bf16) and the stream
+    "flash_attention_bwd": {
+        f"repro_flash_bwd_{name}": [_P] * n + [_I32] * 6 + [_F32]
+        + [_I32] * 2 + [_P]
+        for name, n in (("prep", 6), ("dkdv", 8), ("dq", 7))
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,14 +1,23 @@
-"""Wrapper of the flash-attention kernel (``csrc/flash_attention.cu``,
-``repro_flash_attention``), which replaces ``flash_attention_pallas``.
+"""Wrappers of the flash-attention kernels: the forward
+(``csrc/flash_attention.cu``, ``repro_flash_attention``), which replaces
+``flash_attention_pallas``, and its backward (``csrc/flash_attention_bwd.cu``:
+K0 ``repro_flash_bwd_prep``, K1 ``repro_flash_bwd_dkdv`` and K2
+``repro_flash_bwd_dq``), which the reference has no kernel for (it
+differentiates the pure-jnp twin of its Pallas kernel).
 
-:func:`flash_attention` launches the kernel for CUDA tensors (and raises on
-anything it cannot take) and uses the plain version of ``ref.py`` only for
-tensors on the CPU.  ``flash_attention.launches`` counts the kernel
-launches.  The kernel has no backward (ROADMAP F7): :func:`refuse_grad`
-stops a launch whose inputs would need one.  Unlike the Pallas kernel,
-the lengths need not be multiples of a tile: the kernel masks the ragged
-edge itself, and v may be narrower than q and k (MLA's 128-wide values
-under 192-wide queries and keys).
+:func:`flash_attention` goes through :class:`FlashAttention`, an
+``autograd.Function``: its forward launches the forward kernel and saves
+q, k, v and the output, and its backward launches K0-K2 through
+:func:`flash_attention_bwd`.  For CUDA tensors each wrapper launches its
+kernels (and raises on anything they cannot take); only for tensors on
+the CPU does it run the plain versions of ``ref.py``, in both directions.
+``flash_attention.launches`` counts the forward kernel's launches and
+``flash_attention.bwd_launches`` those of K0-K2 by name.  Unlike the
+Pallas kernel, the lengths need not be multiples of a tile: the kernels
+mask the ragged edge themselves, and v may be narrower than q and k (MLA's
+128-wide values under 192-wide queries and keys).  The backward takes
+``q_offset = 0`` only: an offset query block is a decode step, which
+never trains.
 """
 from __future__ import annotations
 
@@ -38,38 +47,7 @@ def kernel_takes(d: int, dv: int, dtype: torch.dtype) -> bool:
     return dv == d <= 128 or (d <= 192 and dv <= 128)
 
 
-def refuse_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """F7's guard: raise when grad mode is on and q, k or v requires grad.
-    The kernel's output has no ``grad_fn``, so a backward through it would
-    leave the attention's projections without gradients and say nothing;
-    the plain version (CPU tensors) stays differentiable."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(
-            "flash_attention (F7): an input requires grad under grad mode, "
-            "but the card's attention has no backward yet (ROADMAP queue 1 "
-            "item 3); call it under torch.no_grad() or on tensors that do "
-            "not require grad")
-
-
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, sm_scale: float | None = None,
-                    q_offset: int = 0) -> torch.Tensor:
-    """q ``(BH, Sq, D)``; k ``(BH_kv, Skv, D)``, v ``(BH_kv, Skv, Dv)`` with
-    ``BH % BH_kv == 0`` and ``Dv <= D`` -> ``(BH, Sq, Dv)`` in q's type (see
-    ``ref.attention_ref``)."""
-    bh, sq, d = q.shape
-    bh_kv, skv = k.shape[0], k.shape[1]
-    dv = v.shape[-1]
-    if bh_kv == 0 or bh % bh_kv:
-        raise ValueError(f"q rows {bh} are not a multiple of kv rows {bh_kv}")
-    if q_offset < 0:
-        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
-    if sm_scale is None:
-        sm_scale = d ** -0.5
-    if on_cpu(q, k, v):
-        return ref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale,
-                                 q_offset=q_offset)
-    refuse_grad(q, k, v)
+def _check_widths(q: torch.Tensor, d: int, dv: int) -> None:
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash_attention takes bfloat16 or float32, not "
                         f"{q.dtype}")
@@ -79,6 +57,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"v's at most q's, and the {q.dtype} kernel has no instance for "
             f"them (bf16 widths padded to 64: {BF16_WIDTHS}; float32: equal "
             "widths up to 128, or up to 192 with v's up to 128)")
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, sm_scale: float, q_offset: int) -> torch.Tensor:
+    """The forward kernel's launch (or, on the CPU, its plain version)."""
+    bh, sq, d = q.shape
+    bh_kv, skv = k.shape[0], k.shape[1]
+    dv = v.shape[-1]
+    if on_cpu(q, k, v):
+        return ref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale,
+                                 q_offset=q_offset)
+    _check_widths(q, d, dv)
     if sq == 0 or skv == 0:
         raise ValueError("flash_attention needs at least one query and key")
     dev = require_cuda({"q": q, "k": k, "v": v},
@@ -96,4 +86,95 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+BWD_KERNELS = ("flash_attention_bwd_prep", "flash_attention_bwd_dkdv",
+               "flash_attention_bwd_dq")
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool = True, sm_scale: float | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients ``(dq, dk, dv)`` of attention over q ``(BH, Sq, D)``,
+    k ``(BH_kv, Skv, D)`` and v ``(BH_kv, Skv, Dv)`` with ``q_offset = 0``,
+    given the forward's ``out`` and its gradient ``dout`` (both ``(BH, Sq,
+    Dv)``): K0-K2 for CUDA tensors, ``ref.attention_bwd_ref`` for tensors
+    on the CPU.  The kernels' float32 ``lse`` and ``delta`` ``(BH, Sq)``
+    are scratch allocated here."""
+    bh, sq, d = q.shape
+    bh_kv, skv = k.shape[0], k.shape[1]
+    dv = v.shape[-1]
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    if on_cpu(q, k, v, out, dout):
+        return ref.attention_bwd_ref(q, k, v, out, dout, causal=causal,
+                                     sm_scale=sm_scale)
+    _check_widths(q, d, dv)
+    dev = require_cuda(
+        {"q": q, "k": k, "v": v, "out": out, "dout": dout},
+        dict.fromkeys(("q", "k", "v", "out", "dout"), q.dtype),
+        {"q": (bh, sq, d), "k": (bh_kv, skv, d), "v": (bh_kv, skv, dv),
+         "out": (bh, sq, dv), "dout": (bh, sq, dv)})
+    lib = build.library("flash_attention_bwd")
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=dev)
+    delta = torch.empty_like(lse)
+    dq, dk, dv_out = (torch.empty_like(t) for t in (q, k, v))
+    shape = (bh, bh_kv, sq, skv, d, dv, float(sm_scale), int(causal),
+             int(q.dtype == torch.bfloat16), build.stream(dev))
+    p = build.ptr
+    launches = (
+        (lib.repro_flash_bwd_prep, (q, k, out, dout, lse, delta)),
+        (lib.repro_flash_bwd_dkdv, (q, k, v, dout, lse, delta, dk, dv_out)),
+        (lib.repro_flash_bwd_dq, (q, k, v, dout, lse, delta, dq)))
+    for name, (fn, tensors) in zip(BWD_KERNELS, launches):
+        build.check(fn(*(p(t) for t in tensors), *shape), f"{name} kernel")
+        flash_attention.bwd_launches[name] += 1
+    return dq, dk, dv_out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the forward kernel forward and K0-K2 backward (the
+    plain versions for CPU tensors).  Saves q, k, v and the output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float,
+                q_offset: int):
+        out = _forward(q, k, v, causal, sm_scale, q_offset)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.sm_scale, ctx.q_offset = causal, sm_scale, q_offset
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        if ctx.q_offset:
+            raise NotImplementedError(
+                f"flash_attention's backward takes q_offset = 0 only, got "
+                f"{ctx.q_offset}: an offset query block is a decode step, "
+                "which the train path never differentiates")
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                         causal=ctx.causal,
+                                         sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, sm_scale: float | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q ``(BH, Sq, D)``; k ``(BH_kv, Skv, D)``, v ``(BH_kv, Skv, Dv)`` with
+    ``BH % BH_kv == 0`` and ``Dv <= D`` -> ``(BH, Sq, Dv)`` in q's type (see
+    ``ref.attention_ref``), differentiable through :class:`FlashAttention`
+    (``q_offset = 0``)."""
+    bh, _, d = q.shape
+    bh_kv = k.shape[0]
+    if bh_kv == 0 or bh % bh_kv:
+        raise ValueError(f"q rows {bh} are not a multiple of kv rows {bh_kv}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    return FlashAttention.apply(q, k, v, causal, float(sm_scale),
+                                int(q_offset))
+
+
 flash_attention.launches = 0
+flash_attention.bwd_launches = dict.fromkeys(BWD_KERNELS, 0)

@@ -1,10 +1,30 @@
-"""Plain PyTorch version of the flash-attention kernel: softmax attention
-with the whole score matrix materialised, in float32."""
+"""Plain PyTorch versions of the flash-attention kernels: softmax attention
+with the whole score matrix materialised, and its backward, in float32 (or
+float64 for float64 inputs)."""
 from __future__ import annotations
 
 import torch
 
 NEG_INF = -1e30
+
+
+def _acc(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the type the plain versions compute in: float32, or float64
+    for float64 inputs."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _probs(q, k, causal: bool, sm_scale: float, q_offset: int):
+    """The softmax weights ``(BH, Sq, Skv)`` of q over k (k expanded to
+    q's rows)."""
+    sq = q.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", _acc(q), k) * sm_scale
+    if causal:
+        qi = torch.arange(sq, device=q.device)[:, None] + q_offset
+        ki = torch.arange(k.shape[1], device=q.device)[None, :]
+        s = torch.where(qi >= ki, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return p / p.sum(dim=-1, keepdim=True)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -14,17 +34,39 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``(BH, Sq, Dv)`` in q's type (``Dv`` may differ from ``D``, as in
     MLA).  q row ``bh`` attends kv row ``bh // (BH // BH_kv)``; causal
     attention keeps the keys ``j <= q_offset + i``."""
+    group = q.shape[0] // k.shape[0]
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    kk = _acc(k.repeat_interleave(group, dim=0))
+    vv = _acc(v.repeat_interleave(group, dim=0))
+    p = _probs(q, kk, causal, sm_scale, q_offset)
+    return torch.einsum("bqk,bkd->bqd", p, vv).to(q.dtype)
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, *, causal: bool,
+                      sm_scale: float | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of :func:`attention_ref` (``q_offset = 0``) given its
+    output ``o`` and the output's gradient ``do`` -> ``(dq, dk, dv)`` in
+    q's, k's and v's types, the kv gradients summed over each kv row's
+    group of q rows.  The steps of the backward kernels:
+    ``delta = rowsum(do * o)``, ``dS = P (do v^T - delta)``,
+    ``dq = scale dS k``, ``dk = scale dS^T q``, ``dv = P^T do``."""
     bh, sq, d = q.shape
-    group = bh // k.shape[0]
+    bh_kv, skv, dv_width = v.shape
+    group = bh // bh_kv
     if sm_scale is None:
         sm_scale = d ** -0.5
-    kk = k.repeat_interleave(group, dim=0).float()
-    vv = v.repeat_interleave(group, dim=0).float()
-    s = torch.einsum("bqd,bkd->bqk", q.float(), kk) * sm_scale
-    if causal:
-        qi = torch.arange(sq, device=q.device)[:, None] + q_offset
-        ki = torch.arange(k.shape[1], device=q.device)[None, :]
-        s = torch.where(qi >= ki, s, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = p / p.sum(dim=-1, keepdim=True)
-    return torch.einsum("bqk,bkd->bqd", p, vv).to(q.dtype)
+    kk = _acc(k.repeat_interleave(group, dim=0))
+    vv = _acc(v.repeat_interleave(group, dim=0))
+    qq, dd = _acc(q), _acc(do)
+    p = _probs(qq, kk, causal, sm_scale, 0)
+    delta = (dd * _acc(o)).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bqe,bke->bqk", dd, vv) - delta)
+    dq = torch.einsum("bqk,bkd->bqd", ds, kk) * sm_scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, qq) * sm_scale
+    dv = torch.einsum("bqk,bqe->bke", p, dd)
+    dk = dk.reshape(bh_kv, group, skv, d).sum(1)
+    dv = dv.reshape(bh_kv, group, skv, dv_width).sum(1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -15,9 +15,13 @@ Conventions
 * Full-sequence attention never materialises (S, S) on the card:
   :func:`blockwise_attention` runs the hand-written flash-attention kernel
   (``repro_torch.kernels.flash_attention``) for CUDA tensors and its plain
-  version for CPU tensors.  In the reference the pure-jnp blockwise scan
-  computes the same function and the Pallas kernel substitutes for it on a
-  TPU.
+  version for CPU tensors, and its gradient through the backward kernels
+  (the plain backward on the CPU).  In the reference the pure-jnp
+  blockwise scan computes the same function (and is what its train step
+  differentiates) and the Pallas kernel substitutes for it on a TPU.
+* Every op on the train path is out of place, so that autograd can take
+  the gradient of every layer (the decode steps' cache writes are not on
+  it).
 * The decode steps write the new K/V (or latent) slot, or Mamba2's new
   state and conv window, into the cache tensors in place (the reference
   updates functionally and its serving loop donates the cache): the
@@ -585,8 +589,12 @@ def mamba_apply(params, x, cfg: ModelConfig):
 
     # intra-chunk: y_i = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j
     causal = torch.ones(cl, cl, dtype=torch.bool, device=x.device).tril()
-    decay = (cum[:, :, :, None] - cum[:, :, None]).exp_()   # (B,c,i,j,g,h)
-    decay.masked_fill_(~causal[:, :, None, None], 0.0)
+    # masked before the exp and out of place: exp's backward reads its own
+    # output, and cum_i - cum_j above the diagonal may overflow
+    seg = cum[:, :, :, None] - cum[:, :, None]              # (B,c,i,j,g,h)
+    decay = torch.exp(seg.masked_fill(~causal[:, :, None, None],
+                                      float("-inf")))
+    del seg
     scores = torch.einsum("bcign,bcjgn->bcijg", cc, bc)
     w = scores[..., None] * decay * dtc[:, :, None]
     del decay

@@ -12,8 +12,10 @@ architectures.
   stub frontend's (B, aux_seq, d_model) embeddings.
 
 A port of ``repro.models.lm``: ``forward`` (with ``logits_last_only`` and
-the summed MoE auxiliary loss), ``encode``, ``prefill``, the decode cache
-layout and ``decode_step``.  The reference scans one stacked ``(R, ...)``
+the summed MoE auxiliary loss), ``loss``, ``encode``, ``prefill``, the
+decode cache layout and ``decode_step``.  Under grad mode ``forward``
+recomputes each layer in the backward (``torch.utils.checkpoint``), the
+reference's full per-layer remat: only the layers' inputs are saved.  The reference scans one stacked ``(R, ...)``
 parameter tree of ``period`` sub-layers with ``lax.scan``; here
 ``params["layers"]`` (and the encoder's) is a list of per-layer dicts
 walked by a Python loop (``repro_torch.convert.lm_params_from_jax`` maps
@@ -34,6 +36,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -221,6 +224,18 @@ class LM:
             cache[sub] = {"k": kv[0], "v": kv[1]}
         return x, cache
 
+    def _block(self, i: int, p, x, memory):
+        """Layer ``i`` whole: the new ``x``, its cache leaves and its MoE
+        auxiliary loss (None for a layer without MoE)."""
+        x, cache = self._layer(i, p, x, memory)
+        aux = (L.moe_aux_loss(p["mlp"], x, self.cfg)
+               if self.cfg.is_moe_layer(i) else None)
+        return self._mlp(i, p, x), cache, aux
+
+    def _train_block(self, i: int, p, x, memory):
+        x, _, aux = self._block(i, p, x, memory)
+        return x, aux
+
     def forward(self, params, tokens, aux=None, with_cache: bool = False,
                 logits_last_only: bool = False):
         """tokens (B, S) (and ``aux`` (B, aux_seq, d) where the model
@@ -234,19 +249,37 @@ class LM:
         memory = self._aux_memory(params, aux)
         aux_loss = torch.zeros((), dtype=F32, device=x.device)
         per_layer = []
+        remat = torch.is_grad_enabled() and not with_cache
         for i, p in enumerate(params["layers"]):
-            x, cache = self._layer(i, p, x, memory)
-            if with_cache:
-                per_layer.append(cache)
-            if cfg.is_moe_layer(i):
-                aux_loss = aux_loss + L.moe_aux_loss(p["mlp"], x, cfg)
-            x = self._mlp(i, p, x)
+            if remat:
+                x, aux_i = checkpoint(self._train_block, i, p, x, memory,
+                                      use_reentrant=False)
+            else:
+                x, cache, aux_i = self._block(i, p, x, memory)
+                if with_cache:
+                    per_layer.append(cache)
+            if aux_i is not None:
+                aux_loss = aux_loss + aux_i
         if logits_last_only:
             x = x[:, -1:]
         logits = self._logits(params, x)
         if with_cache:
             return logits, _stack(per_layer), aux_loss
         return logits, aux_loss
+
+    def loss(self, params, batch):
+        """Mean next-token negative log-likelihood plus 0.01 x the MoE
+        auxiliary loss, and ``{"nll", "aux_loss"}``: the logsumexp of the
+        float32 (padded) logits less the gold logit.  ``batch`` holds
+        ``tokens`` and ``labels`` (B, S) and, where the model
+        cross-attends, ``aux``."""
+        logits, aux_loss = self.forward(params, batch["tokens"],
+                                        aux=batch.get("aux"))
+        labels = batch["labels"].long()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+        nll = (logz - gold).mean()
+        return nll + 0.01 * aux_loss, {"nll": nll, "aux_loss": aux_loss}
 
     # ------------------------------------------------------------- serving
     def prefill(self, params, tokens, aux=None, max_len: int | None = None):

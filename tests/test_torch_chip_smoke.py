@@ -1,5 +1,6 @@
 """``chip_smoke.py``'s charge-kernel, line-kernel, flash-attention (also
-at MLA's widths), study, HBM, serve and serve-mla phases rehearsed on the CPU at a tiny size: the
+at MLA's widths, and its backward), study, HBM, serve, serve-mla, F7 and
+train phases rehearsed on the CPU at a tiny size: the
 same code that runs on the card, with the CUDA event timers and the
 device synchronisation stubbed, and the launch counts (which CPU tensors
 never raise) read as launched."""
@@ -414,13 +415,103 @@ def test_flash_cross_kernel_phase_rows(smoke, capsys):
     assert "Skv=37/group4/float32=0.000e+00" in out
 
 
-def test_f7_phase_fails_where_the_guard_does_not_fire(smoke):
-    """On CPU tensors the wrapper runs the differentiable plain version,
-    so the phase's check fails: it passes only where the card's kernel
-    refuses."""
-    with pytest.raises(smoke.CheckFailed, match="F7: a q that requires "
-                                                "grad ran"):
+def test_f7_phase_checks_gradients_through_flash_attention(smoke, capsys):
+    """F7 repaired: q, k and v get gradients through ``FlashAttention``
+    (on CPU tensors its plain directions), one launch each read as made."""
+    smoke.f7_phase("cpu", device="cpu")
+    out = capsys.readouterr().out
+    assert "[faults] F7 repaired" in out and "dq/dk/dv err" in out
+
+
+def test_f7_phase_fails_without_one_launch_of_each_kernel(smoke, monkeypatch):
+    monkeypatch.setattr(smoke, "read_counters", lambda: dict.fromkeys(
+        ["flash_attention", "flash_attention_bwd_prep",
+         "flash_attention_bwd_dkdv", "flash_attention_bwd_dq"], 0))
+    with pytest.raises(smoke.CheckFailed, match="F7: launches"):
         smoke.f7_phase("cpu", device="cpu")
+
+
+def test_flash_bwd_kernel_phase_rows(smoke, capsys):
+    rows = smoke.flash_bwd_kernel_phase(0, "cpu", device="cpu",
+                                        shape=(1, 4, 2, 40, 16),
+                                        small=(1, 2, 1, 24, 16))
+    assert [r["name"] for r in rows] == [
+        "flash_attention_bwd_prep", "flash_attention_bwd_dkdv",
+        "flash_attention_bwd_dq"]
+    assert [r["library_ms"] for r in rows] == [None, 1.0, 1.0]
+    assert all(r["err"] == 0.0 and r["bound"][1] in ("bytes", "operations")
+               for r in rows)
+    assert all(r["source"].endswith("flash_attention_bwd.cu") for r in rows)
+    out = capsys.readouterr().out
+    assert out.count("[kernel] flash_attention_bwd_") == 3
+    assert "K0+K1+K2" in out
+
+
+def test_bwd_work_counts_the_backward(smoke):
+    """At one qwen2.5-3b train layer: K0 computes the scores (half the
+    forward's operations), K1 S, dP, dV and dK (twice), K2 S, dP and dQ
+    (1.5 times); the bytes count each input read once and each output
+    written once."""
+    work = smoke.bwd_work(64, 8, 2048, 128, 128, 2)
+    fwd = smoke.attention_flops(64, 2048, 2048, 128, True)
+    assert [w[1] / fwd for w in work.values()] == [0.5, 2.0, 1.5]
+    q, kv, stats = 64 * 2048 * 128 * 2, 8 * 2048 * 128 * 2, 2 * 64 * 2048 * 4
+    assert work["flash_attention_bwd_dq"][0] == 3 * q + 2 * kv + stats
+
+
+def _train_launches(smoke, monkeypatch, fwd, bwd):
+    names = ("flash_attention_bwd_prep", "flash_attention_bwd_dkdv",
+             "flash_attention_bwd_dq")
+    real = smoke.read_counters
+    monkeypatch.setattr(smoke, "read_counters", lambda: {
+        k: (fwd if k == "flash_attention" else bwd if k in names
+            else max(v, 1)) for k, v in real().items()})
+
+
+def test_train_phase_at_smoke_size(smoke, monkeypatch, capsys):
+    from repro_torch.configs import registry
+    layers = registry.get_config("qwen2.5-3b", smoke=True).n_layers
+    _train_launches(smoke, monkeypatch, 2 * layers * 3, layers * 3)
+    launched = smoke.train_phase(0, "cpu", device="cpu", smoke=True,
+                                 batch=2, seq=32, steps=3)
+    assert launched["flash_attention_bwd_dq"] == layers * 3
+    out = capsys.readouterr().out
+    assert "tokens_per_s=" in out and "step_s=" in out
+    assert "max_memory_allocated_gb=not measured predicted_gb=" in out
+    assert "warm step: device time not measured" in out
+    assert "est. HBM energy" in out
+    _train_launches(smoke, monkeypatch, 2 * layers * 3, 0)
+    with pytest.raises(smoke.CheckFailed, match="train: launches"):
+        smoke.train_phase(0, "cpu", device="cpu", smoke=True, batch=2,
+                          seq=32, steps=3)
+
+
+def test_train_work_counts_the_step(smoke):
+    """qwen2.5-3b at batch 4 x 2048: about 2.1e14 operations, 0.21 s at
+    989 TFLOP/s."""
+    from repro_torch.configs import registry
+    cfg = registry.get_config("qwen2.5-3b")
+    ops = smoke.train_work(cfg, 4, 2048)
+    assert 2.0e14 < ops < 2.2e14
+    with pytest.raises(ValueError, match="dense GQA"):
+        smoke.train_work(registry.get_config("mamba2-780m"), 4, 2048)
+
+
+def test_train_grad_phase_at_smoke_size(smoke, monkeypatch, capsys):
+    real = smoke.read_counters
+    monkeypatch.setattr(smoke, "read_counters", lambda: {
+        k: v + 1 for k, v in real().items()})
+    smoke.train_grad_phase(0, "cpu", device="cpu",
+                           archs=["qwen2.5-3b", "deepseek-v2-lite-16b"])
+    out = capsys.readouterr().out
+    assert out.count("kernel vs plain gradients") == 2
+    assert "bf16 leaves above 2e-2 of their largest: 0 []" in out
+
+
+def test_train_ckpt_phase(smoke, capsys):
+    smoke.train_ckpt_phase(0, "cpu", device="cpu")
+    out = capsys.readouterr().out
+    assert "recoveries=1 steps_run=15" in out and "bit-equal=True" in out
 
 
 def test_prefill_work_counts_every_layer_kind(smoke):

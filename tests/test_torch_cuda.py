@@ -480,23 +480,72 @@ def test_flash_attention_kernel_at_one_query_over_a_ragged_memory(
                                atol=2e-5 if dtype == torch.float32 else 2e-2)
 
 
-def test_the_f7_guard_on_the_card(device):
-    """The kernel has no backward: a q that requires grad under grad mode
-    is refused before any launch; under no_grad the same call runs."""
+# (B, H, Kh, Sq, Skv, D, Dv, causal): the bf16 widths after padding (64,
+# 128, 192/128, and 16 padding to 64), groups 1 and 8, ragged lengths
+BWD_SHAPES = [(2, 4, 4, 256, 256, 64, 64, True),
+              (1, 8, 1, 200, 200, 128, 128, True),
+              (1, 8, 1, 130, 300, 128, 128, False),
+              (2, 4, 4, 100, 77, 64, 64, False),
+              (1, 4, 4, 190, 190, 192, 128, True),
+              (2, 4, 2, 40, 40, 16, 16, True)]
+
+
+def _bwd_case(device, dtype, shape, seed=3):
+    b, h, kh, sq, skv, d, dv, causal = shape
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(*s, generator=gen).to(device, dtype)
+                   for s in ((b * h, sq, d), (b * kh, skv, d),
+                             (b * kh, skv, dv), (b * h, sq, dv)))
+    return q, k, v, do, causal
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_flash_backward_kernels_match_the_plain_backward(device, dtype,
+                                                         shape):
+    """K0-K2 against ``attention_bwd_ref`` on the forward kernel's output:
+    bf16 within 2e-2 of each gradient's largest value, float32 within
+    1e-4; the same bits twice; one launch of each."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    q, k, v = (torch.randn(4, 100, 64, device=device, dtype=torch.bfloat16)
-               for _ in range(3))
-    q.requires_grad_(True)
-    before = fa.flash_attention.launches
-    with pytest.raises(RuntimeError, match="F7"):
-        fa.flash_attention(q, k, v)
-    assert fa.flash_attention.launches == before
-    with torch.no_grad():
-        got = fa.flash_attention(q, k, v)
-    assert fa.flash_attention.launches == before + 1
-    want = fa_ref.attention_ref(q.detach(), k, v)
-    assert float((got.float() - want.float()).abs().max()) <= 2e-2
+    q, k, v, do, causal = _bwd_case(device, dtype, shape)
+    out = fa.flash_attention(q, k, v, causal=causal)
+    before = dict(fa.flash_attention.bwd_launches)
+    got = fa.flash_attention_bwd(q, k, v, out, do, causal=causal)
+    again = fa.flash_attention_bwd(q, k, v, out, do, causal=causal)
+    torch.cuda.synchronize()
+    assert all(fa.flash_attention.bwd_launches[n] == before[n] + 2
+               for n in fa.BWD_KERNELS)
+    want = fa_ref.attention_bwd_ref(q, k, v, out, do, causal=causal)
+    bar = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for g, a, w, t in zip(got, again, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape
+        assert torch.equal(g, a)
+        top = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= bar * top
+
+
+@pytest.mark.parametrize("shape", [BWD_SHAPES[1], BWD_SHAPES[4]])
+def test_gradients_flow_through_flash_attention_on_the_card(device, shape):
+    """F7 repaired: autograd through ``FlashAttention`` on CUDA tensors
+    launches the forward kernel and K0-K2, and q, k and v get the plain
+    backward's gradients (bf16 bar)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    q, k, v, do, causal = _bwd_case(device, torch.bfloat16, shape, seed=4)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fwd = fa.flash_attention.launches
+    out = fa.flash_attention(*leaves, causal=causal)
+    out.backward(do)
+    assert fa.flash_attention.launches == fwd + 1
+    want = fa_ref.attention_bwd_ref(q, k, v, out.detach(), do,
+                                    causal=causal)
+    for t, w in zip(leaves, want):
+        top = float(w.float().abs().max())
+        assert float((t.grad.float() - w.float()).abs().max()) <= 2e-2 * top
+    with pytest.raises(NotImplementedError, match="q_offset = 0 only"):
+        fa.flash_attention(leaves[0][:, -1:].contiguous(), *leaves[1:],
+                           q_offset=shape[4] - 1).sum().backward()
 
 
 def test_flash_attention_refuses_widths_without_an_instance(device):

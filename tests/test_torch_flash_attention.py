@@ -3,8 +3,13 @@
 in interpret mode on the reference's own sweep, against ``attention_ref``
 on ragged lengths the Pallas kernel refuses, and the model-level
 ``blockwise_attention`` against the reference's pure-jnp twin, also with
-v narrower than q and k (MLA); the kernel's instances by widths.  Inputs are
-seeded numpy arrays handed to both packages."""
+v narrower than q and k (MLA); the kernel's instances by widths; and the
+gradients of ``FlashAttention`` on CPU tensors (the plain backward)
+against ``jax.vjp`` of the reference's blockwise attention, the plain
+backward against autograd through the plain forward, ``gradcheck`` in
+float64, and the refusal of a backward at a q offset.  Inputs are seeded
+numpy arrays handed to both packages."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -141,20 +146,69 @@ def test_kernel_instances_by_widths(d, dv, dtype, takes):
     assert pfa.kernel_takes(d, dv, dtype) is takes
 
 
-def test_the_f7_guard_refuses_grad_inputs_under_grad_mode():
-    """F7: the card's kernel has no backward, so its wrapper refuses an
-    input that requires grad while grad mode is on (called directly here:
-    CPU tensors take the plain version, which stays differentiable)."""
-    q = torch.randn(2, 8, 16, requires_grad=True)
-    k, v = torch.randn(2, 8, 16), torch.randn(2, 8, 16)
-    for args in ((q, k, v), (k, q, v), (k, v, q)):
-        with pytest.raises(RuntimeError, match="F7.*no backward"):
-            pfa.refuse_grad(*args)
-    with torch.no_grad():
-        pfa.refuse_grad(q, k, v)
-    pfa.refuse_grad(k, v, k)
-    before = pfa.flash_attention.launches
-    out = pfa.flash_attention(q, k, v)
-    out.sum().backward()
-    assert q.grad is not None and bool(torch.isfinite(q.grad).all())
-    assert pfa.flash_attention.launches == before
+@pytest.mark.parametrize("b,sq,skv,h,kh,d,dv,causal", [
+    (2, 40, 40, 4, 4, 16, 16, True),          # group 1, ragged (block 32)
+    (2, 40, 40, 4, 2, 16, 16, False),         # group 2
+    (1, 70, 70, 8, 1, 32, 32, True),          # group 8, ragged
+    (2, 33, 50, 4, 2, 24, 24, False),         # cross: Sq != Skv
+    (2, 40, 40, 4, 4, 48, 32, True),          # MLA's narrower values
+    (1, 64, 64, 2, 2, 192, 128, False)])
+def test_gradients_match_jax_grad_of_the_reference(b, sq, skv, h, kh, d, dv,
+                                                   causal):
+    """``FlashAttention`` on CPU tensors (the plain forward and
+    ``attention_bwd_ref``) against ``jax.vjp`` of the reference's
+    blockwise attention, the twin its train step differentiates, with one
+    seeded cotangent: float32 at rtol 1e-5, atol 1e-6."""
+    (q, k, v, do), (pq, pk, pv, pdo) = _inputs(
+        sq * skv + d, (b, sq, h, d), (b, skv, kh, d), (b, skv, kh, dv),
+        (b, sq, h, dv))
+    out, vjp = jax.vjp(lambda *a: RL.blockwise_attention(
+        *a, causal=causal, block=32), q, k, v)
+    want = vjp(do)
+    leaves = [t.clone().requires_grad_(True) for t in (pq, pk, pv)]
+    got = PL.blockwise_attention(*leaves, causal=causal, block=32)
+    before = pfa.flash_attention.launches, dict(
+        pfa.flash_attention.bwd_launches)
+    got.backward(pdo)
+    assert (pfa.flash_attention.launches,
+            pfa.flash_attention.bwd_launches) == before
+    _close(got.detach(), out, 3e-5)
+    for t, w in zip(leaves, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("bh,bh_kv,sq,skv,d,dv,causal", [
+    (4, 4, 40, 40, 16, 16, True), (8, 1, 33, 33, 32, 32, True),
+    (6, 3, 20, 45, 24, 16, False)])
+def test_plain_backward_matches_autograd_through_the_plain_forward(
+        bh, bh_kv, sq, skv, d, dv, causal):
+    _, (q, k, v, do) = _inputs(bh * sq + d, (bh, sq, d), (bh_kv, skv, d),
+                               (bh_kv, skv, dv), (bh, sq, dv))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = pref.attention_ref(*leaves, causal=causal)
+    out.backward(do)
+    got = pref.attention_bwd_ref(q, k, v, out.detach(), do, causal=causal)
+    for g, t in zip(got, leaves):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        torch.testing.assert_close(g, t.grad, rtol=1e-5, atol=1e-6)
+
+
+def test_gradcheck_in_float64():
+    gen = torch.Generator().manual_seed(5)
+    for causal, shapes in ((True, ((4, 9, 8), (2, 9, 8), (2, 9, 8))),
+                           (False, ((2, 5, 8), (1, 7, 8), (1, 7, 8)))):
+        q, k, v = (torch.randn(*s, generator=gen, dtype=torch.float64,
+                               requires_grad=True) for s in shapes)
+        assert torch.autograd.gradcheck(
+            lambda *a: pfa.flash_attention(*a, causal=causal), (q, k, v))
+
+
+def test_a_backward_with_a_q_offset_is_refused():
+    """An offset query block is a decode step: its backward raises, naming
+    the reason."""
+    _, (q, k, v) = _inputs(4, (2, 8, 16), (2, 40, 16), (2, 40, 16))
+    q.requires_grad_(True)
+    out = pfa.flash_attention(q, k, v, causal=True, q_offset=32)
+    with pytest.raises(NotImplementedError, match="q_offset = 0 only"):
+        out.sum().backward()

@@ -207,7 +207,8 @@ def test_build_names_libraries_by_content_and_needs_nvcc(monkeypatch):
     assert a != build._target("vampire_energy")
     assert set(build.SIGNATURES) == {"features", "vampire_energy",
                                      "baseline_energy", "line_bits",
-                                     "byte_lut", "bdi", "flash_attention"}
+                                     "byte_lut", "bdi", "flash_attention",
+                                     "flash_attention_bwd"}
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     monkeypatch.setattr(build.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc"):

@@ -126,7 +126,8 @@ itself).  Phases, each printing its numbers:
    float32 AdamW moments): batch 4 x 2048 tokens, one warm step under
    ``torch.profiler`` and four timed steps, no checkpoints; step s,
    tokens/s, every loss finite, peak memory against its prediction, the
-   bound, the power report; the flash forward launched 72 times a step
+   bound, the power report, the warm step's busy ms by kernel and the
+   flash kernels' share of it; the flash forward launched 72 times a step
    (forward and recompute) and K0-K2 36 times each;
 20. ``[train-grad]``: each of the ten configs at smoke widths, every
    leaf's gradient through the kernels against the plain attention with
@@ -3347,6 +3348,16 @@ def train_phase(seed: int, card: str, device="cuda", arch="qwen2.5-3b",
               f"distinct={len(prof['by_name'])}", flush=True)
         for name, ms in prof["by_name"].most_common(10):
             print(f"{tag}   {ms:9.3f} ms  {name[:90]}", flush=True)
+        flash = {label: sum(ms for name, ms in prof["by_name"].items()
+                            if key in name)
+                 for label, key in (("forward", "flash_bf16_kernel"),
+                                    ("K0", "bwd_prep"), ("K1", "bwd_dkdv"),
+                                    ("K2", "bwd_dq"))}
+        k012 = flash["K0"] + flash["K1"] + flash["K2"]
+        print(f"{tag} warm step flash busy ms: "
+              + " ".join(f"{k}={v:.3f}" for k, v in flash.items())
+              + f"; K0-K2 {k012:.3f}, share {k012 / busy:.3f} of the busy "
+              "time", flush=True)
     else:
         print(f"{tag} warm step: device time not measured (the profiler "
               "recorded no kernel)", flush=True)

@@ -481,13 +481,19 @@ def test_flash_attention_kernel_at_one_query_over_a_ragged_memory(
 
 
 # (B, H, Kh, Sq, Skv, D, Dv, causal): the bf16 widths after padding (64,
-# 128, 192/128, and 16 padding to 64), groups 1 and 8, ragged lengths
+# 128, 192/128, and 16 padding to 64), groups 1 and 8, ragged lengths; the
+# last four reach the edges of the wgmma kernels (several work items of
+# each, a ragged last key tile and q tile, keys past the last query)
 BWD_SHAPES = [(2, 4, 4, 256, 256, 64, 64, True),
               (1, 8, 1, 200, 200, 128, 128, True),
               (1, 8, 1, 130, 300, 128, 128, False),
               (2, 4, 4, 100, 77, 64, 64, False),
               (1, 4, 4, 190, 190, 192, 128, True),
-              (2, 4, 2, 40, 40, 16, 16, True)]
+              (2, 4, 2, 40, 40, 16, 16, True),
+              (1, 8, 1, 1000, 1000, 128, 128, True),
+              (1, 4, 2, 300, 1100, 128, 128, False),
+              (1, 4, 4, 700, 700, 192, 128, True),
+              (2, 4, 2, 257, 257, 16, 16, True)]
 
 
 def _bwd_case(device, dtype, shape, seed=3):

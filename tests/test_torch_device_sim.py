@@ -2,7 +2,8 @@
 table, the fleets, the Threefry draws (bits equal to JAX's), the true
 module parameters (bit for bit, numpy ``SeedSequence``), the synthetic
 fleets, the measurement noise and the drift (float32 normals through
-``torch.erfinv``, rtol 1e-5), and the multimeter's ``measure_current``.
+XLA's erfinv polynomial: rtol 1e-6 for the normals, 1e-5 downstream),
+and the multimeter's ``measure_current``.
 
 Every test that draws through the reference runs under
 ``jax.threefry_partitionable(True)``: the port follows JAX's partitionable
@@ -108,8 +109,9 @@ def test_threefry_bits_equal_jax(seed):
 
 
 def test_normals_match_jax():
-    """``torch.erfinv`` is not XLA's float32 polynomial: the normals agree
-    at rtol 1e-5, not bit for bit."""
+    """F8 repaired: the port computes erfinv with XLA's float32 polynomial,
+    so the normals agree at rtol 1e-6 (measured worst 2.3e-7: only
+    ``log1p``'s last bit differs between libraries), most bit for bit."""
     ids = np.arange(400, dtype=np.uint32)
     pk = threefry.fold_in(threefry.key(0x5EED), ids)
     got = threefry.normal(pk, 13)
@@ -117,7 +119,8 @@ def test_normals_match_jax():
         ids)
     want = np.asarray(jax.vmap(lambda k: jax.random.normal(k, (13,)))(keys))
     assert got.dtype == np.float32 and got.shape == want.shape
-    np.testing.assert_allclose(got, want, rtol=RTOL)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    assert np.mean(got == want) > 0.9
 
 
 @pytest.mark.parametrize("vendor", [0, 1, 2])

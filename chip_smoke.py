@@ -139,10 +139,13 @@ itself).  Phases, each printing its numbers:
 
 Phase 4 also times the flash kernel at the shapes of 16 and 17 (the cross
 prefill, the encoder, a cross decode step at Sq = 1) and checks Sq = 1
-against 1500 and 1601 keys, and holds the backward's K0-K2 against
-``attention_bwd_ref`` at one qwen2.5-3b train layer (bf16) and in float32,
-timing each beside SDPA's backward; ``[faults] F7`` shows that q, k and v
-get gradients through the card's flash attention.
+against 1500 and 1601 keys, times the forward at the serving prefill
+without lse and with lse written (a train layer's forward), in turns, and
+holds the backward's K0 (delta) to K2 against ``attention_bwd_ref`` on the
+forward kernel's lse at one qwen2.5-3b train layer (bf16) and in float32,
+timing K0 beside ``torch.linalg.vecdot`` and K1 and K2 beside SDPA's
+backward; ``[faults] F7`` shows that q, k and v get gradients through the
+card's flash attention.
 
 Each main path (5 to 21) runs with the kernels' launch counts set to 0
 just before it and read just after; every kernel must have been launched.
@@ -562,12 +565,15 @@ def flash_kernel_phase(seed: int, card: str, device="cuda",
                        wide=(4, 28, 4, 2048, 128)) -> list[dict]:
     """Phase 4, third part: the flash-attention kernel at the serving
     prefill shape ``(B, H, Kh, S, D)`` (qwen2.5-3b, batch 4, prompt 2048:
-    q ``(B*H, S, D)``, k and v ``(B*Kh, S, D)``), causal bf16, against its
-    plain version at atol 2e-2 and timed beside its bound and
-    ``scaled_dot_product_attention``, with its rate in TFLOP/s; then, checked
-    only, a ragged length (S = ``ragged``) in bf16, the prefill shape in
-    float32 (atol 2e-5) and ``wide``, a group of 7 q heads per kv head
-    (qwen2-7b's 28 and 4 heads at batch 4) in bf16."""
+    q ``(B*H, S, D)``, k and v ``(B*Kh, S, D)``; one train layer's shape
+    too), causal bf16, against its plain version at atol 2e-2 and timed
+    beside its bound and ``scaled_dot_product_attention``, with its rate in
+    TFLOP/s, without lse (serving) and with lse written (training), in
+    turns; then, checked only, a ragged length (S = ``ragged``) in bf16,
+    the prefill shape in float32 (atol 2e-5) and ``wide``, a group of 7 q
+    heads per kv head (qwen2-7b's 28 and 4 heads at batch 4) in bf16.  In
+    every case the output with lse written equals the output without, bit
+    for bit, and the lse is within 1e-3 of the plain one."""
     import torch
     import torch.nn.functional as F
 
@@ -588,19 +594,26 @@ def flash_kernel_phase(seed: int, card: str, device="cuda",
              "ragged": (bh, bh_kv, ragged, ragged, d, torch.bfloat16),
              "float32": (bh, bh_kv, sq, skv, d, torch.float32),
              "group7": (wb * wh, wb * wkh, ws, ws, wd, torch.bfloat16)}
-    errs = {}
+    errs, lse_err = {}, 0.0
     for name, case in cases.items():
         q, k, v = inputs(*case)
         got = fa.flash_attention(q, k, v, causal=True)
-        want = fa_ref.attention_ref(q, k, v, causal=True)
+        with_lse, lse = fa.flash_attention_fwd(q, k, v, causal=True,
+                                               want_lse=True)
+        want, want_lse = fa_ref.attention_ref(q, k, v, causal=True,
+                                              return_lse=True)
         atol = FLASH_ATOL[str(case[-1]).split(".")[-1]]
         err = float((got.float() - want.float()).abs().max())
+        what = (f"flash_attention {name} (BH={case[0]}, BH_kv={case[1]}, "
+                f"Sq={case[2]}, Skv={case[3]}, D={case[4]}, {case[5]})")
         check(bool(torch.isfinite(got).all()) and err <= atol,
-              f"flash_attention {name} (BH={case[0]}, BH_kv={case[1]}, "
-              f"Sq={case[2]}, Skv={case[3]}, D={case[4]}, {case[5]}): max "
-              f"abs err {err:.3e} beyond atol {atol}")
-        errs[name] = err
-        del got, want
+              f"{what}: max abs err {err:.3e} beyond atol {atol}")
+        check(torch.equal(got, with_lse), f"{what}: the output with lse "
+                                          "written is not the output without")
+        lerr = float((lse - want_lse).abs().max())
+        check(lerr <= 1e-3, f"{what}: lse max abs err {lerr:.3e} beyond 1e-3")
+        errs[name], lse_err = err, max(lse_err, lerr)
+        del got, with_lse, lse, want, want_lse
     q, k, v = inputs(*cases["prefill"])
     q4 = q.view(b, h, sq, d)
     k4 = k.view(b, kh, skv, d).repeat_interleave(h // kh, dim=1)
@@ -618,11 +631,21 @@ def flash_kernel_phase(seed: int, card: str, device="cuda",
                     BF16_OPS_PER_S))
     flush_buf = torch.empty(96 << 20, dtype=torch.uint8, device=device)
     flush = flush_buf.zero_
-    row["ms"] = event_ms(row["fn"], 20, flush)
+    # without lse (serving) and with it (training), in turns
+    fwd = {False: row["fn"],
+           True: lambda: fa.flash_attention_fwd(q, k, v, want_lse=True)}
+    times = {False: [], True: []}
+    for want_lse in (False, True, True, False):
+        times[want_lse].append(event_ms(fwd[want_lse], 10, flush))
+    row["ms"] = sum(times[False]) / 2
+    ms_lse = sum(times[True]) / 2
     row["plain_ms"] = event_ms(row["plain"], 3, flush)
     row["library_ms"] = event_ms(row["library"], 20, flush)
     tflops = attention_flops(bh, sq, skv, d, True) / row["ms"] / 1e9
-    print(f"[kernel] flash_attention: ms={row['ms']:.4f} "
+    print(f"[kernel] flash_attention: ms={row['ms']:.4f} (readings "
+          f"{times[False][0]:.4f} {times[False][1]:.4f}) ms_lse="
+          f"{ms_lse:.4f} (lse written; readings {times[True][0]:.4f} "
+          f"{times[True][1]:.4f}; in turns) "
           f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound'][0]:.4f} "
           f"({row['bound'][1]}) share_of_bound="
           f"{row['bound'][0] / row['ms']:.3f} tflops={tflops:.1f} "
@@ -630,7 +653,9 @@ def flash_kernel_phase(seed: int, card: str, device="cuda",
           f"max_abs_err={errs['prefill']:.3e} "
           f"ragged_err={errs['ragged']:.3e} f32_err={errs['float32']:.3e} "
           f"group7_err={errs['group7']:.3e} (BH={wb * wh}, "
-          f"BH_kv={wb * wkh}, S={ws}) shape=(BH={bh}, S={sq}, "
+          f"BH_kv={wb * wkh}, S={ws}) lse_err={lse_err:.3e} (the four "
+          "cases' worst; the output with lse bit-equal to the one without) "
+          f"shape=(BH={bh}, S={sq}, "
           f"BH_kv={bh_kv}, D={d}, causal, bf16) card=\"{card}\"",
           flush=True)
     del flush_buf, q4, k4, v4
@@ -817,68 +842,72 @@ BWD_REPLACES = "src/repro/models/layers.py:87"   # the jnp twin it trains
 
 
 def bwd_work(bh: int, bh_kv: int, s: int, d: int, dv: int, itemsize: int,
-             causal: bool = True) -> dict[str, tuple[int, int]]:
-    """(bytes, operations) each backward kernel must move and do: K0 reads
-    q, k, out and dout, writes float32 lse and delta, and computes the
-    scores; K1 reads q, k, v, dout, lse and delta, writes dk and dv, and
-    computes S, dP, dV and dK; K2 reads the same, writes dq, and computes
-    S, dP and dQ (each product over the pairs the mask keeps)."""
+             causal: bool = True) -> dict[str, tuple[int, int, float]]:
+    """(bytes, operations, the peak rate of their type) of each backward
+    kernel: K0 reads out and dout, writes float32 delta and does a
+    multiply-add an element (float32, on the CUDA cores); K1 reads q, k,
+    v, dout, lse and delta, writes dk and dv, and computes S, dP, dV and
+    dK; K2 reads the same, writes dq, and computes S, dP and dQ (each
+    product over the pairs the mask keeps, on the bf16 tensor cores)."""
     pairs = attention_flops(bh, s, s, 1, causal, dv=0) // 2   # 2 bh pairs
     q = bh * s * d * itemsize
     kv = bh_kv * s * (d + dv) * itemsize
     o = bh * s * dv * itemsize
     stats = 2 * bh * s * 4
-    return {"flash_attention_bwd_prep": (q + bh_kv * s * d * itemsize
-                                         + 2 * o + stats, pairs * 2 * d),
+    return {"flash_attention_bwd_prep": (2 * o + bh * s * 4, 2 * bh * s * dv,
+                                         FP32_OPS_PER_S),
             "flash_attention_bwd_dkdv": (q + kv + o + stats + kv,
-                                         pairs * 2 * (2 * d + 2 * dv)),
+                                         pairs * 2 * (2 * d + 2 * dv),
+                                         BF16_OPS_PER_S),
             "flash_attention_bwd_dq": (q + kv + o + stats + q,
-                                       pairs * 2 * (2 * d + dv))}
+                                       pairs * 2 * (2 * d + dv),
+                                       BF16_OPS_PER_S)}
 
 
-def bwd_kernel_fns(q, k, v, out, do, causal: bool = True):
+def bwd_kernel_fns(q, k, v, out, do, lse, causal: bool = True):
     """One closure per backward kernel, each launching it alone (for its
-    timing) on scratch of its own, K1 and K2 reading the lse and delta of
-    one K0 run, and that lse.  On CPU tensors (a rehearsal) the plain
-    versions stand in: K0's statistics and the plain backward."""
+    timing) on scratch of its own, K1 and K2 reading ``lse`` (the forward
+    kernel's) and the delta of one K0 run; and that delta.  On CPU tensors
+    (a rehearsal) the plain versions stand in: ``delta_ref`` and the plain
+    backward."""
     import torch
 
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ref as fa_ref
     if q.device.type == "cpu":
         full = lambda: fa_ref.attention_bwd_ref(q, k, v, out, do,  # noqa: E731
-                                                causal=causal)
-        return {"flash_attention_bwd_prep": lambda: prep_plain(
-            q, k, out, do, causal),
-            "flash_attention_bwd_dkdv": full,
-            "flash_attention_bwd_dq": full}, prep_plain(q, k, out, do,
-                                                        causal)[0]
+                                                causal=causal, lse=lse)
+        return {"flash_attention_bwd_prep": lambda: fa_ref.delta_ref(out, do),
+                "flash_attention_bwd_dkdv": full,
+                "flash_attention_bwd_dq": full}, fa_ref.delta_ref(out, do)
     bh, s, d = q.shape
     bh_kv, dv = k.shape[0], v.shape[-1]
     lib = build.library("flash_attention_bwd")
-    lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
     dq, dk, dvo = (torch.empty_like(t) for t in (q, k, v))
-    args = (bh, bh_kv, s, s, d, dv, d ** -0.5, int(causal),
-            int(q.dtype == torch.bfloat16), build.stream(q.device))
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    stream = build.stream(q.device)
+    args = (bh, bh_kv, s, s, d, dv, d ** -0.5, int(causal), is_bf16, stream)
     p = build.ptr
 
-    def launch(fn, *tensors):
-        return lambda: build.check(fn(*(p(t) for t in tensors), *args),
-                                   fn.__name__)
+    def launch(fn, tensors, tail):
+        return lambda: build.check(fn(*map(p, tensors), *tail), fn.__name__)
     fns = {"flash_attention_bwd_prep": launch(
-        lib.repro_flash_bwd_prep, q, k, out, do, lse, delta),
+        lib.repro_flash_bwd_prep, (out, do, delta),
+        (bh, s, dv, is_bf16, stream)),
         "flash_attention_bwd_dkdv": launch(
-            lib.repro_flash_bwd_dkdv, q, k, v, do, lse, delta, dk, dvo),
+            lib.repro_flash_bwd_dkdv, (q, k, v, do, lse, delta, dk, dvo),
+            args),
         "flash_attention_bwd_dq": launch(
-            lib.repro_flash_bwd_dq, q, k, v, do, lse, delta, dq)}
+            lib.repro_flash_bwd_dq, (q, k, v, do, lse, delta, dq), args)}
     fns["flash_attention_bwd_prep"]()
-    return fns, lse
+    return fns, delta
 
 
 def prep_plain(q, k, out, do, causal: bool = True):
-    """K0's plain version: the softmax's log-normaliser over the masked
-    scores and ``rowsum(dout * out)``, float32."""
+    """The oracle of the backward's statistics: each row's log-normaliser
+    over the masked scores (``torch.logsumexp``, what the forward kernel
+    writes) and ``rowsum(dout * out)`` (K0's delta), float32."""
     import torch
     group = q.shape[0] // k.shape[0]
     sc = torch.einsum("bqd,bkd->bqk", q.float(),
@@ -896,14 +925,19 @@ def flash_bwd_kernel_phase(seed: int, card: str, device="cuda",
                            shape=(4, 16, 2, 2048, 128),
                            small=(2, 4, 2, 200, 64)) -> list[dict]:
     """Phase 4, fifth part: the flash backward's K0-K2 through
-    ``flash_attention_bwd`` against ``attention_bwd_ref`` at one
-    qwen2.5-3b train layer ``(B, H, Kh, S, D)`` in bf16 (bar 2e-2 of each
-    gradient's largest value) and at ``small`` in float32 (1e-4), each
-    giving the same bits twice; K0's lse against its plain version; then
-    each kernel timed alone beside its bound (``bwd_work``), its plain
-    version (K0's statistics; the whole plain backward for K1 and K2) and,
-    for K1 and K2, SDPA's backward with k/v expanded (which computes dq,
-    dk and dv at once)."""
+    ``flash_attention_bwd``, on the lse that the forward kernel writes
+    (``flash_attention_fwd(..., want_lse=True)``), against
+    ``attention_bwd_ref`` at one qwen2.5-3b train layer ``(B, H, Kh, S,
+    D)`` in bf16 (bar 2e-2 of each gradient's largest value) and at
+    ``small`` in float32 (1e-4), each giving the same bits twice; the
+    forward's lse (max abs err within 1e-3) and K0's delta (within 1e-5
+    of its largest; its row's ``max_abs_err``; the same bits twice)
+    against their oracle (``prep_plain``);
+    then each kernel timed alone beside its bound (``bwd_work``), its
+    plain version (K0's ``delta_ref``; the whole plain backward for K1 and
+    K2) and one PyTorch call: ``torch.linalg.vecdot`` for K0 (a bf16
+    result), SDPA's backward with k/v expanded for K1 and K2 (dq, dk and
+    dv at once)."""
     import torch
     import torch.nn.functional as F
 
@@ -916,14 +950,15 @@ def flash_bwd_kernel_phase(seed: int, card: str, device="cuda",
                                    dtype=dtype)
                        for dims in ((b * h, s, d), (b * kh, s, d),
                                     (b * kh, s, d), (b * h, s, d)))
-        return q, k, v, do, fa.flash_attention(q, k, v)
+        return (q, k, v, do, *fa.flash_attention_fwd(q, k, v,
+                                                      want_lse=True))
 
     errs = {}
     for tag, case, dtype in (("bf16", shape, torch.bfloat16),
                              ("f32", small, torch.float32)):
-        q, k, v, do, out = inputs(*case, dtype)
-        got = fa.flash_attention_bwd(q, k, v, out, do)
-        again = fa.flash_attention_bwd(q, k, v, out, do)
+        q, k, v, do, out, lse = inputs(*case, dtype)
+        got = fa.flash_attention_bwd(q, k, v, out, do, lse)
+        again = fa.flash_attention_bwd(q, k, v, out, do, lse)
         want = fa_ref.attention_bwd_ref(q, k, v, out, do, causal=True)
         bar = FLASH_BWD_BAR[str(dtype).split(".")[-1]]
         for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
@@ -937,15 +972,24 @@ def flash_bwd_kernel_phase(seed: int, card: str, device="cuda",
             errs[tag, name] = err
         del got, again, want
     b, h, kh, s, d = shape
-    q, k, v, do, out = inputs(*shape, torch.bfloat16)
-    lse = prep_plain(q, k, out, do)[0]
-    fns, k0_lse = bwd_kernel_fns(q, k, v, out, do)
+    q, k, v, do, out, lse = inputs(*shape, torch.bfloat16)
+    plain_lse, plain_delta = prep_plain(q, k, out, do)
+    fns, delta = bwd_kernel_fns(q, k, v, out, do, lse)
+    first = delta.clone()
+    fns["flash_attention_bwd_prep"]()
     torch.cuda.synchronize()
-    lse_err = float((k0_lse - lse).abs().max())
-    check(lse_err <= 1e-3, f"K0's lse is {lse_err:.3e} from the plain one")
-    plain = {"flash_attention_bwd_prep": lambda: prep_plain(q, k, out, do)}
+    lse_err = float((lse - plain_lse).abs().max())
+    check(lse_err <= 1e-3, f"the forward kernel's lse is {lse_err:.3e} "
+                           "from the plain one")
+    delta_err = float((delta - plain_delta).abs().max())
+    delta_top = float(plain_delta.abs().max())
+    check(delta_err <= 1e-5 * delta_top, f"K0's delta is {delta_err:.3e} "
+          f"from the plain one, beyond 1e-5 of its largest {delta_top:.3e}")
+    check(torch.equal(delta, first), "K0: not the same bits twice")
+    plain = {"flash_attention_bwd_prep": lambda: fa_ref.delta_ref(out, do)}
     plain["flash_attention_bwd_dkdv"] = plain["flash_attention_bwd_dq"] = (
-        lambda: fa_ref.attention_bwd_ref(q, k, v, out, do, causal=True))
+        lambda: fa_ref.attention_bwd_ref(q, k, v, out, do, causal=True,
+                                         lse=lse))
     q4 = q.view(b, h, s, d).detach().requires_grad_(True)
     k4, v4 = (x.view(b, kh, s, d).repeat_interleave(h // kh, dim=1)
               .detach().requires_grad_(True) for x in (k, v))
@@ -956,37 +1000,43 @@ def flash_bwd_kernel_phase(seed: int, card: str, device="cuda",
     work = bwd_work(b * h, b * kh, s, d, d, 2)
     flush_buf = torch.empty(96 << 20, dtype=torch.uint8, device=device)
     flush = flush_buf.zero_
-    lib_ms = event_ms(sdpa_bwd, 10, flush)
+    lib_ms = {"flash_attention_bwd_prep": event_ms(
+        lambda: torch.linalg.vecdot(do, out, dim=-1), 10, flush)}
+    lib_ms["flash_attention_bwd_dkdv"] = lib_ms["flash_attention_bwd_dq"] = (
+        event_ms(sdpa_bwd, 10, flush))
     rows = []
     for name, fn in fns.items():
         row = dict(name=name, fn=fn, plain=plain[name],
                    source="src/repro_torch/csrc/flash_attention_bwd.cu",
                    replaces=BWD_REPLACES,
-                   err=max(errs["bf16", g] for g in ("dq", "dk", "dv")),
-                   bound=bound(*work[name], BF16_OPS_PER_S))
-        row["ms"] = event_ms(fn, 5, flush)
+                   err=(delta_err if name == "flash_attention_bwd_prep" else
+                        max(errs["bf16", g] for g in ("dq", "dk", "dv"))),
+                   bound=bound(*work[name]), library_ms=lib_ms[name])
+        row["ms"] = event_ms(fn, 5 if row["bound"][1] == "operations"
+                             else 20, flush)
         row["plain_ms"] = event_ms(row["plain"], 2, flush)
-        row["library_ms"] = (None if name == "flash_attention_bwd_prep"
-                             else lib_ms)
         rows.append(row)
     total = sum(r["ms"] for r in rows)
     for r in rows:
-        lib = (f"library_ms={r['library_ms']:.4f} (sdpa backward, k/v "
-               "expanded)" if r["library_ms"] is not None else
-               "library_ms=None")
+        lib = ("(torch.linalg.vecdot, a bf16 result)"
+               if r["name"] == "flash_attention_bwd_prep" else
+               "(sdpa backward, k/v expanded)")
         print(f"[kernel] {r['name']}: ms={r['ms']:.4f} plain_ms="
               f"{r['plain_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
               f"({r['bound'][1]}) share_of_bound="
-              f"{r['bound'][0] / r['ms']:.4f} {lib} shape=(BH={b * h}, "
+              f"{r['bound'][0] / r['ms']:.4f} library_ms="
+              f"{r['library_ms']:.4f} {lib} shape=(BH={b * h}, "
               f"BH_kv={b * kh}, S={s}, D={d}, causal, bf16) "
               f"card=\"{card}\"", flush=True)
+    sdpa_ms = lib_ms["flash_attention_bwd_dq"]
     print(f"[kernel] flash backward K0+K1+K2: ms={total:.4f} against "
-          f"sdpa backward {lib_ms:.4f}; bf16 dq/dk/dv err "
+          f"sdpa backward {sdpa_ms:.4f}; bf16 dq/dk/dv err "
           f"{errs['bf16', 'dq']:.3e}/{errs['bf16', 'dk']:.3e}/"
           f"{errs['bf16', 'dv']:.3e}, f32 {errs['f32', 'dq']:.3e}/"
           f"{errs['f32', 'dk']:.3e}/{errs['f32', 'dv']:.3e} of the largest "
-          f"(bars {FLASH_BWD_BAR}); the same bits twice; K0 lse max abs "
-          f"err {lse_err:.3e}", flush=True)
+          f"(bars {FLASH_BWD_BAR}); the same bits twice; the forward's lse "
+          f"max abs err {lse_err:.3e}, K0's delta {delta_err:.3e} (largest "
+          f"{delta_top:.3e})", flush=True)
     del flush_buf, q4, k4, v4, o4
     return rows
 
@@ -3351,7 +3401,7 @@ def train_phase(seed: int, card: str, device="cuda", arch="qwen2.5-3b",
         flash = {label: sum(ms for name, ms in prof["by_name"].items()
                             if key in name)
                  for label, key in (("forward", "flash_bf16_kernel"),
-                                    ("K0", "bwd_prep"), ("K1", "bwd_dkdv"),
+                                    ("K0", "bwd_delta"), ("K1", "bwd_dkdv"),
                                     ("K2", "bwd_dq"))}
         k012 = flash["K0"] + flash["K1"] + flash["K2"]
         print(f"{tag} warm step flash busy ms: "

@@ -11,7 +11,11 @@
 //   reference's NEG_INF = -1e30 start and max(l, 1e-30) guard (masked keys
 //   weigh exactly 0, as there); the output is written in q's type.  Sq and
 //   Skv are any lengths: the kernel masks the ragged kv tile and drops rows
-//   past Sq.
+//   past Sq.  Given an lse pointer (the train path, for the backward in
+//   flash_attention_bwd.cu), it also writes each row's log-normaliser
+//   lse[bh, i] = m_i + log l_i of the scaled scores in natural log, float32
+//   (BH, Sq), from the m and l its epilogue already holds, and +inf for a
+//   row that sees no key; a null pointer (serving) writes nothing.
 // Bound on the H100 at the serving prefill (B=4, H=16, Kh=2, S=2048, D=128,
 //   causal, bf16): 2 * 2 * B*H * S^2 * D / 2 = 68.7 GFLOP, 0.0695 ms at
 //   989 TFLOP/s; q, k, v and out are 75.5 MB, 0.0225 ms at 3.35 TB/s.  It is
@@ -50,7 +54,11 @@
 //     products, and inside a consumer the softmax of tile j overlaps P(j-1)
 //     V(j-1).  A stage is released only after wgmma.wait_group has retired
 //     the products that read it.  The epilogue divides by max(l, 1e-30) and
-//     stores bf16 pairs straight to the rows' places in `out`.
+//     stores bf16 pairs straight to the rows' places in `out`; asked for
+//     lse, the first lane of each quad stores its two rows' |scale| m +
+//     log l (m is the raw running max: the scale is folded into the
+//     softmax's exp2, and a negative scale into Q), 0.52 MB at the train
+//     layer's 131,072 rows.
 //   Head dims up to 64 run the D = 64 instance (128 keys a tile, 80 KB of
 //   shared memory), head dims up to 128 the D = 128 one (160 KB); a head
 //   dim below the instance's width is padded with zeros by the TMA boxes'
@@ -168,8 +176,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v,
                   const __nv_bfloat16* __restrict__ q,
-                  __nv_bfloat16* __restrict__ o, Shape s, int n_row_tiles,
-                  int bh_kv) {
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                  Shape s, int n_row_tiles, int bh_kv) {
   using L = Layout<DP, DVP>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -465,6 +473,9 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         l += __shfl_xor_sync(0xffffffffu, l, 1);
         l += __shfl_xor_sync(0xffffffffu, l, 2);
         if (!valid[h]) continue;
+        if (lse != nullptr && t4 == 0)
+          lse[orow[h]] =
+              l > 0.f ? fmaf(m_run[h], fabsf(s.scale), logf(l)) : INFINITY;
         const float inv = 1.f / fmaxf(l, 1e-30f);
         __nv_bfloat16* dst = o + orow[h] * s.dv;
 #pragma unroll
@@ -489,7 +500,7 @@ template <int DP, int DVP>
 __global__ void __launch_bounds__(FTHREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 Shape s) {
+                 float* __restrict__ lse, Shape s) {
   constexpr int LQ = DP + 1, LP = FBN + 1;   // padded strides
   extern __shared__ float fsm[];
   float* Qs = fsm;                  // FBM x LQ
@@ -572,6 +583,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   if (r < rows) {
+    // m_run is scaled here; a row that sees no key keeps the NEG_INF start
+    if (lse != nullptr && sub == 0)
+      lse[q_row(s, bkv, r)] =
+          m_run > NEG_INF ? m_run + logf(l_run) : INFINITY;
     const float den = fmaxf(l_run, 1e-30f);
     float* dst = o + q_row(s, bkv, r) * s.dv;
 #pragma unroll
@@ -612,7 +627,7 @@ int prepare_bf16() {
 
 template <int DP, int DVP>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                Shape s, int bh_kv, cudaStream_t st) {
+                float* lse, Shape s, int bh_kv, cudaStream_t st) {
   const int sms = prepare_bf16<DP, DVP>();
   if (sms < 0) return -sms;
   // K (D, Skv, BH_kv) and V (Dv, Skv, BH_kv) in boxes of (64 columns, BN
@@ -643,13 +658,13 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   flash_bf16_kernel<DP, DVP>
       <<<grid, THREADS, Layout<DP, DVP>::BYTES + 1024, st>>>(
       tm_q, tm_k, tm_v, static_cast<const __nv_bfloat16*>(q),
-      static_cast<__nv_bfloat16*>(o), s, n_row_tiles, bh_kv);
+      static_cast<__nv_bfloat16*>(o), lse, s, n_row_tiles, bh_kv);
   return cudaGetLastError();
 }
 
 template <int DP, int DVP>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               const Shape& s, int bh_kv, cudaStream_t st) {
+               float* lse, const Shape& s, int bh_kv, cudaStream_t st) {
   const int smem = ((FBM + FBN) * (DP + 1) + FBN * DVP + FBM * (FBN + 1)) *
                    (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -659,21 +674,22 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((s.group * s.sq + FBM - 1) / FBM, bh_kv);
   flash_f32_kernel<DP, DVP><<<grid, FTHREADS, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), s);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, s);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q (bh, sq, d), k (bh_kv, skv, d), v (bh_kv, skv, dv), out (bh, sq, dv), all
-// contiguous, bf16 when is_bf16 else float32; d and dv multiples of 8.  The
+// contiguous, bf16 when is_bf16 else float32; d and dv multiples of 8; lse
+// float32 (bh, sq), or null to write none.  The
 // instances, by widths padded to 64: bf16 (64, 64), (128, 128) and (192,
 // 128); float32 dv = d <= 128 (by d padded to 16, 32, 64 or 128), else
 // (192, 128) for any d <= 192 with dv <= 128.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int bh,
-                                     int bh_kv, int sq, int skv, int d,
-                                     int dv, float scale, int causal,
+                                     const void* v, void* out, void* lse_out,
+                                     int bh, int bh_kv, int sq, int skv,
+                                     int d, int dv, float scale, int causal,
                                      int q_offset, int is_bf16, void* stream) {
   if (bh_kv <= 0 || bh % bh_kv != 0 || sq <= 0 || skv <= 0 || d <= 0 ||
       d > 192 || d % 8 != 0 || dv <= 0 || dv > d || dv % 8 != 0 ||
@@ -681,25 +697,26 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     return cudaErrorInvalidValue;
   const Shape s{bh / bh_kv, sq, skv, d, dv, q_offset, causal, scale, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   const int dp = (d + 63) / 64 * 64, dvp = (dv + 63) / 64 * 64;
   if (is_bf16) {
     if (dp == 64 && dvp == 64)
-      return launch_bf16<64, 64>(q, k, v, out, s, bh_kv, st);
+      return launch_bf16<64, 64>(q, k, v, out, lse, s, bh_kv, st);
     if (dp == 128 && dvp == 128)
-      return launch_bf16<128, 128>(q, k, v, out, s, bh_kv, st);
+      return launch_bf16<128, 128>(q, k, v, out, lse, s, bh_kv, st);
     if (dp == 192 && dvp == 128)
-      return launch_bf16<192, 128>(q, k, v, out, s, bh_kv, st);
+      return launch_bf16<192, 128>(q, k, v, out, lse, s, bh_kv, st);
     return cudaErrorInvalidValue;
   }
   if (dv == d && d <= 128) {
     const int fp = d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : 128;
     switch (fp) {
-      case 16: return launch_f32<16, 16>(q, k, v, out, s, bh_kv, st);
-      case 32: return launch_f32<32, 32>(q, k, v, out, s, bh_kv, st);
-      case 64: return launch_f32<64, 64>(q, k, v, out, s, bh_kv, st);
-      default: return launch_f32<128, 128>(q, k, v, out, s, bh_kv, st);
+      case 16: return launch_f32<16, 16>(q, k, v, out, lse, s, bh_kv, st);
+      case 32: return launch_f32<32, 32>(q, k, v, out, lse, s, bh_kv, st);
+      case 64: return launch_f32<64, 64>(q, k, v, out, lse, s, bh_kv, st);
+      default: return launch_f32<128, 128>(q, k, v, out, lse, s, bh_kv, st);
     }
   }
   if (dv > 128) return cudaErrorInvalidValue;
-  return launch_f32<192, 128>(q, k, v, out, s, bh_kv, st);
+  return launch_f32<192, 128>(q, k, v, out, lse, s, bh_kv, st);
 }

@@ -8,12 +8,13 @@
 //   backward of this port's forward kernel (csrc/flash_attention.cu), so
 //   that a train step on the card never materialises the (BH, S, S) scores.
 // Computes, for q (BH, Sq, D), k (BH_kv, Skv, D), v (BH_kv, Skv, Dv), the
-//   forward's out (BH, Sq, Dv) and its gradient dout, q row bh reading kv
-//   row bh / group, the keys j < Skv and, for causal attention, j <= i
-//   (top-left alignment, no q offset):
-//   K0 repro_flash_bwd_prep   lse_i = m_i + log l_i of the softmax over
-//                             s_ij = scale q_i . k_j (one pass over the key
-//                             tiles) and delta_i = dout_i . out_i, float32;
+//   forward's out (BH, Sq, Dv), its log-normaliser lse (BH, Sq) and the
+//   gradient dout, q row bh reading kv row bh / group, the keys j < Skv
+//   and, for causal attention, j <= i (top-left alignment, no q offset):
+//   K0 repro_flash_bwd_prep   delta_i = dout_i . out_i, float32 (lse_i =
+//                             m_i + log l_i of the softmax over s_ij =
+//                             scale q_i . k_j comes from the forward kernel,
+//                             which writes it from its epilogue when asked);
 //   K1 repro_flash_bwd_dkdv   P = exp(s - lse), dP = dout v^T,
 //                             dS = P (dP - delta); dv_j = sum P_ij dout_i and
 //                             dk_j = scale sum dS_ij q_i over every q head of
@@ -27,6 +28,15 @@
 //   and dQ, 103.1 GFLOP, 0.1043 ms; each reads q, k, v, dout, lse and delta
 //   and writes its gradients (under 0.05 ms at 3.35 TB/s): both are bound
 //   by operations, so the bf16 design is about keeping the tensor cores fed.
+//   K0 reads out and dout (2 x 33.55 MB) and writes delta (0.52 MB): 67.6
+//   MB, 0.0202 ms at 3.35 TB/s, against 33.5 MFLOP: bound by bytes.
+// Design of K0: one pass over the rows of out and dout, no shared memory.
+//   A row is the least power of two of lanes that holds its 16-byte chunks
+//   (16 lanes for a 128-wide bf16 row of 256 bytes), each lane one chunk of
+//   out and one of dout; a thread takes 4 rows, all 8 loads issued before
+//   any sum, so a block of 256 threads has 32 KB in flight; each lane sums
+//   its chunk in order with fmaf and the row's lanes add by an xor
+//   butterfly, a fixed order, so the same bits come out on every run.
 // Design of bf16 K1 and K2 (Hopper): wgmma and TMA, as the forward kernel,
 //   with the PTX helpers of hopper.cuh; 384 threads, a producer warpgroup
 //   (setmaxnreg.dec 24; one thread starts every TMA load, 128-byte
@@ -66,35 +76,30 @@
 //   K/V tiles a group re-reads come from L2.
 //   Widths are padded to the instance's (64, 64), (128, 128) or MLA's
 //   (192, 128) (d 16 runs (64, 64)).
-// Other instances: K0 (both types) and float32 K1 and K2 (the reference's
-//   tolerance case) are the simple first version: plain FMA on the CUDA
-//   cores, 256 threads a block, 64 x 64 tiles of queries x keys staged in
-//   shared memory as float32 with a row stride of width + 1, each thread
-//   holding a 4 x 4 block of a score tile.  K0 recomputes lse rather than
-//   taking it from the forward, which keeps the forward kernel as it is.
+// Other instances: float32 K1 and K2 (the reference's tolerance case) are
+//   the simple first version: plain FMA on the CUDA cores, 256 threads a
+//   block, 64 x 64 tiles of queries x keys staged in shared memory as
+//   float32 with a row stride of width + 1, each thread holding a 4 x 4
+//   block of a score tile.
 // Left on the table: inside a consumer the products and the exponentials
 //   do not overlap (only the two consumers' do), S and dP are computed
-//   twice (K1 and K2) and S a third time (K0, still SIMT); K2's K and V
-//   tiles are read once per q head, not once per group; dQ and dK/dV are
-//   stored from registers, not staged for a TMA store; no fp8.
+//   twice (K1 and K2); K2's K and V tiles are read once per q head, not
+//   once per group; dQ and dK/dV are stored from registers, not staged for
+//   a TMA store; no fp8.
 #include <math.h>
+#include <stdint.h>
 
 #include "hopper.cuh"  // mbarriers, TMA, wgmma; the TMA descriptor encoder
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// SIMT: K0, and K1 and K2 in float32
+// SIMT: K1 and K2 in float32
 // ---------------------------------------------------------------------------
 constexpr int BM = 64;        // query rows a tile
 constexpr int BN = 64;        // keys a tile (BM == BN: the causal tile walk)
 constexpr int THREADS = 256;  // 16 x 16 threads, each a 4 x 4 score block
 constexpr int SP = BN + 1;    // row stride of a score tile in shared memory
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 struct Shape {
   int group, sq, skv, d, dv, causal;
@@ -110,7 +115,7 @@ __device__ void load_tile(float* dst, const T* src, int r0, int rows,
     const int r = idx / W, c = idx % W;
     float x = 0.f;
     if (r0 + r < rows && c < width)
-      x = to_f(src[(size_t)(r0 + r) * width + c]);
+      x = src[(size_t)(r0 + r) * width + c];
     dst[r * (W + 1) + c] = x;
   }
 }
@@ -174,78 +179,58 @@ __device__ void p_ds_tile(const float* Qs, const float* dOs, const float* Ks,
 }
 
 // ----------------------------------------------------------------------- K0
-template <typename T, int DP, int DVP>
-__global__ void __launch_bounds__(THREADS)
-    bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ o, const T* __restrict__ dout,
-                    float* __restrict__ lse, float* __restrict__ delta,
-                    Shape s) {
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BM * (DP + 1);
-  const int qt = blockIdx.x, bh = blockIdx.y, q0 = qt * BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const T* qb = q + (size_t)bh * s.sq * s.d;
-  const T* kb = k + (size_t)(bh / s.group) * s.skv * s.d;
+constexpr int PREP_THREADS = 256;
+constexpr int PREP_ROWS = 4;  // rows a thread
 
-  // delta: one warp a row, lanes across the width
-  for (int r = warp; r < BM && q0 + r < s.sq; r += THREADS / 32) {
-    const size_t row = ((size_t)bh * s.sq + q0 + r) * s.dv;
-    float acc = 0.f;
-    for (int e = lane; e < s.dv; e += 32)
-      acc = fmaf(to_f(dout[row + e]), to_f(o[row + e]), acc);
+// the dot product of two 16-byte chunks, in order, in float32: eight bf16
+// pairs (a bf16 is the high half of a float) or four floats
+__device__ __forceinline__ float chunk_dot(uint4 a, uint4 b, __nv_bfloat16) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+  float acc = 0.f;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) delta[(size_t)bh * s.sq + q0 + r] = acc;
+  for (int i = 0; i < 4; ++i) {
+    acc = fmaf(__uint_as_float(x[i] << 16), __uint_as_float(y[i] << 16), acc);
+    acc = fmaf(__uint_as_float(x[i] & 0xffff0000u),
+               __uint_as_float(y[i] & 0xffff0000u), acc);
   }
+  return acc;
+}
+__device__ __forceinline__ float chunk_dot(uint4 a, uint4 b, float) {
+  float acc = __uint_as_float(a.x) * __uint_as_float(b.x);
+  acc = fmaf(__uint_as_float(a.y), __uint_as_float(b.y), acc);
+  acc = fmaf(__uint_as_float(a.z), __uint_as_float(b.z), acc);
+  return fmaf(__uint_as_float(a.w), __uint_as_float(b.w), acc);
+}
 
-  load_tile<T, DP>(Qs, qb, q0, s.sq, s.d);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float m[4], l[4];
+// delta[r] = dout[r] . out[r] for the rows r < rows of (rows, cpr) 16-byte
+// chunks: 2^lpr_log2 lanes a row (>= cpr), lane c its chunk c; the block's
+// rows are PREP_ROWS passes of PREP_THREADS >> lpr_log2 consecutive rows
+template <typename T>
+__global__ void __launch_bounds__(PREP_THREADS)
+    bwd_delta_kernel(const uint4* __restrict__ o,
+                     const uint4* __restrict__ dout,
+                     float* __restrict__ delta, int rows, int cpr,
+                     int lpr_log2) {
+  const int c = threadIdx.x & ((1 << lpr_log2) - 1);
+  const int per_pass = PREP_THREADS >> lpr_log2;
+  const int r0 = blockIdx.x * per_pass * PREP_ROWS + (threadIdx.x >> lpr_log2);
+  uint4 a[PREP_ROWS], b[PREP_ROWS];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = -INFINITY;
-    l[a] = 0.f;
-  }
-  const int kt_last = last_key_tile(qt, s);
-  for (int kt = 0; kt <= kt_last; ++kt) {
-    __syncthreads();
-    load_tile<T, DP>(Ks, kb, kt * BN, s.skv, s.d);
-    __syncthreads();
-    float sc[4][4];
-    dot_tile<DP>(Qs, Ks, sc);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        if (!visible(q0 + ty + 16 * a, kt * BN + tx + 16 * b, s)) continue;
-        const float x = sc[a][b] * s.scale;
-        if (x > m[a]) {
-          l[a] = l[a] * expf(m[a] - x) + 1.f;
-          m[a] = x;
-        } else {
-          l[a] += expf(x - m[a]);
-        }
-      }
-  }
-  // combine the 16 lanes of a row (one half-warp: the lanes of one ty)
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m[a], off);
-      const float l2 = __shfl_xor_sync(0xffffffffu, l[a], off);
-      const float mn = fmaxf(m[a], m2);
-      const float x = m[a] == -INFINITY ? 0.f : l[a] * expf(m[a] - mn);
-      const float y = m2 == -INFINITY ? 0.f : l2 * expf(m2 - mn);
-      l[a] = x + y;
-      m[a] = mn;
+  for (int u = 0; u < PREP_ROWS; ++u) {
+    const int r = r0 + u * per_pass;
+    a[u] = b[u] = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows && c < cpr) {
+      a[u] = o[(size_t)r * cpr + c];
+      b[u] = dout[(size_t)r * cpr + c];
     }
-    const int i = q0 + ty + 16 * a;
-    // a row that sees no key gets +inf, so that its P is 0
-    if (tx == 0 && i < s.sq)
-      lse[(size_t)bh * s.sq + i] = l[a] > 0.f ? m[a] + logf(l[a]) : INFINITY;
+  }
+#pragma unroll
+  for (int u = 0; u < PREP_ROWS; ++u) {
+    float acc = chunk_dot(a[u], b[u], T());
+    for (int off = (1 << lpr_log2) >> 1; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    const int r = r0 + u * per_pass;
+    if (c == 0 && r < rows) delta[r] = acc;
   }
 }
 
@@ -415,7 +400,6 @@ __global__ void __launch_bounds__(THREADS)
 // shared memory of each kernel, in bytes
 template <int DP, int DVP>
 struct Smem {
-  static constexpr int PREP = (BM + BN) * (DP + 1) * 4;
   static constexpr int DKDV =
       ((BM + BN) * (DP + DVP + 2) + 2 * BM * SP + 2 * BM) * 4;
   static constexpr int DQ =
@@ -884,7 +868,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 // launchers
 // ---------------------------------------------------------------------------
 struct Ptrs {
-  const void *q, *k, *v, *o, *dout;
+  const void *q, *k, *v, *dout;
   float *lse, *delta;
   void *dq, *dk, *dv;
 };
@@ -972,40 +956,36 @@ int launch_tc(int which, const Ptrs& p, const Shape& s, int bh, int bh_kv,
   return launch_dkdv_bf16<DP, DVP, DP == 192 ? 32 : 64>(p, s, bh, bh_kv, st);
 }
 
-// which: 0 = K0, 1 = K1, 2 = K2: K0 and the float32 kernels are SIMT, bf16
-// K1 and K2 the tensor-core kernels
+// which: 1 = K1, 2 = K2: the float32 kernels are SIMT, bf16 the
+// tensor-core kernels
 template <typename T, int DP, int DVP>
 int launch(int which, const Ptrs& p, const Shape& s, int bh, int bh_kv,
            cudaStream_t st) {
-  const T* q = static_cast<const T*>(p.q);
-  const T* k = static_cast<const T*>(p.k);
-  const T* dout = static_cast<const T*>(p.dout);
-  const int nq = (s.sq + BM - 1) / BM;
-  cudaError_t err;
-  if (which == 0) {
-    err = set_smem(bwd_prep_kernel<T, DP, DVP>, Smem<DP, DVP>::PREP);
-    if (err != cudaSuccess) return err;
-    bwd_prep_kernel<T, DP, DVP>
-        <<<dim3(nq, bh), THREADS, Smem<DP, DVP>::PREP, st>>>(
-            q, k, static_cast<const T*>(p.o), dout, p.lse, p.delta, s);
-  } else if constexpr (sizeof(T) == 2) {
+  if constexpr (sizeof(T) == 2) {
     return launch_tc<DP, DVP>(which, p, s, bh, bh_kv, st);
-  } else if (which == 1) {
-    err = set_smem(bwd_dkdv_kernel<T, DP, DVP>, Smem<DP, DVP>::DKDV);
-    if (err != cudaSuccess) return err;
-    bwd_dkdv_kernel<T, DP, DVP>
-        <<<dim3((s.skv + BN - 1) / BN, bh_kv), THREADS, Smem<DP, DVP>::DKDV,
-           st>>>(q, k, static_cast<const T*>(p.v), dout, p.lse, p.delta,
-                 static_cast<T*>(p.dk), static_cast<T*>(p.dv), s);
   } else {
-    err = set_smem(bwd_dq_kernel<T, DP, DVP>, Smem<DP, DVP>::DQ);
-    if (err != cudaSuccess) return err;
-    bwd_dq_kernel<T, DP, DVP>
-        <<<dim3(nq, bh), THREADS, Smem<DP, DVP>::DQ, st>>>(
-            q, k, static_cast<const T*>(p.v), dout, p.lse, p.delta,
-            static_cast<T*>(p.dq), s);
+    const T* q = static_cast<const T*>(p.q);
+    const T* k = static_cast<const T*>(p.k);
+    const T* v = static_cast<const T*>(p.v);
+    const T* dout = static_cast<const T*>(p.dout);
+    cudaError_t err;
+    if (which == 1) {
+      err = set_smem(bwd_dkdv_kernel<T, DP, DVP>, Smem<DP, DVP>::DKDV);
+      if (err != cudaSuccess) return err;
+      bwd_dkdv_kernel<T, DP, DVP>
+          <<<dim3((s.skv + BN - 1) / BN, bh_kv), THREADS,
+             Smem<DP, DVP>::DKDV, st>>>(q, k, v, dout, p.lse, p.delta,
+                                        static_cast<T*>(p.dk),
+                                        static_cast<T*>(p.dv), s);
+    } else {
+      err = set_smem(bwd_dq_kernel<T, DP, DVP>, Smem<DP, DVP>::DQ);
+      if (err != cudaSuccess) return err;
+      bwd_dq_kernel<T, DP, DVP>
+          <<<dim3((s.sq + BM - 1) / BM, bh), THREADS, Smem<DP, DVP>::DQ,
+             st>>>(q, k, v, dout, p.lse, p.delta, static_cast<T*>(p.dq), s);
+    }
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 // the instance by the widths: the smallest of (64, 64), (128, 128) and
@@ -1033,22 +1013,40 @@ int run(int which, const Ptrs& p, int bh, int bh_kv, int sq, int skv, int d,
 
 }  // namespace
 
-// All tensors contiguous: q (bh, sq, d), k (bh_kv, skv, d), v (bh_kv, skv,
-// dv), out and dout (bh, sq, dv), dq, dk and dv like q, k and v, bf16 when
-// is_bf16 else float32; lse and delta float32 (bh, sq).  d and dv multiples
-// of 8 with dv <= d <= 192 and dv <= 128.  Each returns cudaGetLastError()
-// after its launch.
-extern "C" int repro_flash_bwd_prep(const void* q, const void* k,
-                                    const void* out, const void* dout,
-                                    void* lse, void* delta, int bh, int bh_kv,
-                                    int sq, int skv, int d, int dv,
-                                    float scale, int causal, int is_bf16,
-                                    void* stream) {
-  Ptrs p{q, k, nullptr, out, dout, static_cast<float*>(lse),
-         static_cast<float*>(delta), nullptr, nullptr, nullptr};
-  return run(0, p, bh, bh_kv, sq, skv, d, dv, scale, causal, is_bf16, stream);
+// K0: out and dout (bh, sq, dv), contiguous, 16-byte aligned, bf16 when
+// is_bf16 else float32, dv a multiple of 8 up to 128; delta float32 (bh,
+// sq).  Returns cudaGetLastError() after its launch.
+extern "C" int repro_flash_bwd_prep(const void* out, const void* dout,
+                                    void* delta, int bh, int sq, int dv,
+                                    int is_bf16, void* stream) {
+  if (bh <= 0 || sq <= 0 || dv <= 0 || dv > 128 || dv % 8 != 0 ||
+      (reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(dout)) %
+              16 != 0)
+    return cudaErrorInvalidValue;
+  const int rows = bh * sq;
+  const int cpr = dv / (is_bf16 ? 8 : 4);  // 16-byte chunks a row
+  int lpr_log2 = 0;
+  while ((1 << lpr_log2) < cpr) ++lpr_log2;
+  const int per_block = (PREP_THREADS >> lpr_log2) * PREP_ROWS;
+  const int grid = (rows + per_block - 1) / per_block;
+  const uint4* o = static_cast<const uint4*>(out);
+  const uint4* d = static_cast<const uint4*>(dout);
+  float* dl = static_cast<float*>(delta);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    bwd_delta_kernel<__nv_bfloat16>
+        <<<grid, PREP_THREADS, 0, st>>>(o, d, dl, rows, cpr, lpr_log2);
+  else
+    bwd_delta_kernel<float>
+        <<<grid, PREP_THREADS, 0, st>>>(o, d, dl, rows, cpr, lpr_log2);
+  return cudaGetLastError();
 }
 
+// K1 and K2: all tensors contiguous: q (bh, sq, d), k (bh_kv, skv, d), v
+// (bh_kv, skv, dv), dout (bh, sq, dv), dq, dk and dv like q, k and v, bf16
+// when is_bf16 else float32; lse (the forward kernel's) and delta (K0's)
+// float32 (bh, sq).  d and dv multiples of 8 with dv <= d <= 192 and dv <=
+// 128.  Each returns cudaGetLastError() after its launch.
 extern "C" int repro_flash_bwd_dkdv(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* delta,
@@ -1056,7 +1054,7 @@ extern "C" int repro_flash_bwd_dkdv(const void* q, const void* k,
                                     int sq, int skv, int d, int dv,
                                     float scale, int causal, int is_bf16,
                                     void* stream) {
-  Ptrs p{q, k, v, nullptr, dout,
+  Ptrs p{q, k, v, dout,
          const_cast<float*>(static_cast<const float*>(lse)),
          const_cast<float*>(static_cast<const float*>(delta)), nullptr, dk,
          dv_out};
@@ -1069,7 +1067,7 @@ extern "C" int repro_flash_bwd_dq(const void* q, const void* k,
                                   int bh, int bh_kv, int sq, int skv, int d,
                                   int dv, float scale, int causal, int is_bf16,
                                   void* stream) {
-  Ptrs p{q, k, v, nullptr, dout,
+  Ptrs p{q, k, v, dout,
          const_cast<float*>(static_cast<const float*>(lse)),
          const_cast<float*>(static_cast<const float*>(delta)), dq, nullptr,
          nullptr};

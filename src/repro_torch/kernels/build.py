@@ -61,16 +61,19 @@ SIGNATURES = {
     "bdi": {
         "repro_bdi_sizes": [_P, _P, _P, _I64, _P],
     },
+    # the forward: q, k, v, out, lse (or null), (bh, bh_kv, sq, skv, d, dv),
+    # the scale, (causal, q_offset, is_bf16) and the stream
     "flash_attention": {
-        "repro_flash_attention": [_P] * 4 + [_I32] * 6 + [_F32]
+        "repro_flash_attention": [_P] * 5 + [_I32] * 6 + [_F32]
         + [_I32] * 3 + [_P],
     },
-    # the backward's K0-K2: tensors, (bh, bh_kv, sq, skv, d, dv), the
+    # the backward: K0 out, dout, delta, (bh, sq, dv, is_bf16) and the
+    # stream; K1 and K2 their tensors, (bh, bh_kv, sq, skv, d, dv), the
     # scale, (causal, is_bf16) and the stream
     "flash_attention_bwd": {
-        f"repro_flash_bwd_{name}": [_P] * n + [_I32] * 6 + [_F32]
-        + [_I32] * 2 + [_P]
-        for name, n in (("prep", 6), ("dkdv", 8), ("dq", 7))
+        "repro_flash_bwd_prep": [_P] * 3 + [_I32] * 4 + [_P],
+        **{f"repro_flash_bwd_{name}": [_P] * n + [_I32] * 6 + [_F32]
+           + [_I32] * 2 + [_P] for name, n in (("dkdv", 8), ("dq", 7))},
     },
 }
 

@@ -1,16 +1,18 @@
 """Wrappers of the flash-attention kernels: the forward
 (``csrc/flash_attention.cu``, ``repro_flash_attention``), which replaces
 ``flash_attention_pallas``, and its backward (``csrc/flash_attention_bwd.cu``:
-K0 ``repro_flash_bwd_prep``, K1 ``repro_flash_bwd_dkdv`` and K2
-``repro_flash_bwd_dq``), which the reference has no kernel for (it
+K0 ``repro_flash_bwd_prep``, the delta pass, K1 ``repro_flash_bwd_dkdv`` and
+K2 ``repro_flash_bwd_dq``), which the reference has no kernel for (it
 differentiates the pure-jnp twin of its Pallas kernel).
 
 :func:`flash_attention` goes through :class:`FlashAttention`, an
-``autograd.Function``: its forward launches the forward kernel and saves
-q, k, v and the output, and its backward launches K0-K2 through
-:func:`flash_attention_bwd`.  For CUDA tensors each wrapper launches its
-kernels (and raises on anything they cannot take); only for tensors on
-the CPU does it run the plain versions of ``ref.py``, in both directions.
+``autograd.Function``: when an input needs a gradient its forward has the
+forward kernel write each row's log-normaliser lse beside the output and
+saves q, k, v, the output and lse, and its backward launches K0-K2
+through :func:`flash_attention_bwd`.  For CUDA tensors each wrapper
+launches its kernels (and raises on anything they cannot take); only for
+tensors on the CPU does it run the plain versions of ``ref.py``, in both
+directions.
 ``flash_attention.launches`` counts the forward kernel's launches and
 ``flash_attention.bwd_launches`` those of K0-K2 by name.  Unlike the
 Pallas kernel, the lengths need not be multiples of a tile: the kernels
@@ -59,15 +61,23 @@ def _check_widths(q: torch.Tensor, d: int, dv: int) -> None:
             "widths up to 128, or up to 192 with v's up to 128)")
 
 
-def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             causal: bool, sm_scale: float, q_offset: int) -> torch.Tensor:
-    """The forward kernel's launch (or, on the CPU, its plain version)."""
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, sm_scale: float | None = None,
+                        q_offset: int = 0, want_lse: bool = False
+                        ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The forward kernel's launch (or, on the CPU, its plain version):
+    ``(out, lse)``, lse the float32 ``(BH, Sq)`` log-normaliser of each
+    row's scaled scores when ``want_lse`` (what K1 and K2 read), else
+    None and the kernel writes none."""
     bh, sq, d = q.shape
     bh_kv, skv = k.shape[0], k.shape[1]
     dv = v.shape[-1]
+    if sm_scale is None:
+        sm_scale = d ** -0.5
     if on_cpu(q, k, v):
-        return ref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale,
-                                 q_offset=q_offset)
+        out = ref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale,
+                                q_offset=q_offset, return_lse=want_lse)
+        return out if want_lse else (out, None)
     _check_widths(q, d, dv)
     if sq == 0 or skv == 0:
         raise ValueError("flash_attention needs at least one query and key")
@@ -77,13 +87,16 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         "v": (bh_kv, skv, dv)})
     require_aligned(q=q, k=k, v=v)
     out = q.new_empty((bh, sq, dv))
+    lse = (torch.empty((bh, sq), dtype=torch.float32, device=dev)
+           if want_lse else None)
     rc = build.library("flash_attention").repro_flash_attention(
-        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), bh, bh_kv,
-        sq, skv, d, dv, float(sm_scale), int(causal), int(q_offset),
+        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out),
+        None if lse is None else build.ptr(lse), bh, bh_kv, sq, skv, d, dv,
+        float(sm_scale), int(causal), int(q_offset),
         int(q.dtype == torch.bfloat16), build.stream(dev))
     build.check(rc, "flash_attention kernel")
     flash_attention.launches += 1
-    return out
+    return out, lse
 
 
 BWD_KERNELS = ("flash_attention_bwd_prep", "flash_attention_bwd_dkdv",
@@ -91,55 +104,70 @@ BWD_KERNELS = ("flash_attention_bwd_prep", "flash_attention_bwd_dkdv",
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        out: torch.Tensor, dout: torch.Tensor, *,
-                        causal: bool = True, sm_scale: float | None = None
+                        out: torch.Tensor, dout: torch.Tensor,
+                        lse: torch.Tensor, *, causal: bool = True,
+                        sm_scale: float | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients ``(dq, dk, dv)`` of attention over q ``(BH, Sq, D)``,
     k ``(BH_kv, Skv, D)`` and v ``(BH_kv, Skv, Dv)`` with ``q_offset = 0``,
-    given the forward's ``out`` and its gradient ``dout`` (both ``(BH, Sq,
-    Dv)``): K0-K2 for CUDA tensors, ``ref.attention_bwd_ref`` for tensors
-    on the CPU.  The kernels' float32 ``lse`` and ``delta`` ``(BH, Sq)``
-    are scratch allocated here."""
+    given the forward's ``out``, its float32 ``lse`` ``(BH, Sq)`` (from
+    :func:`flash_attention_fwd` with ``want_lse``) and the output's
+    gradient ``dout`` ``(BH, Sq, Dv)``: K0 (delta), K1 and K2 for CUDA
+    tensors, ``ref.attention_bwd_ref`` for tensors on the CPU.  K0's
+    float32 ``delta`` ``(BH, Sq)`` is scratch allocated here."""
     bh, sq, d = q.shape
     bh_kv, skv = k.shape[0], k.shape[1]
     dv = v.shape[-1]
     if sm_scale is None:
         sm_scale = d ** -0.5
-    if on_cpu(q, k, v, out, dout):
+    if on_cpu(q, k, v, out, dout, lse):
         return ref.attention_bwd_ref(q, k, v, out, dout, causal=causal,
-                                     sm_scale=sm_scale)
+                                     sm_scale=sm_scale, lse=lse)
     _check_widths(q, d, dv)
     dev = require_cuda(
-        {"q": q, "k": k, "v": v, "out": out, "dout": dout},
-        dict.fromkeys(("q", "k", "v", "out", "dout"), q.dtype),
+        {"q": q, "k": k, "v": v, "out": out, "dout": dout, "lse": lse},
+        {**dict.fromkeys(("q", "k", "v", "out", "dout"), q.dtype),
+         "lse": torch.float32},
         {"q": (bh, sq, d), "k": (bh_kv, skv, d), "v": (bh_kv, skv, dv),
-         "out": (bh, sq, dv), "dout": (bh, sq, dv)})
+         "out": (bh, sq, dv), "dout": (bh, sq, dv), "lse": (bh, sq)})
+    require_aligned(out=out, dout=dout)
     lib = build.library("flash_attention_bwd")
-    lse = torch.empty((bh, sq), dtype=torch.float32, device=dev)
     delta = torch.empty_like(lse)
     dq, dk, dv_out = (torch.empty_like(t) for t in (q, k, v))
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    stream = build.stream(dev)
     shape = (bh, bh_kv, sq, skv, d, dv, float(sm_scale), int(causal),
-             int(q.dtype == torch.bfloat16), build.stream(dev))
+             is_bf16, stream)
     p = build.ptr
     launches = (
-        (lib.repro_flash_bwd_prep, (q, k, out, dout, lse, delta)),
-        (lib.repro_flash_bwd_dkdv, (q, k, v, dout, lse, delta, dk, dv_out)),
-        (lib.repro_flash_bwd_dq, (q, k, v, dout, lse, delta, dq)))
-    for name, (fn, tensors) in zip(BWD_KERNELS, launches):
-        build.check(fn(*(p(t) for t in tensors), *shape), f"{name} kernel")
+        (lib.repro_flash_bwd_prep, (p(out), p(dout), p(delta), bh, sq, dv,
+                                    is_bf16, stream)),
+        (lib.repro_flash_bwd_dkdv, (*map(p, (q, k, v, dout, lse, delta, dk,
+                                             dv_out)), *shape)),
+        (lib.repro_flash_bwd_dq, (*map(p, (q, k, v, dout, lse, delta, dq)),
+                                  *shape)))
+    for name, (fn, args) in zip(BWD_KERNELS, launches):
+        build.check(fn(*args), f"{name} kernel")
         flash_attention.bwd_launches[name] += 1
     return dq, dk, dv_out
 
 
 class FlashAttention(torch.autograd.Function):
     """Attention with the forward kernel forward and K0-K2 backward (the
-    plain versions for CPU tensors).  Saves q, k, v and the output."""
+    plain versions for CPU tensors).  When q, k or v needs a gradient (and
+    ``q_offset`` is 0) the forward kernel also writes lse, and q, k, v,
+    the output and lse are saved; else nothing is saved."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, sm_scale: float,
                 q_offset: int):
-        out = _forward(q, k, v, causal, sm_scale, q_offset)
-        ctx.save_for_backward(q, k, v, out)
+        # grad mode is off inside forward: ask autograd what it will need
+        want_lse = any(ctx.needs_input_grad[:3]) and q_offset == 0
+        out, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                       sm_scale=sm_scale, q_offset=q_offset,
+                                       want_lse=want_lse)
+        if want_lse:
+            ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.sm_scale, ctx.q_offset = causal, sm_scale, q_offset
         return out
 
@@ -150,9 +178,9 @@ class FlashAttention(torch.autograd.Function):
                 f"flash_attention's backward takes q_offset = 0 only, got "
                 f"{ctx.q_offset}: an offset query block is a decode step, "
                 "which the train path never differentiates")
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
-                                         causal=ctx.causal,
+                                         lse, causal=ctx.causal,
                                          sm_scale=ctx.sm_scale)
         return dq, dk, dv, None, None, None
 

@@ -161,6 +161,24 @@ def test_flash_kernel_phase_row(smoke, capsys):
     assert "group7_err=0.000e+00 (BH=7, BH_kv=1, S=40)" in out
     flops = smoke.attention_flops(8, 48, 48, 16, True)
     assert f"tflops={flops / 1.0 / 1e9:.1f}" in out      # stubbed 1 ms
+    # timed without lse and with it, in turns; the lse checked in each case
+    assert "ms=1.0000 (readings 1.0000 1.0000) ms_lse=1.0000" in out
+    assert "lse_err=0.000e+00 (the four cases' worst" in out
+
+
+def test_flash_kernel_phase_fails_on_a_wrong_lse(smoke, monkeypatch):
+    """The forward's lse is held within 1e-3 of the plain one."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    real = fa.flash_attention_fwd
+
+    def off(*a, **kw):
+        out, lse = real(*a, **kw)
+        return out, (None if lse is None else lse + 2e-3)
+    monkeypatch.setattr(fa, "flash_attention_fwd", off)
+    with pytest.raises(smoke.CheckFailed, match="lse max abs err"):
+        smoke.flash_kernel_phase(0, "cpu", device="cpu",
+                                 shape=(2, 4, 2, 48, 16), ragged=40,
+                                 wide=(1, 7, 1, 40, 16))
 
 
 def test_charge_kernel_rows_and_the_one_kernel_check(smoke, cpu_model,
@@ -438,25 +456,42 @@ def test_flash_bwd_kernel_phase_rows(smoke, capsys):
     assert [r["name"] for r in rows] == [
         "flash_attention_bwd_prep", "flash_attention_bwd_dkdv",
         "flash_attention_bwd_dq"]
-    assert [r["library_ms"] for r in rows] == [None, 1.0, 1.0]
-    assert all(r["err"] == 0.0 and r["bound"][1] in ("bytes", "operations")
-               for r in rows)
+    assert [r["library_ms"] for r in rows] == [1.0, 1.0, 1.0]
+    assert rows[0]["bound"][1] == "bytes"
+    assert all(r["bound"][1] in ("bytes", "operations") for r in rows)
+    # K0's delta is its plain version's on the CPU; K1 and K2 (there the
+    # plain backward on the forward's lse) against the plain backward that
+    # forms its own softmax differ by rounding: at most one bf16 step of
+    # the largest gradient
+    assert rows[0]["err"] == 0.0
+    assert all(r["err"] <= 2 ** -8 for r in rows[1:])
     assert all(r["source"].endswith("flash_attention_bwd.cu") for r in rows)
     out = capsys.readouterr().out
     assert out.count("[kernel] flash_attention_bwd_") == 3
-    assert "K0+K1+K2" in out
+    assert "(torch.linalg.vecdot, a bf16 result)" in out
+    assert "K0+K1+K2" in out and "K0's delta 0.000e+00" in out
 
 
 def test_bwd_work_counts_the_backward(smoke):
-    """At one qwen2.5-3b train layer: K0 computes the scores (half the
-    forward's operations), K1 S, dP, dV and dK (twice), K2 S, dP and dQ
-    (1.5 times); the bytes count each input read once and each output
-    written once."""
+    """At one qwen2.5-3b train layer: K0 reads out and dout and writes
+    delta (67.6 MB, bound by bytes at 0.0202 ms) with one float32
+    multiply-add an element; K1 computes S, dP, dV and dK (twice the
+    forward's operations), K2 S, dP and dQ (1.5 times); the bytes count
+    each input read once and each output written once."""
     work = smoke.bwd_work(64, 8, 2048, 128, 128, 2)
     fwd = smoke.attention_flops(64, 2048, 2048, 128, True)
-    assert [w[1] / fwd for w in work.values()] == [0.5, 2.0, 1.5]
     q, kv, stats = 64 * 2048 * 128 * 2, 8 * 2048 * 128 * 2, 2 * 64 * 2048 * 4
+    assert work["flash_attention_bwd_prep"] == (
+        2 * q + 64 * 2048 * 4, 2 * 64 * 2048 * 128, smoke.FP32_OPS_PER_S)
+    assert [work[k][1] / fwd for k in ("flash_attention_bwd_dkdv",
+                                       "flash_attention_bwd_dq")] == [2.0,
+                                                                      1.5]
     assert work["flash_attention_bwd_dq"][0] == 3 * q + 2 * kv + stats
+    ms, by = smoke.bound(*work["flash_attention_bwd_prep"])
+    assert by == "bytes" and round(ms, 4) == 0.0202
+    assert [smoke.bound(*work[k])[1] for k in ("flash_attention_bwd_dkdv",
+                                               "flash_attention_bwd_dq")] \
+        == ["operations", "operations"]
 
 
 def _train_launches(smoke, monkeypatch, fwd, bwd):

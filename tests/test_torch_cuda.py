@@ -509,16 +509,17 @@ def _bwd_case(device, dtype, shape, seed=3):
 @pytest.mark.parametrize("shape", BWD_SHAPES)
 def test_flash_backward_kernels_match_the_plain_backward(device, dtype,
                                                          shape):
-    """K0-K2 against ``attention_bwd_ref`` on the forward kernel's output:
-    bf16 within 2e-2 of each gradient's largest value, float32 within
-    1e-4; the same bits twice; one launch of each."""
+    """K0-K2 on the forward kernel's output and lse against
+    ``attention_bwd_ref`` (which forms its own softmax): bf16 within 2e-2
+    of each gradient's largest value, float32 within 1e-4; the same bits
+    twice; one launch of each."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ref as fa_ref
     q, k, v, do, causal = _bwd_case(device, dtype, shape)
-    out = fa.flash_attention(q, k, v, causal=causal)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, want_lse=True)
     before = dict(fa.flash_attention.bwd_launches)
-    got = fa.flash_attention_bwd(q, k, v, out, do, causal=causal)
-    again = fa.flash_attention_bwd(q, k, v, out, do, causal=causal)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    again = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
     torch.cuda.synchronize()
     assert all(fa.flash_attention.bwd_launches[n] == before[n] + 2
                for n in fa.BWD_KERNELS)
@@ -529,6 +530,72 @@ def test_flash_backward_kernels_match_the_plain_backward(device, dtype,
         assert torch.equal(g, a)
         top = float(w.float().abs().max())
         assert float((g.float() - w.float()).abs().max()) <= bar * top
+
+
+# (BH, Sq, BH_kv, Skv, D, Dv): the three bf16 instances (64, 64), (128,
+# 128) and (192, 128), ragged Sq and Skv, a group of 7 (Q by per-thread
+# loads), one train layer of qwen2.5-3b
+LSE_SHAPES = [(8, 200, 2, 200, 64, 64), (16, 333, 2, 333, 128, 128),
+              (16, 190, 16, 190, 192, 128), (8, 77, 2, 130, 128, 128),
+              (14, 300, 2, 300, 128, 128), (8, 100, 4, 100, 48, 32),
+              (64, 2048, 8, 2048, 128, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LSE_SHAPES)
+def test_flash_forward_lse_matches_the_plain_one(device, dtype, shape):
+    """The forward kernel's lse (``want_lse``) against the plain forward's
+    at 1e-3 (absolute; lse is a log), causal and not; the output with
+    lse written equals the output without, bit for bit; one launch."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    bh, sq, bh_kv, skv, d, dv = shape
+    gen = torch.Generator().manual_seed(sum(shape))
+    q, k, v = (torch.randn(*s, generator=gen).to(device, dtype)
+               for s in ((bh, sq, d), (bh_kv, skv, d), (bh_kv, skv, dv)))
+    for causal in (True, False):
+        if causal and sq > skv:
+            continue
+        before = fa.flash_attention.launches
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                          want_lse=True)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches == before + 1
+        assert lse.dtype == torch.float32 and lse.shape == (bh, sq)
+        assert torch.equal(out, fa.flash_attention(q, k, v, causal=causal))
+        want = fa_ref.attention_ref(q, k, v, causal=causal,
+                                    return_lse=True)[1]
+        np.testing.assert_allclose(lse.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=0, atol=1e-3,
+                                   err_msg=f"causal={causal}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,dv", [(64, 2048, 128), (6, 77, 64),
+                                      (4, 33, 24), (3, 50, 8)])
+def test_k0_delta_matches_the_plain_one_bit_for_bit_twice(device, dtype, bh,
+                                                          sq, dv):
+    """K0 alone (the delta pass) against ``delta_ref`` within 1e-5 of the
+    largest, the same bits on two runs, at widths of 1 to 32 lanes a row
+    and a row count that leaves a block part-filled."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    gen = torch.Generator().manual_seed(bh * sq + dv)
+    out, do = (torch.randn(bh, sq, dv, generator=gen).to(device, dtype)
+               for _ in range(2))
+    lib = build.library("flash_attention_bwd")
+    runs = []
+    for _ in range(2):
+        delta = torch.full((bh, sq), float("nan"), device=device)
+        build.check(lib.repro_flash_bwd_prep(
+            build.ptr(out), build.ptr(do), build.ptr(delta), bh, sq, dv,
+            int(dtype == torch.bfloat16), build.stream(device)), "K0")
+        runs.append(delta)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    want = fa_ref.delta_ref(out, do)
+    top = float(want.abs().max())
+    assert float((runs[0] - want).abs().max()) <= 1e-5 * top
 
 
 @pytest.mark.parametrize("shape", [BWD_SHAPES[1], BWD_SHAPES[4]])

@@ -3,12 +3,16 @@
 in interpret mode on the reference's own sweep, against ``attention_ref``
 on ragged lengths the Pallas kernel refuses, and the model-level
 ``blockwise_attention`` against the reference's pure-jnp twin, also with
-v narrower than q and k (MLA); the kernel's instances by widths; and the
-gradients of ``FlashAttention`` on CPU tensors (the plain backward)
-against ``jax.vjp`` of the reference's blockwise attention, the plain
-backward against autograd through the plain forward, ``gradcheck`` in
-float64, and the refusal of a backward at a q offset.  Inputs are seeded
-numpy arrays handed to both packages."""
+v narrower than q and k (MLA); the kernel's instances by widths; the
+statistics the backward kernels read (the forward's lse against
+``jax.nn.logsumexp``, K0's delta against ``rowsum(do * o)`` in JAX) and
+``FlashAttention`` saving lse only when an input needs a gradient; and the
+gradients of ``FlashAttention`` on CPU tensors (the plain backward, on the
+forward's lse) against ``jax.vjp`` of the reference's blockwise attention,
+``attention_bwd_ref`` given that lse against the same, the plain backward
+against autograd through the plain forward, ``gradcheck`` in float64, and
+the refusal of a backward at a q offset.  Inputs are seeded numpy arrays
+handed to both packages."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -212,3 +216,107 @@ def test_a_backward_with_a_q_offset_is_refused():
     out = pfa.flash_attention(q, k, v, causal=True, q_offset=32)
     with pytest.raises(NotImplementedError, match="q_offset = 0 only"):
         out.sum().backward()
+
+
+# (BH, BH_kv, Sq, Skv, D, Dv, causal): GQA causal and non-causal (a cross
+# shape), group 1, MLA's narrower values at its smoke and full widths
+STAT_SHAPES = [(8, 2, 40, 40, 16, 16, True), (6, 3, 33, 50, 24, 24, False),
+               (4, 4, 70, 70, 32, 32, True), (4, 4, 40, 40, 48, 32, True),
+               (2, 2, 64, 64, 192, 128, False)]
+
+
+@pytest.mark.parametrize("bh,bh_kv,sq,skv,d,dv,causal", STAT_SHAPES)
+def test_plain_lse_matches_jax_logsumexp(bh, bh_kv, sq, skv, d, dv, causal):
+    """The log-normaliser the plain forward returns (what the forward
+    kernel writes for the backward) against ``jax.nn.logsumexp`` of the
+    masked, scaled scores computed in JAX: float32 at rtol 1e-6."""
+    (q, k, v), (pq, pk, pv) = _inputs(bh * sq + d, (bh, sq, d),
+                                      (bh_kv, skv, d), (bh_kv, skv, dv))
+    out, lse = pref.attention_ref(pq, pk, pv, causal=causal,
+                                  return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (bh, sq)
+    torch.testing.assert_close(out, pref.attention_ref(pq, pk, pv,
+                                                       causal=causal),
+                               rtol=0, atol=0)
+    s = jnp.einsum("bqd,bkd->bqk", q,
+                   jnp.repeat(k, bh // bh_kv, axis=0)) * d ** -0.5
+    if causal:
+        s = jnp.where(jnp.arange(sq)[:, None] >= jnp.arange(skv)[None, :],
+                      s, -jnp.inf)
+    np.testing.assert_allclose(lse.numpy(),
+                               np.asarray(jax.nn.logsumexp(s, axis=-1)),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("bh,bh_kv,sq,skv,d,dv,causal", STAT_SHAPES)
+def test_delta_ref_matches_the_rowsum_in_jax(bh, bh_kv, sq, skv, d, dv,
+                                             causal):
+    """K0's plain version ``delta_ref`` against ``rowsum(do * o)`` of the
+    reference's attention output, computed in JAX: float32 at rtol 1e-6
+    (atol 1e-6 for rows that nearly cancel)."""
+    (q, k, v, do), (_, _, _, pdo) = _inputs(
+        bh * sq + dv, (bh, sq, d), (bh_kv, skv, d), (bh_kv, skv, dv),
+        (bh, sq, dv))
+    o = rref.attention_ref(q, k, v, causal=causal)
+    got = pref.delta_ref(torch.from_numpy(np.array(o)), pdo)
+    assert got.dtype == torch.float32 and got.shape == (bh, sq)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jnp.sum(do * o, -1)),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kh,d,dv,causal", [
+    (2, 40, 40, 4, 2, 16, 16, True), (1, 70, 70, 8, 1, 32, 32, True),
+    (2, 33, 50, 4, 2, 24, 24, False), (2, 40, 40, 4, 4, 48, 32, True)])
+def test_plain_backward_on_the_forward_lse_matches_jax_grad(
+        b, sq, skv, h, kh, d, dv, causal):
+    """``attention_bwd_ref`` given the plain forward's lse (P = exp(s -
+    lse), as the kernels form it) against ``jax.vjp`` of the reference's
+    blockwise attention, in the kernels' (BH, S, D) layout: float32 at
+    rtol 1e-5, atol 1e-6, on the inputs of
+    ``test_gradients_match_jax_grad_of_the_reference``."""
+    (q, k, v, do), arrs = _inputs(sq * skv + d, (b, sq, h, d),
+                                  (b, skv, kh, d), (b, skv, kh, dv),
+                                  (b, sq, h, dv))
+    _, vjp = jax.vjp(lambda *a: RL.blockwise_attention(
+        *a, causal=causal, block=32), q, k, v)
+    want = vjp(do)
+
+    def rows(t):       # (B, S, H, D) -> (B * H, S, D)
+        return t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[3])
+    pq, pk, pv, pdo = map(rows, arrs)
+    out, lse = pref.attention_ref(pq, pk, pv, causal=causal,
+                                  return_lse=True)
+    got = pref.attention_bwd_ref(pq, pk, pv, out, pdo, causal=causal,
+                                 lse=lse)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        g = g.reshape(w.shape[0], w.shape[2], w.shape[1], w.shape[3])
+        np.testing.assert_allclose(g.transpose(1, 2).numpy(), w,
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_flash_attention_saves_lse_only_for_a_gradient(monkeypatch):
+    """``FlashAttention`` asks the forward for lse, and saves it beside q,
+    k, v and the output, only when one of q, k and v needs a gradient
+    (and the query block is not offset); otherwise the kernel writes none
+    and nothing is saved."""
+    asked = []
+    real = pfa.flash_attention_fwd
+
+    def spy(*a, **kw):
+        asked.append(kw["want_lse"])
+        return real(*a, **kw)
+    monkeypatch.setattr(pfa, "flash_attention_fwd", spy)
+    _, (q, k, v) = _inputs(9, (4, 24, 16), (2, 24, 16), (2, 24, 16))
+    out = pfa.flash_attention(q, k, v)
+    assert asked == [False] and out.grad_fn is None
+    k.requires_grad_(True)
+    out = pfa.flash_attention(q, k, v)
+    assert asked[-1] is True
+    *tensors, lse = out.grad_fn.saved_tensors
+    assert [t is u for t, u in zip(tensors, (q, k, v))] == [True] * 3
+    assert lse.dtype == torch.float32 and lse.shape == (4, 24)
+    torch.testing.assert_close(
+        lse, pref.attention_ref(q, k, v, return_lse=True)[1], rtol=0, atol=0)
+    pfa.flash_attention(q[:, -8:].contiguous(), k, v, q_offset=16)
+    assert asked[-1] is False

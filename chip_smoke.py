@@ -135,7 +135,16 @@ itself).  Phases, each printing its numbers:
    each leaf's largest, those above 2e-2 listed), and one train step;
 21. ``[train-ckpt]``: the smoke qwen2.5-3b through ``train.run``, 12 steps
    with a fault at step 7 and a checkpoint every 4, its final state
-   against an uninterrupted run's (R12).
+   against an uninterrupted run's (R12);
+22. ``[dryrun]``: the dry run (``repro_torch.launch.steps.dryrun_cell``)
+   of 19's step on fake tensors on a 1 x 1 fake mesh: its counted
+   operations equal ``train_work``, its predicted peak is within 5 % of
+   19's measured one (``train_memory``'s beside both), its roofline bound
+   and the measured step's model FLOP utilisation; then ``python -m
+   repro_torch.launch.dryrun --all --mesh pod`` in a subprocess: an
+   ``[ok]`` for each of the 12 dense-decoder cells on the 16 x 16 fake
+   mesh, ``[not-ported]`` for the rest, no ``[FAIL]``, and the roofline
+   table of the 12.
 
 Phase 4 also times the flash kernel at the shapes of 16 and 17 (the cross
 prefill, the encoder, a cross decode step at Sq = 1) and checks Sq = 1
@@ -551,9 +560,12 @@ def attention_flops(bh: int, sq: int, skv: int, d: int, causal: bool,
                     dv: int | None = None) -> int:
     """Operations of Q K^T (``d`` wide) and P V (``dv`` wide, ``d`` unless
     given) over the (query, key) pairs the inputs need: every pair, or for
-    causal attention the pairs with key <= query (top-left aligned)."""
+    causal attention the pairs with key <= query (top-left aligned): query
+    ``i`` sees ``min(i + 1, skv)`` keys.  Counted here, apart from the flash
+    module's own count, which the tests hold against this one."""
     if causal:
-        pairs = sum(min(i + 1, skv) for i in range(sq))
+        n = min(sq, skv)
+        pairs = n * (n + 1) // 2 + (sq - n) * skv
     else:
         pairs = sq * skv
     return 2 * bh * pairs * (d + (d if dv is None else dv))
@@ -3252,8 +3264,11 @@ def train_work(cfg, batch: int, seq: int) -> int:
     """The operations of one train step of a dense GQA decoder with every
     layer recomputed in the backward: the layers' products three times
     (forward, and twice in the backward) plus once more for the
-    recompute, the unembedding three times, and causal attention 4.5
-    times (the forward, the recompute and the backward's five products)."""
+    recompute, less the recompute's MLP down projection (torch's
+    non-reentrant checkpoint stops recomputing once it has remade every
+    tensor the backward saved, and the down projection's input is the
+    last), the unembedding three times, and causal attention 4.5 times
+    (the forward, the recompute and the backward's five products)."""
     if cfg.attn_kind != "gqa" or cfg.moe is not None or set(
             cfg.pattern) != {"attn"} or cfg.n_encoder_layers:
         raise ValueError(f"train_work counts dense GQA decoders, not "
@@ -3264,7 +3279,8 @@ def train_work(cfg, batch: int, seq: int) -> int:
     layer = 2 * t * (d * (h + 2 * kv) * dh + h * dh * d + 3 * d * f)
     attn = attention_flops(batch * h, seq, seq, dh, True)
     head = 2 * t * d * cfg.vocab_padded
-    return cfg.n_layers * (4 * layer) + 3 * head + int(
+    down = 2 * t * f * d
+    return cfg.n_layers * (4 * layer - down) + 3 * head + int(
         4.5 * cfg.n_layers * attn)
 
 
@@ -3320,7 +3336,8 @@ def profiled_first_step(device: str, into: dict):
 
 
 def train_phase(seed: int, card: str, device="cuda", arch="qwen2.5-3b",
-                smoke=False, batch=4, seq=2048, steps=5) -> dict[str, int]:
+                smoke=False, batch=4, seq=2048, steps=5,
+                stats: dict | None = None) -> dict[str, int]:
     """``[train]``: the train entry point (``launch.train.run``) on
     qwen2.5-3b at full width and depth (random bf16 weights, float32 AdamW
     moments), batch 4 x 2048 tokens, one warm step (under
@@ -3328,7 +3345,9 @@ def train_phase(seed: int, card: str, device="cuda", arch="qwen2.5-3b",
     and four timed steps, no checkpoint directory, the power report once.
     Every loss finite; the flash forward launched twice a layer a step
     (the forward and the recompute) and K0-K2 once a layer a step.
-    Returns the run's launches."""
+    Returns the run's launches; ``stats``, given, receives the step's
+    median seconds, the measured peak and ``train_memory``'s prediction
+    (bytes)."""
     from unittest import mock
 
     import torch
@@ -3411,6 +3430,8 @@ def train_phase(seed: int, card: str, device="cuda", arch="qwen2.5-3b",
     else:
         print(f"{tag} warm step: device time not measured (the profiler "
               "recorded no kernel)", flush=True)
+    if stats is not None:
+        stats.update(step_s=step_s, peak=peak, predicted=predicted)
     (step0, joules), = res["energies"]
     print(f"{tag} power: step {step0} est. HBM energy {joules:.4f} J "
           f"(read {power.read_bytes / 1e9:.2f} GB, write "
@@ -3602,6 +3623,119 @@ def train_ckpt_phase(seed: int, card: str, device="cuda",
     return launched
 
 
+# --------------------------------------------------------------------------
+# The dry-run tooling
+# --------------------------------------------------------------------------
+DRYRUN_PEAK_BAR = 0.05     # the predicted peak against the measured one
+
+
+def dryrun_checks(res: dict, cfg, batch: int, seq: int,
+                  measured_peak: int) -> float:
+    """``[dryrun]``'s checks of a traced train step: its counted
+    operations equal ``train_work`` to the operation, and its predicted
+    peak is within 5 % of the measured one.  Returns the peak's relative
+    miss."""
+    want = train_work(cfg, batch, seq)
+    got = res["flops_per_device"]
+    check(got == want, f"dryrun: the trace counted {got:.6e} operations "
+          f"where train_work gives {want:.6e}")
+    miss = res["memory"]["peak_bytes_est"] / measured_peak - 1
+    check(abs(miss) <= DRYRUN_PEAK_BAR,
+          f"dryrun: the predicted peak {res['memory']['peak_bytes_est']} B "
+          f"is {miss:+.4f} off the measured {measured_peak} B (bar "
+          f"{DRYRUN_PEAK_BAR})")
+    return miss
+
+
+def dryrun_cli(card: str, mesh: str = "pod") -> None:
+    """``python -m repro_torch.launch.dryrun --all --mesh <mesh>`` in a
+    subprocess: an ``[ok]`` for every dense-decoder cell, ``[not-ported]``
+    for the rest, no ``[FAIL]``, exit 0; then the roofline table of the
+    cells it wrote."""
+    import os
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import roofline, steps
+    tag = "[dryrun]"
+    out = ROOT / "artifacts" / "dryrun_torch"
+    tags = {"pod": ["16x16"], "multipod": ["2x16x16"],
+            "both": ["16x16", "2x16x16"]}[mesh]
+    cells = registry.all_cells()
+    dense = sum(steps.dense_decoder(registry.get_config(a))
+                for a, _ in cells)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--mesh", mesh, "--out", str(out)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    count = {k: sum(line.startswith(k) for line in lines)
+             for k in ("[ok]", "[not-ported]", "[FAIL]")}
+    print(f"{tag} python -m repro_torch.launch.dryrun --all --mesh {mesh}: "
+          f"rc={proc.returncode} ok={count['[ok]']} not_ported="
+          f"{count['[not-ported]']} failed={count['[FAIL]']} wall_s="
+          f"{wall:.1f} (the trace needs no card)", flush=True)
+    for line in lines:
+        if line.startswith(("[ok]", "[FAIL]")):
+            print(f"{tag}   {line}", flush=True)
+    want = {"[ok]": dense * len(tags),
+            "[not-ported]": (len(cells) - dense) * len(tags), "[FAIL]": 0}
+    if proc.returncode or count != want:
+        print(proc.stderr[-4000:], file=sys.stderr)
+    check(proc.returncode == 0 and count == want,
+          f"dryrun: the CLI gave rc {proc.returncode} and {count} where "
+          f"{want} were due")
+    for mesh_tag in tags:
+        print(f"{tag} roofline on the {mesh_tag} mesh (H100: 989 TFLOP/s, "
+              f"3.35 TB/s, 50 GB/s a card between nodes):", flush=True)
+        for line in roofline.table(roofline.load_artifacts(
+                str(out), mesh_tag)).splitlines():
+            print(f"{tag}   {line}", flush=True)
+
+
+def dryrun_phase(card: str, train: dict, arch="qwen2.5-3b", smoke=False,
+                 batch=4, seq=2048, cli_mesh: str | None = "pod") -> None:
+    """``[dryrun]``: the dry run of ``[train]``'s step (``arch`` at batch
+    ``batch`` x ``seq``) on fake tensors on a 1 x 1 fake mesh, against
+    ``[train]``'s measured numbers in ``train`` (``train_phase``'s
+    ``stats``): the counted operations, the predicted peak, the roofline
+    bound and the step's model FLOP utilisation; then the dry-run CLI on
+    ``cli_mesh`` (None: not run)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import roofline, steps
+    tag = "[dryrun]"
+    cfg = registry.get_config(arch, smoke=smoke)
+    spec = registry.ShapeSpec(f"train_{seq}", "train", seq, batch)
+    res = steps.dryrun_cell(arch, spec, mesh_lib.make_local_mesh(
+        1, 1, fake=True), multi_pod=False, smoke=smoke)
+    compute, memory, _ = roofline.terms(res)
+    model = roofline.model_flops_per_device(cfg, spec, 1)
+    est, peak = res["memory"]["peak_bytes_est"], train["peak"]
+    print(f"{tag} {cfg.name} batch={batch} seq={seq} on a 1x1 fake mesh: "
+          f"trace_s={res['trace_s']:.3f} flops={res['flops_per_device']:.6e}"
+          f" train_work={train_work(cfg, batch, seq):.6e} traffic_gb="
+          f"{res['traffic_bytes_per_device'] / 1e9:.3f} score_traffic_gb="
+          f"{res['score_traffic_bytes_per_device'] / 1e9:.3f} "
+          f"argument_gb={res['memory']['argument_bytes'] / 1e9:.3f}",
+          flush=True)
+    print(f"{tag} peak: predicted_gb={est / 1e9:.3f} measured "
+          f"max_memory_allocated_gb={peak / 1e9:.3f} (miss "
+          f"{est / peak - 1:+.4f}) train_memory_gb="
+          f"{train['predicted'] / 1e9:.3f}", flush=True)
+    bound_by = "compute" if compute >= memory else "memory"
+    mfu = model / roofline.PEAK_FLOPS_BF16 / train["step_s"]
+    print(f"{tag} roofline: compute_s={compute:.4f} memory_s={memory:.4f} "
+          f"bound_s={max(compute, memory):.4f} ({bound_by}) measured "
+          f"step_s={train['step_s']:.4f} model_flops(6ND)={model:.4e} "
+          f"mfu={mfu:.4f} card=\"{card}\"", flush=True)
+    dryrun_checks(res, cfg, batch, seq, peak)
+    if cli_mesh:
+        dryrun_cli(card, cli_mesh)
+
+
 def print_result(rows: list[dict], launches: dict[str, int], card: str,
                  device_name: str, count: int) -> None:
     """The last three lines: the per-kernel JSON object, the card's
@@ -3716,13 +3850,18 @@ def main(argv=None) -> int:
     # phases 19-21: the train path (qwen2.5-3b at full width; every
     # config's gradients kernel against plain; R12 on the card)
     t0 = time.perf_counter()
-    paths.append(train_phase(args.seed, card))
+    train = {}
+    paths.append(train_phase(args.seed, card, stats=train))
     t1 = time.perf_counter()
     train_grad_phase(args.seed, card)
     t2 = time.perf_counter()
     paths.append(train_ckpt_phase(args.seed, card))
+    t3 = time.perf_counter()
+    # phase 22: the dry run of the train step, then of the 16 x 16 cells
+    dryrun_phase(card, train)
     print(f"[phases] train_s={t1 - t0:.3f} train-grad_s={t2 - t1:.3f} "
-          f"train-ckpt_s={time.perf_counter() - t2:.3f} (wall)", flush=True)
+          f"train-ckpt_s={t3 - t2:.3f} dryrun_s="
+          f"{time.perf_counter() - t3:.3f} (wall)", flush=True)
     for path in paths:
         for name, c in path.items():
             launches[name] += c

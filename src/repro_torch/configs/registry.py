@@ -1,17 +1,22 @@
-"""Architecture registry: the ten assigned names and their configurations.
+"""Architecture registry and the assigned input shapes.
 
-A port of ``repro.configs.registry.get_config``: all ten, as the
+A port of ``repro.configs.registry``: all ten architectures, as the
 reference has them (the four dense GQA decoders, the two MoE ones,
 mamba2-780m, the jamba hybrid, whisper-small's encoder-decoder and
-llama-3.2-vision's cross-attention decoder).  The dry run's shapes and
-input specs (``ShapeSpec``, ``SHAPES``, ``input_specs``) are not
-ported.
+llama-3.2-vision's cross-attention decoder), every (architecture x shape)
+cell through :func:`all_cells`, and :func:`input_specs`, the shape-only
+inputs of each cell's step that the dry run traces against.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
+import torch
+
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.lm import LM
+from repro_torch.models.meta import abstractify
 
 _MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
@@ -35,3 +40,63 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
                        f"{list(ARCH_NAMES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
+
+
+def cell_applicable(arch: str, shape: str) -> bool:
+    """long_500k needs sub-quadratic attention: SSM and hybrid only."""
+    if shape == "long_500k":
+        return get_config(arch).subquadratic
+    return True
+
+
+def all_cells() -> list[tuple[str, str]]:
+    return [(a, s) for a in ARCH_NAMES for s in SHAPES
+            if cell_applicable(a, s)]
+
+
+def skipped_cells() -> list[tuple[str, str]]:
+    return [(a, s) for a in ARCH_NAMES for s in SHAPES
+            if not cell_applicable(a, s)]
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec,
+                batch_override: int | None = None, device="cpu") -> dict:
+    """The step's inputs for an (arch, shape) cell as shape-only tensors
+    (fake under a ``FakeTensorMode``): train ``tokens``/``labels``, prefill
+    ``tokens`` (and ``aux`` where the model cross-attends), decode one
+    token a row and the caches of :meth:`LM.init_cache_meta`."""
+    b = batch_override or shape.global_batch
+    s = shape.seq_len
+    dt = getattr(torch, cfg.dtype)
+
+    def empty(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device=device)
+
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": empty((b, s), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = empty((b, s), torch.int32)
+        if cfg.aux_seq:
+            specs["aux"] = empty((b, cfg.aux_seq, cfg.d_model), dt)
+        return specs
+    if shape.kind == "decode":
+        return {"tokens": empty((b, 1), torch.int32),
+                "caches": abstractify(LM(cfg).init_cache_meta(b, s),
+                                      device=device)}
+    raise ValueError(shape.kind)

@@ -14,7 +14,19 @@ launches its kernels (and raises on anything they cannot take); only for
 tensors on the CPU does it run the plain versions of ``ref.py``, in both
 directions.
 ``flash_attention.launches`` counts the forward kernel's launches and
-``flash_attention.bwd_launches`` those of K0-K2 by name.  Unlike the
+``flash_attention.bwd_launches`` those of K0-K2 by name.  While a plain
+version runs, ``flash_attention.plain_scores`` holds the ``(Sq, Skv)``
+shape of the scores it puts in memory, which ``launch.op_analysis`` counts
+as score traffic (the bytes the kernels keep on chip); else it is None.
+
+For fake tensors (a ``FakeTensorMode`` trace: the dry run) neither wrapper
+launches anything or runs a plain version, which would materialise the
+``(Sq, Skv)`` scores: each calls a shape-only op
+(``torch.ops.repro_torch.flash_attention_fwd`` / ``_bwd``) whose outputs
+have the kernels' shapes and dtypes, whose flop formula counts the
+kernels' own products (:func:`attention_flops` forward, 2.5 times that
+for the backward's five) and whose operands and results are the bytes
+the kernels move (the backward's include K0's float32 ``delta``).  Unlike the
 Pallas kernel, the lengths need not be multiples of a tile: the kernels
 mask the ragged edge themselves, and v may be narrower than q and k (MLA's
 128-wide values under 192-wide queries and keys).  The backward takes
@@ -23,7 +35,11 @@ never trains.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import on_cpu, require_aligned, require_cuda
@@ -61,6 +77,76 @@ def _check_widths(q: torch.Tensor, d: int, dv: int) -> None:
             "widths up to 128, or up to 192 with v's up to 128)")
 
 
+def causal_pairs(sq: int, skv: int, q_offset: int = 0) -> int:
+    """The (query, key) pairs causal attention visits: query ``i`` sees the
+    keys ``j <= q_offset + i`` that exist."""
+    a = q_offset + 1                   # keys query 0 sees
+    full = min(max(skv - a + 1, 0), sq)  # queries that see fewer than skv
+    return full * a + full * (full - 1) // 2 + (sq - full) * skv
+
+
+def attention_flops(bh: int, sq: int, skv: int, d: int, dv: int,
+                    causal: bool, q_offset: int = 0) -> int:
+    """Operations of Q K^T (``d`` wide) and P V (``dv`` wide) over the
+    (query, key) pairs the inputs need."""
+    pairs = causal_pairs(sq, skv, q_offset) if causal else sq * skv
+    return 2 * bh * pairs * (d + dv)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def _shape_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool, q_offset: int, want_lse: bool
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    raise RuntimeError("repro_torch::flash_attention_fwd is shape-only: "
+                       "it runs on fake tensors")
+
+
+@_shape_fwd.register_fake
+def _(q, k, v, causal, q_offset, want_lse):
+    bh, sq, _ = q.shape
+    return (q.new_empty((bh, sq, v.shape[-1])),
+            q.new_empty((bh, sq if want_lse else 0), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _fwd_flops(q_shape, k_shape, v_shape, causal, q_offset, want_lse, *,
+               out_shape=None, **kwargs) -> int:
+    return attention_flops(q_shape[0], q_shape[1], k_shape[1], q_shape[2],
+                           v_shape[2], causal, q_offset)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _shape_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+               causal: bool) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor, torch.Tensor]:
+    raise RuntimeError("repro_torch::flash_attention_bwd is shape-only: "
+                       "it runs on fake tensors")
+
+
+@_shape_bwd.register_fake
+def _(q, k, v, out, dout, lse, causal):
+    return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+            torch.empty_like(lse))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _bwd_flops(q_shape, k_shape, v_shape, *args, out_shape=None,
+               **kwargs) -> int:
+    causal = args[3]
+    return 5 * attention_flops(q_shape[0], q_shape[1], k_shape[1],
+                               q_shape[2], v_shape[2], causal) // 2
+
+
+@contextlib.contextmanager
+def _plain(sq: int, skv: int):
+    flash_attention.plain_scores = (sq, skv)
+    try:
+        yield
+    finally:
+        flash_attention.plain_scores = None
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, sm_scale: float | None = None,
                         q_offset: int = 0, want_lse: bool = False
@@ -74,9 +160,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = v.shape[-1]
     if sm_scale is None:
         sm_scale = d ** -0.5
+    if isinstance(q, FakeTensor):
+        out, lse = torch.ops.repro_torch.flash_attention_fwd(
+            q, k, v, causal, q_offset, want_lse)
+        return out, lse if want_lse else None
     if on_cpu(q, k, v):
-        out = ref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale,
-                                q_offset=q_offset, return_lse=want_lse)
+        with _plain(sq, skv):
+            out = ref.attention_ref(q, k, v, causal=causal,
+                                    sm_scale=sm_scale, q_offset=q_offset,
+                                    return_lse=want_lse)
         return out if want_lse else (out, None)
     _check_widths(q, d, dv)
     if sq == 0 or skv == 0:
@@ -120,9 +212,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = v.shape[-1]
     if sm_scale is None:
         sm_scale = d ** -0.5
+    if isinstance(q, FakeTensor):
+        dq, dk, dv_out, _ = torch.ops.repro_torch.flash_attention_bwd(
+            q, k, v, out, dout, lse, causal)
+        return dq, dk, dv_out
     if on_cpu(q, k, v, out, dout, lse):
-        return ref.attention_bwd_ref(q, k, v, out, dout, causal=causal,
-                                     sm_scale=sm_scale, lse=lse)
+        with _plain(sq, skv):
+            return ref.attention_bwd_ref(q, k, v, out, dout, causal=causal,
+                                         sm_scale=sm_scale, lse=lse)
     _check_widths(q, d, dv)
     dev = require_cuda(
         {"q": q, "k": k, "v": v, "out": out, "dout": dout, "lse": lse},
@@ -206,3 +303,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.bwd_launches = dict.fromkeys(BWD_KERNELS, 0)
+flash_attention.plain_scores = None

@@ -44,6 +44,10 @@ Conventions
   inputs after the convolution, so the pad adds nothing whatever the conv
   bias (ROADMAP R11).
 
+* With DTensor parameters (the dry run) the GQA layers pass through the
+  sharding points of ``repro_torch.models.shard``; for plain tensors those
+  are the plain code.
+
 ``moe_apply_shardmap`` is not ported yet (ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
@@ -52,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models import shard
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.meta import ParamMeta
 
@@ -127,7 +132,7 @@ def decode_attention(q, k_cache, v_cache, kv_len):
                           k_cache.to(F32)) * (d ** -0.5)
     mask = torch.arange(s, device=q.device) < kv_len
     scores = torch.where(mask, scores, NEG_INF)
-    p = torch.softmax(scores, dim=-1)
+    p = shard.softmax(scores, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(F32))
     return o.reshape(b, 1, h, d).to(q.dtype)
 
@@ -160,9 +165,9 @@ def _qkv(params, x, cfg: ModelConfig, positions=None, rope: bool = True):
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
         v = v + params["bv"].to(x.dtype)
-    q = q.reshape(b, s, h, dh)
-    k = k.reshape(b, s, kv, dh)
-    v = v.reshape(b, s, kv, dh)
+    q = shard.split_heads(q, h, dh)
+    k = shard.split_heads(k, kv, dh)
+    v = shard.split_heads(v, kv, dh)
     if rope:
         if positions is None:
             positions = torch.arange(s, device=x.device)[None, :]
@@ -175,13 +180,11 @@ def attn_apply(params, x, cfg: ModelConfig, *, causal: bool = True,
                positions=None):
     """Full-sequence self-attention (prefill). Returns (out, (k, v)) so
     prefill can seed the decode cache."""
-    b, s, _ = x.shape
     xn = rmsnorm(x, params["norm"], cfg.norm_eps)
     q, k, v = _qkv(params, xn, cfg, positions=positions)
-    o = blockwise_attention(q, k, v, causal=causal,
-                            block=cfg.attention_block)
-    o = o.reshape(b, s, cfg.n_heads * cfg.d_head)
-    return o @ params["wo"].to(x.dtype), (k, v)
+    o = shard.local_attention(blockwise_attention, q, k, v, causal=causal,
+                              block=cfg.attention_block)
+    return shard.merge_heads(o) @ params["wo"].to(x.dtype), (k, v)
 
 
 def quantize_kv(t):
@@ -205,21 +208,20 @@ def attn_decode(params, x, cache, cfg: ModelConfig):
     pos = int(cache["pos"])
     q, k, v = _qkv(params, xn, cfg,
                    positions=torch.full((b, 1), pos, device=x.device))
+    q = shard.replicate_heads(q)      # a sharded cache splits the sequence
     new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
     if "k_s" in cache:
         kq, ks = quantize_kv(k)
         vq, vs = quantize_kv(v)
-        cache["k"][:, pos] = kq[:, 0]
-        cache["v"][:, pos] = vq[:, 0]
-        cache["k_s"][:, pos] = ks[:, 0]
-        cache["v_s"][:, pos] = vs[:, 0]
+        for name, t in (("k", kq), ("v", vq), ("k_s", ks), ("v_s", vs)):
+            shard.write_slot(cache[name], pos, t[:, 0])
         k_full = cache["k"].to(F32) * cache["k_s"]
         v_full = cache["v"].to(F32) * cache["v_s"]
         o = decode_attention(q, k_full, v_full, pos + 1)
         new_cache.update(k_s=cache["k_s"], v_s=cache["v_s"])
     else:
-        cache["k"][:, pos] = k[:, 0]
-        cache["v"][:, pos] = v[:, 0]
+        shard.write_slot(cache["k"], pos, k[:, 0])
+        shard.write_slot(cache["v"], pos, v[:, 0])
         o = decode_attention(q, cache["k"], cache["v"], pos + 1)
     o = o.reshape(b, 1, cfg.n_heads * cfg.d_head)
     return o @ params["wo"].to(x.dtype), new_cache

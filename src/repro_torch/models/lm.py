@@ -39,6 +39,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models import shard
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.meta import ParamMeta, materialize
 
@@ -102,6 +103,10 @@ class LM:
         # int8 KV cache (decode; GQA only, as in the reference): None =
         # config dtype
         self.kv_cache_dtype: torch.dtype | None = None
+        # (saved, interior) placements at each layer's boundary: the
+        # layers' inputs, which the backward keeps, in the first, the
+        # layers' insides in the second; None: as they come
+        self.boundary_sp: tuple | None = None
 
     def grows(self, sub: str, leaf: str) -> bool:
         """Whether cache leaf ``leaf`` of sub-layer ``sub`` runs along the
@@ -193,7 +198,7 @@ class LM:
         if self.cfg.is_moe_layer(i):
             return x + L.moe_apply(p["mlp"], x, self.cfg)
         if "mlp" in p:
-            return x + L.mlp_apply(p["mlp"], x, self.cfg)
+            return shard.residual(x, L.mlp_apply(p["mlp"], x, self.cfg))
         return x
 
     def _layer(self, i: int, p, x, memory):
@@ -210,7 +215,7 @@ class LM:
             else:
                 a, (k, v) = L.attn_apply(p["mixer"], x, cfg, causal=True)
                 cache[sub] = {"k": k, "v": v}
-            x = x + a
+            x = shard.residual(x, a)
             if cfg.n_encoder_layers:
                 kv = L.xattn_kv(p["xattn"], memory, cfg)
                 x = x + L.xattn_apply(p["xattn"], x, kv, cfg)
@@ -226,11 +231,14 @@ class LM:
 
     def _block(self, i: int, p, x, memory):
         """Layer ``i`` whole: the new ``x``, its cache leaves and its MoE
-        auxiliary loss (None for a layer without MoE)."""
-        x, cache = self._layer(i, p, x, memory)
+        auxiliary loss (None for a layer without MoE).  ``boundary_sp``
+        places ``x`` on the way in and out."""
+        saved, interior = self.boundary_sp or (None, None)
+        x, cache = self._layer(i, p, shard.constrain(x, interior), memory)
         aux = (L.moe_aux_loss(p["mlp"], x, self.cfg)
                if self.cfg.is_moe_layer(i) else None)
-        return self._mlp(i, p, x), cache, aux
+        x = shard.constrain(self._mlp(i, p, x), saved)
+        return x, cache, aux
 
     def _train_block(self, i: int, p, x, memory):
         x, _, aux = self._block(i, p, x, memory)
@@ -245,8 +253,10 @@ class LM:
         the full (B, S, V) unembedding — prefill needs only the last
         position."""
         cfg = self.cfg
-        x = params["embed"][tokens].to(_dtype(cfg))
+        x = shard.embed(params["embed"], tokens).to(_dtype(cfg))
         memory = self._aux_memory(params, aux)
+        saved, interior = self.boundary_sp or (None, None)
+        x = shard.constrain(x, saved)
         aux_loss = torch.zeros((), dtype=F32, device=x.device)
         per_layer = []
         remat = torch.is_grad_enabled() and not with_cache
@@ -260,6 +270,7 @@ class LM:
                     per_layer.append(cache)
             if aux_i is not None:
                 aux_loss = aux_loss + aux_i
+        x = shard.constrain(x, interior)
         if logits_last_only:
             x = x[:, -1:]
         logits = self._logits(params, x)
@@ -275,9 +286,7 @@ class LM:
         cross-attends, ``aux``."""
         logits, aux_loss = self.forward(params, batch["tokens"],
                                         aux=batch.get("aux"))
-        labels = batch["labels"].long()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+        logz, gold = shard.logz_and_gold(logits, batch["labels"].long())
         nll = (logz - gold).mean()
         return nll + 0.01 * aux_loss, {"nll": nll, "aux_loss": aux_loss}
 
@@ -378,7 +387,7 @@ class LM:
         memory's K/V as the prefill left them; the returned caches hold
         the same tensors with ``pos`` advanced."""
         cfg = self.cfg
-        x = params["embed"][tokens].to(_dtype(cfg))
+        x = shard.embed(params["embed"], tokens).to(_dtype(cfg))
         pos = int(caches["pos"])
         decode = L.mla_decode if self.mla else L.attn_decode
         for i, p in enumerate(params["layers"]):
@@ -388,7 +397,7 @@ class LM:
             if kind == "attn":
                 layer_cache["pos"] = pos
                 a, _ = decode(p["mixer"], x, layer_cache, cfg)
-                x = x + a
+                x = shard.residual(x, a)
                 if cfg.n_encoder_layers:
                     xc = caches[f"{sub}_x"]
                     x = x + L.xattn_apply(p["xattn"], x,

@@ -1,13 +1,21 @@
 """Parameter metadata: one declaration of every parameter's shape, logical
-axis names and initialiser, from which :func:`materialize` makes tensors.
+axis names and initialiser, from which
+
+* :func:`materialize` makes tensors,
+* :func:`abstractify` makes shape-only tensors (fake ones under a
+  ``FakeTensorMode``) for the dry run,
+* :func:`specs_for` makes a :class:`Spec` per leaf through a
+  :class:`ShardingRules` mapping of logical axes onto mesh axes, and
+  :func:`placements` turns a spec into DTensor placements on a mesh.
 
 A port of ``repro.models.meta``.  The random draws come from an explicit
 ``torch.Generator`` on the target device; they cannot reproduce
 ``jax.random``'s bits, so tests that compare the two packages carry the
 reference's weights across (``repro_torch.convert.lm_params_from_jax``).
-The reference's abstract shapes and sharding specs (``abstractify``,
-``ShardingRules``, ``specs_for``) belong to its multi-device dry run and
-have no counterpart on one card.
+``jax.sharding.PartitionSpec`` has no torch counterpart, so :class:`Spec`
+is a tuple with one entry per tensor dimension: None (replicated), a mesh
+axis name, or a tuple of names (sharded over their product, the first
+the outermost).
 """
 from __future__ import annotations
 
@@ -15,6 +23,9 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.distributed.tensor import Replicate, Shard
+
+from repro_torch import tree as T
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,3 +77,111 @@ def materialize(meta_tree, generator: torch.Generator, dtype=None):
                         "tree")
 
     return build(meta_tree)
+
+
+def abstractify(meta_tree, dtype=None, device="cpu"):
+    """The meta tree's shapes as uninitialised tensors in ``dtype`` (or each
+    leaf's own) on ``device``: shape-only fake tensors when called under a
+    ``FakeTensorMode`` (the dry run's inputs), never an allocation there."""
+    return T.tree_map(lambda m: torch.empty(m.shape, dtype=dtype or m.dtype,
+                                            device=device),
+                      meta_tree, is_leaf=is_meta)
+
+
+class Spec(tuple):
+    """A partition spec: per tensor dimension None, a mesh axis name, or a
+    tuple of mesh axis names (one name stands alone, as a
+    ``PartitionSpec`` writes it)."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, (
+            ax[0] if isinstance(ax, (list, tuple)) and len(ax) == 1
+            else tuple(ax) if isinstance(ax, list) else ax for ax in axes))
+
+    def __repr__(self):
+        return f"Spec{tuple(self)!r}"
+
+
+def mesh_shape(mesh) -> dict[str, int]:
+    """``{axis name: size}`` of a ``DeviceMesh`` (or of any object with
+    ``mesh_dim_names`` and ``shape``)."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def _axes(ax) -> tuple:
+    return tuple(ax) if isinstance(ax, (list, tuple)) else (ax,)
+
+
+def _entry(ax):
+    return tuple(ax) if isinstance(ax, list) else ax
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """Logical axis -> mesh axis (or list of mesh axes, or None)."""
+    rules: dict
+
+    def spec(self, meta: ParamMeta) -> Spec:
+        axes = []
+        used: set = set()
+        for name in meta.logical:
+            ax = self.rules.get(name) if name else None
+            # a mesh axis may appear only once per spec
+            key = tuple(ax) if isinstance(ax, (list, tuple)) else ax
+            if key is not None and key in used:
+                ax = None
+            elif key is not None:
+                used.add(key)
+            axes.append(_entry(ax))
+        return Spec(*axes)
+
+    def divisibility_ok(self, meta: ParamMeta, shape: dict[str, int]
+                        ) -> bool:
+        for dim, name in zip(meta.shape, meta.logical):
+            ax = self.rules.get(name) if name else None
+            if ax is not None and dim % int(np.prod(
+                    [shape[a] for a in _axes(ax)])):
+                return False
+        return True
+
+
+def specs_for(meta_tree, rules: ShardingRules, mesh=None):
+    """A :class:`Spec` per leaf; falls back to replication of a dimension
+    that does not divide its mesh axes (e.g. 2 KV heads on a 16-way model
+    axis), then drops a mesh axis used twice after the fallbacks."""
+    shape = mesh_shape(mesh) if mesh is not None else None
+
+    def one(m: ParamMeta) -> Spec:
+        if shape is None or rules.divisibility_ok(m, shape):
+            return rules.spec(m)
+        axes = []
+        for dim, name in zip(m.shape, m.logical):
+            ax = rules.rules.get(name) if name else None
+            if ax is not None and dim % int(np.prod(
+                    [shape[a] for a in _axes(ax)])):
+                ax = None
+            axes.append(_entry(ax))
+        seen: set = set()
+        final = []
+        for ax in axes:
+            if ax is not None and ax in seen:
+                final.append(None)
+            else:
+                if ax is not None:
+                    seen.add(ax)
+                final.append(ax)
+        return Spec(*final)
+
+    return T.tree_map(one, meta_tree, is_leaf=is_meta)
+
+
+def placements(spec: Spec, mesh) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``: per mesh dimension
+    ``Shard(d)`` for the tensor dimension ``d`` whose entry names that axis,
+    else ``Replicate()``.  A dimension over several axes is sharded over
+    them outermost first in the mesh's order, which is the order the rules
+    list them in."""
+    where = {a: d for d, ax in enumerate(spec) if ax is not None
+             for a in _axes(ax)}
+    return tuple(Shard(where[a]) if a in where else Replicate()
+                 for a in mesh.mesh_dim_names)

@@ -20,6 +20,7 @@ import math
 import torch
 
 from repro_torch import tree as T
+from repro_torch.models import shard
 from repro_torch.models.meta import ParamMeta, is_meta
 
 F32 = torch.float32
@@ -88,11 +89,13 @@ def init(params, cfg: AdamWConfig) -> dict:
 
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum over leaves (in tree order) of the sum of squares,
-    in float32."""
-    total = 0
+    in float32.  Over DTensor gradients the leaves' sums stay partial and
+    their total is all-reduced once."""
+    total = None     # not 0: a constant added to partial sums reduces them
     for g in T.leaves(grads):
-        total = total + torch.sum(torch.square(g.to(F32)))
-    return torch.sqrt(total)
+        s = shard.as_partial(torch.sum(torch.square(g.to(F32))))
+        total = s if total is None else total + s
+    return torch.sqrt(shard.all_reduced(total))
 
 
 def update(grads, state: dict, params, cfg: AdamWConfig):

@@ -16,8 +16,8 @@ allocation) and reads one device's FLOPs, traffic, collectives and peak
 memory from ``launch.op_analysis``.  Where the reference lowers and
 compiles a jitted program, the port traces its own eager step: the train
 step updates weights and moments in place, so no donated second copy
-exists to count.  Only the dense GQA decoders are ported; the other
-architectures raise ``NotImplementedError``.
+exists to count.  Stacks with Mamba2 layers are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -207,11 +207,11 @@ def _placed(x, mesh, spec: Spec):
                               shape=x.shape, stride=x.stride())
 
 
-def dense_decoder(cfg) -> bool:
-    """Whether ``cfg`` is a dense GQA decoder: the architectures whose
-    cells the port's dry run builds."""
-    return (cfg.attn_kind == "gqa" and cfg.moe is None
-            and set(cfg.pattern) == {"attn"} and not cfg.n_encoder_layers)
+def dryrun_ported(cfg) -> bool:
+    """Whether the port's dry run builds ``cfg``'s cells: every stack
+    without a Mamba2 layer (the dense, MLA and MoE decoders, the
+    cross-attention decoder and the encoder-decoder)."""
+    return "mamba" not in cfg.pattern
 
 
 def build_cell(arch: str, shape_name, mesh, *, multi_pod: bool,
@@ -225,11 +225,11 @@ def build_cell(arch: str, shape_name, mesh, *, multi_pod: bool,
     ``registry.ShapeSpec`` of the caller's own (``chip_smoke.py``'s
     ``[train]`` shape)."""
     cfg = registry.get_config(arch, smoke=smoke)
-    if not dense_decoder(cfg):
+    if not dryrun_ported(cfg):
         raise NotImplementedError(
-            f"{arch}: the dry run covers the dense GQA decoders; MLA, MoE, "
-            "Mamba2, hybrid, cross-attention and encoder cells are ROADMAP "
-            "queue 1 item 4, not ported yet")
+            f"{arch}: the dry run covers the stacks without Mamba2 layers; "
+            "the Mamba2 and hybrid cells are ROADMAP queue 1 item 4c, not "
+            "ported yet")
     spec = (shape_name if isinstance(shape_name, registry.ShapeSpec)
             else registry.SHAPES[shape_name])
     gb = batch_override or spec.global_batch
@@ -256,12 +256,17 @@ def build_cell(arch: str, shape_name, mesh, *, multi_pod: bool,
         n_data *= mesh_shape(mesh).get(a, 1)
     # batch-dim sharding entry: None (replicated) when not divisible
     bentry = baxes if gb % n_data == 0 else None
+    if cfg.moe is not None:
+        # the expert-parallel MoE: local routing on each data shard, one
+        # all-reduce over model (None: the batch is replicated over data)
+        lm.moe_exec = {"dp_axes": bentry}
     act = Spec(baxes, "model", None)
     pin = Spec(bentry, None, None)
     # Boundary-SP: shard remat-saved layer inputs over the model axis
-    # (attention-only stacks; these are all that the port's dry run builds)
+    # (stacks without Mamba2 layers, as in the reference)
     if plan.fsdp and spec.kind == "train" \
-            and spec.seq_len % mesh_shape(mesh).get("model", 1) == 0:
+            and spec.seq_len % mesh_shape(mesh).get("model", 1) == 0 \
+            and "mamba" not in cfg.pattern:
         lm.boundary_sp = (placements(act, mesh), placements(pin, mesh))
     elif (interior_pin or plan.zero1) and spec.kind == "train":
         # pin layer-interior activations to (batch-sharded, replicated)

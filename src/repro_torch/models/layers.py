@@ -3,7 +3,7 @@ KV-cached decode step, cross-attention, MLA (DeepSeek-V2's latent
 attention), the gated MLP, MoE and Mamba2 (the chunked SSD scan and its
 one-token recurrence).
 
-A port of ``repro.models.layers`` but the shard-mapped MoE.
+A port of ``repro.models.layers``.
 
 Conventions
 -----------
@@ -44,11 +44,11 @@ Conventions
   inputs after the convolution, so the pad adds nothing whatever the conv
   bias (ROADMAP R11).
 
-* With DTensor parameters (the dry run) the GQA layers pass through the
-  sharding points of ``repro_torch.models.shard``; for plain tensors those
-  are the plain code.
-
-``moe_apply_shardmap`` is not ported yet (ROADMAP queue 1 item 5).
+* With DTensor parameters (the dry run) the attention layers (GQA, MLA,
+  cross-attention) pass through the sharding points of
+  ``repro_torch.models.shard``, and ``moe_apply_shardmap`` runs the MoE
+  on each device's tokens and experts; for plain tensors those are the
+  plain code.
 """
 from __future__ import annotations
 
@@ -233,22 +233,21 @@ def attn_decode(params, x, cache, cfg: ModelConfig):
 def xattn_apply(params, x, aux_kv, cfg: ModelConfig):
     """aux_kv: precomputed (k, v): (B, S_aux, Kh, Dh).  Non-causal, with no
     RoPE on the queries, as in the reference."""
-    b, s, _ = x.shape
     xn = rmsnorm(x, params["norm"], cfg.norm_eps)
-    h, dh = cfg.n_heads, cfg.d_head
-    q = (xn @ params["wq"].to(x.dtype)).reshape(b, s, h, dh)
+    q = shard.split_heads(shard.rows_as(xn @ params["wq"].to(x.dtype), x),
+                          cfg.n_heads, cfg.d_head)
     k, v = aux_kv
-    o = blockwise_attention(q, k, v, causal=False, block=cfg.attention_block)
-    o = o.reshape(b, s, h * dh)
-    return o @ params["wo"].to(x.dtype)
+    o = shard.local_attention(blockwise_attention, q, k, v, causal=False,
+                              block=cfg.attention_block)
+    return shard.merge_heads(o) @ params["wo"].to(x.dtype)
 
 
 def xattn_kv(params, aux, cfg: ModelConfig):
-    """Project auxiliary embeddings once: (B, S_aux, d) -> (k, v)."""
-    b, s, _ = aux.shape
+    """Project auxiliary embeddings once: (B, S_aux, d) -> (k, v), split
+    into heads as the decoder's K/V are."""
     kv, dh = cfg.n_kv, cfg.d_head
-    k = (aux @ params["wk"].to(aux.dtype)).reshape(b, s, kv, dh)
-    v = (aux @ params["wv"].to(aux.dtype)).reshape(b, s, kv, dh)
+    k = shard.split_heads(aux @ params["wk"].to(aux.dtype), kv, dh)
+    v = shard.split_heads(aux @ params["wv"].to(aux.dtype), kv, dh)
     return k, v
 
 
@@ -274,43 +273,51 @@ def _mla_q_latent(params, xn, cfg: ModelConfig, positions):
     """The queries split into their no-RoPE and RoPE parts, the latent
     ``c_kv`` and the shared RoPE key, from the normed input."""
     m = cfg.mla
-    b, s, _ = xn.shape
-    q = (xn @ params["wq"].to(xn.dtype)).reshape(b, s, cfg.n_heads,
-                                                 m.d_nope + m.d_rope)
+    q = shard.split_heads(xn @ params["wq"].to(xn.dtype), cfg.n_heads,
+                          m.d_nope + m.d_rope)
     q_nope, q_rope = q[..., :m.d_nope], q[..., m.d_nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    c_kv = rmsnorm(xn @ params["w_dkv"].to(xn.dtype), params["kv_norm"],
+    # the latent and the RoPE key are whole on every device of a row
+    w_dkv, w_kr = shard.gathered(params["w_dkv"]), shard.gathered(
+        params["w_kr"])
+    c_kv = rmsnorm(xn @ w_dkv.to(xn.dtype), params["kv_norm"],
                    cfg.norm_eps)                       # (B, S, kv_lora)
-    k_rope = apply_rope((xn @ params["w_kr"].to(xn.dtype))[:, :, None, :],
+    k_rope = apply_rope((xn @ w_kr.to(xn.dtype))[:, :, None, :],
                         positions, cfg.rope_theta)     # (B, S, 1, d_rope)
     return q_nope, q_rope, c_kv, k_rope
 
 
 def mla_apply(params, x, cfg: ModelConfig, positions=None):
     """Prefill MLA: K and V expanded from the latent, blockwise attention
-    with q/k ``d_nope + d_rope`` wide and v ``d_v`` wide.  Returns (out,
-    (c_kv, k_rope)) for cache seeding."""
+    with q/k ``d_nope + d_rope`` wide and v ``d_v`` wide; the one shared
+    RoPE key is broadcast to every head.  Returns (out, (c_kv, k_rope))
+    for cache seeding."""
     m = cfg.mla
-    b, s, _ = x.shape
+    s = x.shape[1]
     h = cfg.n_heads
     xn = rmsnorm(x, params["norm"], cfg.norm_eps)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q_nope, q_rope, c_kv, k_rope = _mla_q_latent(params, xn, cfg, positions)
-    k_nope = (c_kv @ params["w_uk"].to(x.dtype)).reshape(b, s, h, m.d_nope)
-    v = (c_kv @ params["w_uv"].to(x.dtype)).reshape(b, s, h, m.d_v)
-    k = torch.cat([k_nope, k_rope.expand(b, s, h, m.d_rope)], dim=-1)
+    k_nope = shard.split_heads(c_kv @ params["w_uk"].to(x.dtype), h,
+                               m.d_nope)
+    v = shard.split_heads(c_kv @ params["w_uv"].to(x.dtype), h, m.d_v)
+    k = torch.cat([k_nope, shard.broadcast_heads(k_rope, k_nope)], dim=-1)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
-    o = blockwise_attention(q_full, k, v, causal=True,
-                            block=cfg.attention_block)
-    o = o.reshape(b, s, h * m.d_v)
-    return o @ params["wo"].to(x.dtype), (c_kv, k_rope[:, :, 0, :])
+    o = shard.local_attention(blockwise_attention, q_full, k, v,
+                              causal=True, block=cfg.attention_block)
+    return (shard.merge_heads(o) @ params["wo"].to(x.dtype),
+            (c_kv, k_rope[:, :, 0, :]))
 
 
 def mla_decode(params, x, cache, cfg: ModelConfig):
     """Absorbed-matrix MLA decode: attention runs in float32 directly over
     the latent cache ``ckv`` (B, S, kv_lora) and the shared RoPE key ``kr``
-    (B, S, d_rope); the new slot is written into them in place."""
+    (B, S, d_rope); the new slot is written into them in place.  With
+    DTensors the absorbed products run on each device's heads, the scores
+    over its sequence shard of the cache (the query's heads gathered, as
+    :func:`attn_decode`'s), and the latent output is reduced back onto
+    the heads before ``W_uv``."""
     m = cfg.mla
     b = x.shape[0]
     h = cfg.n_heads
@@ -319,21 +326,24 @@ def mla_decode(params, x, cache, cfg: ModelConfig):
     positions = torch.full((b, 1), pos, device=x.device)
     q_nope, q_rope, c_new, kr_new = _mla_q_latent(params, xn, cfg, positions)
     ckv, kr = cache["ckv"], cache["kr"]
-    ckv[:, pos] = c_new[:, 0]
-    kr[:, pos] = kr_new[:, 0, 0]
+    shard.write_slot(ckv, pos, c_new[:, 0])
+    shard.write_slot(kr, pos, kr_new[:, 0, 0])
 
     # absorb W_uk into q: q' = q_nope . W_uk^T -> (B, H, kv_lora)
     w_uk = params["w_uk"].reshape(m.kv_lora, h, m.d_nope)
     q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, 0].to(F32), w_uk.to(F32))
+    # a sharded cache splits the sequence
+    q_lat = shard.replicate_heads(q_lat, dim=1)
+    q_rope = shard.replicate_heads(q_rope[:, 0].to(F32), dim=1)
     s_len = ckv.shape[1]
     scores = (torch.einsum("bhl,bsl->bhs", q_lat, ckv.to(F32))
-              + torch.einsum("bhr,bsr->bhs", q_rope[:, 0].to(F32),
-                             kr.to(F32)))
+              + torch.einsum("bhr,bsr->bhs", q_rope, kr.to(F32)))
     scores = scores * ((m.d_nope + m.d_rope) ** -0.5)
     mask = torch.arange(s_len, device=x.device) < pos + 1
     scores = torch.where(mask, scores, NEG_INF)
-    p = torch.softmax(scores, dim=-1)
-    o_lat = torch.einsum("bhs,bsl->bhl", p, ckv.to(F32))  # (B, H, kv_lora)
+    p = shard.softmax(scores, dim=-1)
+    o_lat = shard.onto_heads(torch.einsum("bhs,bsl->bhl", p, ckv.to(F32)),
+                             q_nope, 1)            # (B, H, kv_lora)
     w_uv = params["w_uv"].to(x.dtype).reshape(m.kv_lora, h, m.d_v)
     o = torch.einsum("bhl,lhv->bhv", o_lat, w_uv.to(F32))  # (B, H, d_v)
     o = o.reshape(b, 1, h * m.d_v).to(x.dtype)
@@ -357,7 +367,11 @@ def mlp_meta(cfg: ModelConfig, d_ff: int | None = None) -> dict:
 
 def mlp_apply(params, x, cfg: ModelConfig):
     xn = rmsnorm(x, params["norm"], cfg.norm_eps)
-    h = F.silu(xn @ params["wg"].to(x.dtype)) * (xn @ params["wu"].to(x.dtype))
+    # against FSDP weights a decode step's few rows come out as partial
+    # sums, reduced here by hand before the non-linearity (DTensor's own
+    # choice changes with torch's version)
+    h = F.silu(shard.all_reduced(xn @ params["wg"].to(x.dtype))) \
+        * shard.all_reduced(xn @ params["wu"].to(x.dtype))
     return h @ params["wd"].to(x.dtype)
 
 
@@ -414,73 +428,129 @@ def moe_capacity(cfg: ModelConfig, t: int) -> int:
     return cap
 
 
-def moe_dispatch(expert, cfg: ModelConfig):
+def moe_dispatch(expert, cfg: ModelConfig, cap: int | None = None,
+                 lo: int = 0, n: int | None = None):
     """Capacity dispatch of the (T, k) chosen experts: the assignments in
     ascending expert order (a stable sort, so tokens keep their order within
     an expert) as ``order``, whether each is kept, its slot in the
-    ``(E * cap + 1)``-row buffer (a drop goes to the spare last row), and
-    the capacity."""
+    ``(n * cap + 1)``-row buffer of experts ``[lo, lo + n)`` (all ``E`` by
+    default; a drop, or an assignment to another expert, goes to the
+    spare last row), and the capacity (:func:`moe_capacity` by
+    default)."""
     e = cfg.moe
     t = expert.shape[0]
-    n = t * e.top_k
+    n = e.n_experts if n is None else n
     flat_e = expert.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
     starts = torch.searchsorted(
         sorted_e, torch.arange(e.n_experts, device=expert.device,
                                dtype=sorted_e.dtype), side="left")
-    pos_in_e = torch.arange(n, device=expert.device) - starts[sorted_e]
-    cap = moe_capacity(cfg, t)
-    keep = pos_in_e < cap
-    slot = torch.where(keep, sorted_e * cap + pos_in_e, e.n_experts * cap)
+    pos_in_e = torch.arange(t * e.top_k, device=expert.device) \
+        - starts[sorted_e]
+    cap = moe_capacity(cfg, t) if cap is None else cap
+    keep = (pos_in_e < cap) & (sorted_e >= lo) & (sorted_e < lo + n)
+    slot = torch.where(keep, (sorted_e - lo) * cap + pos_in_e, n * cap)
     return order, keep, slot, cap
+
+
+def _moe_experts(params, xf, gate, dispatch, top_k: int):
+    """The routed experts' output (T, d) of the normed tokens ``xf``: each
+    of the ``n`` experts in ``params`` (``(n, d, f)`` weights) runs on its
+    ``cap`` slots of ``dispatch`` (:func:`moe_dispatch`) as one batched
+    product, and each token sums its kept experts' gated outputs in
+    ascending expert id."""
+    order, keep, slot, cap = dispatch
+    n, d = params["wg"].shape[0], xf.shape[1]
+    t = xf.shape[0]
+    tok = order // top_k                      # the token of each assignment
+
+    xbuf = xf.new_zeros((n * cap + 1, d))
+    xbuf[slot] = xf[tok]                      # duplicates only on the spare
+    xe = xbuf[:-1].view(n, cap, d)
+    h = F.silu(torch.bmm(xe, params["wg"].to(xf.dtype))) \
+        * torch.bmm(xe, params["wu"].to(xf.dtype))
+    ybuf = torch.bmm(h, params["wd"].to(xf.dtype)).view(n * cap, d)
+
+    flat_g = gate.reshape(-1)[order]
+    contrib = torch.where(keep, flat_g, 0.0)[:, None].to(xf.dtype) \
+        * ybuf[torch.clamp(slot, max=n * cap - 1)]
+    # each token's k assignments by their place in `order` (ascending
+    # expert id), summed in that order
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(t * top_k, device=xf.device)
+    by_expert = torch.sort(rank.view(t, top_k), dim=-1).values
+    y = contrib[by_expert[:, 0]]
+    for j in range(1, top_k):
+        y = y + contrib[by_expert[:, j]]
+    return y
+
+
+def _moe_shared(params, xf, y):
+    """``y`` plus the shared experts' output of ``xf`` (none: ``y``)."""
+    if "shared" not in params:
+        return y
+    sh = params["shared"]
+    hs = F.silu(xf @ sh["wg"].to(xf.dtype)) * (xf @ sh["wu"].to(xf.dtype))
+    return y + hs @ sh["wd"].to(xf.dtype)
 
 
 def moe_apply(params, x, cfg: ModelConfig):
     """x: (B, S, d).  Deterministic argsort dispatch with capacity drops:
     every expert runs on its ``cap`` slots as one batched product, and each
     token sums its kept experts' gated outputs in ascending expert id."""
-    e = cfg.moe
     b, s, d = x.shape
-    t = b * s
     xf, _, gate, expert = moe_route(params, x, cfg)
-    order, keep, slot, cap = moe_dispatch(expert, cfg)
-    tok = order // e.top_k                    # the token of each assignment
+    y = _moe_experts(params, xf, gate, moe_dispatch(expert, cfg),
+                     cfg.moe.top_k)
+    return _moe_shared(params, xf, y).reshape(b, s, d)
 
-    xbuf = x.new_zeros((e.n_experts * cap + 1, d))
-    xbuf[slot] = xf[tok]                      # duplicates only on the spare
-    xe = xbuf[:-1].view(e.n_experts, cap, d)
-    h = F.silu(torch.bmm(xe, params["wg"].to(x.dtype))) \
-        * torch.bmm(xe, params["wu"].to(x.dtype))
-    ybuf = torch.bmm(h, params["wd"].to(x.dtype)).view(e.n_experts * cap, d)
 
-    flat_g = gate.reshape(-1)[order]
-    contrib = torch.where(keep, flat_g, 0.0)[:, None].to(x.dtype) \
-        * ybuf[torch.clamp(slot, max=e.n_experts * cap - 1)]
-    # each token's k assignments by their place in `order` (ascending
-    # expert id), summed in that order
-    rank = torch.empty_like(order)
-    rank[order] = torch.arange(t * e.top_k, device=x.device)
-    by_expert = torch.sort(rank.view(t, e.top_k), dim=-1).values
-    y = contrib[by_expert[:, 0]]
-    for j in range(1, e.top_k):
-        y = y + contrib[by_expert[:, j]]
+def moe_apply_shardmap(params, x, cfg: ModelConfig, dp_axes=None):
+    """Expert-parallel MoE with local routing, as the reference's
+    ``shard_map`` runs it (``shard.expert_parallel``): each device routes
+    its own tokens (``x`` placed over ``dp_axes``, whole over the other
+    axes) to its own ``E / |model|`` experts, with a capacity per (data
+    shard, expert) of ``max(8, int(t_local * top_k / E *
+    capacity_factor))``; a drop, or an assignment to another device's
+    expert, goes to the spare buffer row ``e_loc * cap``.  The shared
+    experts, column-split over ``model``, add their part, and one
+    all-reduce over ``model`` sums both.  Under FSDP the expert weights
+    arrive data-sharded and are gathered here, once a layer: the
+    reference's ``mesh`` and ``fsdp`` arguments are the DTensors' own
+    mesh and placements.  For plain tensors: one device, all experts, the
+    global routing at this capacity."""
+    e = cfg.moe
 
+    def local(p, xl, rank):
+        t = xl.shape[0] * xl.shape[1]
+        xf, _, gate, expert = moe_route(p, xl, cfg)
+        e_loc = p["wg"].shape[0]
+        cap = max(8, int(t * e.top_k / e.n_experts * e.capacity_factor))
+        dispatch = moe_dispatch(expert, cfg, cap=cap, lo=rank * e_loc,
+                                n=e_loc)
+        y = _moe_experts(p, xf, gate, dispatch, e.top_k)
+        return _moe_shared(p, xf, y).reshape(xl.shape)
+
+    dims = {"router": None, "norm": None, "wg": 0, "wu": 0, "wd": 0}
     if "shared" in params:
-        sh = params["shared"]
-        hs = F.silu(xf @ sh["wg"].to(x.dtype)) * (xf @ sh["wu"].to(x.dtype))
-        y = y + hs @ sh["wd"].to(x.dtype)
-    return y.reshape(b, s, d)
+        dims["shared"] = {"wg": 1, "wu": 1, "wd": 0}
+    return shard.expert_parallel(local, params, x, dims, dp_axes=dp_axes)
 
 
 def moe_aux_loss(params, x, cfg: ModelConfig):
     """Load-balancing auxiliary loss (Switch-style)."""
     e = cfg.moe
     _, probs, _, expert = moe_route(params, x, cfg)
-    counts = torch.bincount(expert.reshape(-1),
-                            minlength=e.n_experts).to(F32)
+    # a count of fixed size (bincount's size follows the data, which a
+    # trace on fake tensors cannot see), in whole numbers, so exact; with
+    # DTensors the counts and the mean probabilities are each reduced
+    # over the batch's shards once, by hand
+    ids = torch.arange(e.n_experts, device=expert.device)
+    counts = shard.all_reduced((expert.reshape(-1, 1) == ids).sum(
+        dim=0).to(F32))
     frac_tokens = counts / torch.clamp(counts.sum(), min=1.0)
-    frac_probs = probs.mean(dim=0)
+    frac_probs = shard.all_reduced(probs.mean(dim=0))
     return e.n_experts * (frac_tokens * frac_probs).sum()
 
 

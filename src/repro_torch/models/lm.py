@@ -107,6 +107,10 @@ class LM:
         # layers' inputs, which the backward keeps, in the first, the
         # layers' insides in the second; None: as they come
         self.boundary_sp: tuple | None = None
+        # the expert-parallel MoE's keywords, ``{"dp_axes": ...}``
+        # (``layers.moe_apply_shardmap``): local routing on each device
+        # and one all-reduce; None: ``layers.moe_apply``
+        self.moe_exec: dict | None = None
 
     def grows(self, sub: str, leaf: str) -> bool:
         """Whether cache leaf ``leaf`` of sub-layer ``sub`` runs along the
@@ -164,7 +168,11 @@ class LM:
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         unembed = (params["embed"].T if cfg.tie_embeddings
                    else params["unembed"])
-        return _mask_pad_vocab((x @ unembed.to(x.dtype)).to(F32), cfg)
+        # reduced onto the rows by hand: against an FSDP table a few rows'
+        # logits come out partial, and the pad mask would leave the
+        # reduction to DTensor, whose choice changes with torch's version
+        logits = shard.rows_as(x @ unembed.to(x.dtype), x)
+        return _mask_pad_vocab(logits.to(F32), cfg)
 
     # ------------------------------------------------------------- encoder
     def encode(self, params, aux):
@@ -174,8 +182,8 @@ class LM:
         x = aux
         for p in params["encoder"]["layers"]:
             a, _ = L.attn_apply(p["attn"], x, cfg, causal=False)
-            x = x + a
-            x = x + L.mlp_apply(p["mlp"], x, cfg)
+            x = shard.residual(x, a)
+            x = shard.residual(x, L.mlp_apply(p["mlp"], x, cfg))
         return L.rmsnorm(x, params["encoder"]["final_norm"], cfg.norm_eps)
 
     def _aux_memory(self, params, aux):
@@ -196,7 +204,10 @@ class LM:
         """Layer ``i``'s MLP or MoE residual step (none in a Mamba2
         block)."""
         if self.cfg.is_moe_layer(i):
-            return x + L.moe_apply(p["mlp"], x, self.cfg)
+            if self.moe_exec is not None:
+                return shard.residual(x, L.moe_apply_shardmap(
+                    p["mlp"], x, self.cfg, **self.moe_exec))
+            return shard.residual(x, L.moe_apply(p["mlp"], x, self.cfg))
         if "mlp" in p:
             return shard.residual(x, L.mlp_apply(p["mlp"], x, self.cfg))
         return x
@@ -218,14 +229,14 @@ class LM:
             x = shard.residual(x, a)
             if cfg.n_encoder_layers:
                 kv = L.xattn_kv(p["xattn"], memory, cfg)
-                x = x + L.xattn_apply(p["xattn"], x, kv, cfg)
+                x = shard.residual(x, L.xattn_apply(p["xattn"], x, kv, cfg))
                 cache[f"{sub}_x"] = {"k": kv[0], "v": kv[1]}
         elif kind == "mamba":
             a, cache[sub] = L.mamba_apply(p["mixer"], x, cfg)
             x = x + a
         else:
             kv = L.xattn_kv(p["mixer"], memory, cfg)
-            x = x + L.xattn_apply(p["mixer"], x, kv, cfg)
+            x = shard.residual(x, L.xattn_apply(p["mixer"], x, kv, cfg))
             cache[sub] = {"k": kv[0], "v": kv[1]}
         return x, cache
 
@@ -400,14 +411,15 @@ class LM:
                 x = shard.residual(x, a)
                 if cfg.n_encoder_layers:
                     xc = caches[f"{sub}_x"]
-                    x = x + L.xattn_apply(p["xattn"], x,
-                                          (xc["k"][r], xc["v"][r]), cfg)
+                    x = shard.residual(x, L.xattn_apply(
+                        p["xattn"], x, (xc["k"][r], xc["v"][r]), cfg))
             elif kind == "mamba":
                 a, _ = L.mamba_decode(p["mixer"], x, layer_cache, cfg)
                 x = x + a
             else:
-                x = x + L.xattn_apply(p["mixer"], x, (layer_cache["k"],
-                                                      layer_cache["v"]), cfg)
+                x = shard.residual(x, L.xattn_apply(
+                    p["mixer"], x, (layer_cache["k"], layer_cache["v"]),
+                    cfg))
             x = self._mlp(i, p, x)
         logits = self._logits(params, x[:, 0])
         out = {name: sub for name, sub in caches.items() if name != "pos"}

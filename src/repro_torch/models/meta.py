@@ -180,8 +180,12 @@ def placements(spec: Spec, mesh) -> tuple:
     ``Shard(d)`` for the tensor dimension ``d`` whose entry names that axis,
     else ``Replicate()``.  A dimension over several axes is sharded over
     them outermost first in the mesh's order, which is the order the rules
-    list them in."""
+    list them in.  An axis of one device shards nothing and is
+    ``Replicate()``: a ``Shard`` on it would only make DTensor's layouts
+    strided where that axis and another meet on one flattened dimension
+    (a decode step's ``(batch x kv heads)`` on a ``(data, 1)`` mesh)."""
     where = {a: d for d, ax in enumerate(spec) if ax is not None
              for a in _axes(ax)}
-    return tuple(Shard(where[a]) if a in where else Replicate()
-                 for a in mesh.mesh_dim_names)
+    size = mesh_shape(mesh)
+    return tuple(Shard(where[a]) if a in where and size[a] > 1
+                 else Replicate() for a in mesh.mesh_dim_names)

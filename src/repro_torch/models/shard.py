@@ -14,10 +14,19 @@ tensors, so the one-card path does not change.
   projection is sharded over the ``model`` axis; where its shards split a
   head (2 kv heads, or 28 q heads, on 16 devices) the projection is first
   gathered over that axis (the collective GSPMD inserts there silently),
-  and q is then re-sharded by whole heads.
+  and q is then re-sharded by whole heads (fewer heads than devices, as
+  whisper's 12 on 16, stay whole on every device);
+  :func:`rows_as` reduces a projection's partial sums onto the rows.
 * :func:`local_attention` — attention on each device's (batch shard, head
   shard), on the DTensors' local tensors, so the flash op sees what one
   card would; each q head reads its own kv head.
+* :func:`broadcast_heads` — MLA's one RoPE key expanded to each
+  device's own heads; :func:`gathered` — its latent projections whole
+  on every device; :func:`onto_heads` — its decode's latent output
+  reduced onto the heads.
+* :func:`expert_parallel` — the MoE's ``shard_map``: each device routes
+  its own tokens to its own experts, and one all-reduce over the
+  ``model`` axis sums the partial outputs.
 * :func:`write_slot` — a decode step's cache write into the device's own
   sequence shard.
 * :func:`logz_and_gold` — the loss's logsumexp and gold logit over
@@ -44,6 +53,8 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch import tree as T
+
 
 def constrain(x, placements):
     """``x`` redistributed to ``placements`` (None: as it is)."""
@@ -64,9 +75,20 @@ def pin(x):
 def embed(table, tokens):
     """``table[tokens]``; for DTensors the vocab-sharded lookup (each
     device looks up its rows, the partial rows all-reduce), placed as the
-    tokens are."""
-    if not isinstance(table, DTensor) or not _dims_on(table, 0):
+    tokens are.  A table whole over the vocab (a ``model`` axis of one
+    device) is looked up on each device's own tokens, with no collective:
+    its gradient, each device's rows added into the table, is partial
+    over the axes that split the tokens and is reduced once with the
+    other gradients."""
+    if not isinstance(table, DTensor):
         return table[tokens]
+    if not _dims_on(table, 0):
+        local = _local(gathered(table), tuple(
+            Partial() if isinstance(p, Shard) else Replicate()
+            for p in tokens.placements))
+        return _from_local(local[tokens.to_local()], tokens,
+                           (*tokens.shape, table.shape[1]),
+                           tokens.placements)
     x = F.embedding(tokens, table)
     return pin(x.redistribute(x.device_mesh, tokens.placements))
 
@@ -124,10 +146,14 @@ def split_heads(t, n: int, dh: int):
 
 def merge_heads(o):
     """``(b, s, n, dv) -> (b, s, n * dv)``, gathering a DTensor first where
-    its heads are split unevenly over their devices."""
+    its heads are split unevenly over their devices; where they are whole
+    on every device (fewer heads than devices) the gradient comes back
+    whole too."""
     b, s, n, dv = o.shape
     if isinstance(o, DTensor):
         dims = _dims_on(o, 2)
+        if not dims:
+            return pin(o.reshape(b, s, n * dv))
         if n % _size(o, dims):
             o = o.redistribute(o.device_mesh, _with(o, dims, Replicate()))
             # the gradient comes back whole too, or it could not unflatten
@@ -135,17 +161,55 @@ def merge_heads(o):
     return o.reshape(b, s, n * dv)
 
 
-def replicate_heads(x):
-    """A DTensor's heads axis (2) gathered onto every device, copied to a
-    contiguous local tensor: an uneven gather can leave one device's copy
-    strided, and ``contiguous`` looks only at the DTensor's global
+def gathered(w):
+    """A DTensor (an FSDP-sharded weight) whole on every device, as the
+    FSDP contract gathers a layer's weights before their product: left to
+    DTensor, a product with it may shard its columns over ``model`` and
+    leave the next product's sums partial."""
+    if not isinstance(w, DTensor) or all(
+            isinstance(p, Replicate) for p in w.placements):
+        return w
+    return w.redistribute(w.device_mesh, (Replicate(),) * w.device_mesh.ndim)
+
+
+def onto_heads(x, like, dim: int):
+    """``x`` (partial sums over a sequence shard, say) with its axis
+    ``dim`` placed as ``like``'s heads (axis 2) are: a reduce-scatter onto
+    the devices that hold them; its other partial sums reduced."""
+    if not isinstance(x, DTensor):
+        return x
+    heads = _dims_on(like, 2)
+    return x.redistribute(x.device_mesh, tuple(
+        Shard(dim) if i in heads else Replicate() if isinstance(p, Partial)
+        else p for i, p in enumerate(x.placements)))
+
+
+def replicate_heads(x, dim: int = 2):
+    """A DTensor's heads axis ``dim`` gathered onto every device, copied to
+    a contiguous local tensor: an uneven gather can leave one device's
+    copy strided, and ``contiguous`` looks only at the DTensor's global
     strides."""
     if not isinstance(x, DTensor):
         return x
-    y = x.redistribute(x.device_mesh, _with(x, _dims_on(x, 2), Replicate()))
+    y = x.redistribute(x.device_mesh, _with(x, _dims_on(x, dim),
+                                            Replicate()))
     # the local copy made by hand: DTensor's own clone of a tensor partial
     # over one axis may pick other placements (and shard the heads again)
     return _from_local(y.to_local().contiguous(), y, y.shape, y.placements)
+
+
+def rows_as(t, x):
+    """``t``, a projection of ``x``, with any partial sums reduced into
+    ``x``'s placement on their axis (a reduce-scatter onto ``x``'s batch
+    shards): against an FSDP weight DTensor may split a small product's
+    contraction over the data axis and leave its sums partial, where
+    attention on each device's rows needs them whole."""
+    if not isinstance(t, DTensor) or not any(
+            isinstance(p, Partial) for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, tuple(
+        x.placements[i] if isinstance(p, Partial) else p
+        for i, p in enumerate(t.placements)))
 
 
 def local_box(shape, mesh, placements) -> tuple[list[int], list[int]]:
@@ -180,6 +244,35 @@ def _from_local(local, like: DTensor, shape, placements) -> DTensor:
                                                  device="meta").stride())
 
 
+def _local(t, grad=None):
+    """``t``'s shard here (its gradient placed by ``grad``, as ``t`` is by
+    default).  Every device hands DTensor a gradient of one layout:
+    DTensor picks its redistributions by stride, and a device's slice of
+    a shard would otherwise differ from another's."""
+    t = t.to_local(grad_placements=grad)
+    if t.requires_grad:
+        t.register_hook(lambda g: g.contiguous())
+    return t
+
+
+def broadcast_heads(t, like):
+    """``t`` ``(B, S, 1, D)`` (MLA's one RoPE key) expanded to the heads
+    of ``like`` ``(B, S, H, ...)``; for DTensors to the heads ``like``
+    holds on each device, with no collective (its gradient, the sum over
+    those heads, is partial over the devices that split them)."""
+    b, s, h = like.shape[:3]
+    if not isinstance(like, DTensor):
+        return t.expand(b, s, h, t.shape[-1])
+    heads = _dims_on(like, 2)
+    rep = _with(like, heads, Replicate())
+    t = t.redistribute(t.device_mesh, rep)
+    local = _local(t, tuple(Partial() if i in heads else p
+                            for i, p in enumerate(rep)))
+    _, hl = _local_range(like, 2)
+    return _from_local(local.expand(*local.shape[:2], hl, local.shape[3]),
+                       like, (b, s, h, t.shape[-1]), like.placements)
+
+
 def local_attention(attend, q, k, v, **kw):
     """``attend(q, k, v, **kw)`` (``(B, S, H, D)`` layout, GQA); for
     DTensors on each device's shards: q's batch and heads as they are
@@ -212,25 +305,62 @@ def local_attention(attend, q, k, v, **kw):
     # gradient is a partial sum over the q heads it holds
     heads = _dims_on(q, 2)
 
-    def local(t, grad=None):
-        t = t.to_local(grad_placements=grad)
-        if t.requires_grad:
-            # every device hands DTensor a gradient of one layout: DTensor
-            # picks its redistributions by stride, and a device's slice
-            # of the kv heads would otherwise differ from another's
-            t.register_hook(lambda g: g.contiguous())
-        return t
-
     def partial(t):
-        return local(t, tuple(
+        return _local(t, tuple(
             Partial() if i in heads and not (isinstance(p, Shard)
                                              and p.dim == 2) else p
             for i, p in enumerate(t.placements)))
 
     # contiguous, as the plain path's reshape makes it (a DTensor view
     # cannot copy)
-    o = body(local(q), partial(k), partial(v)).contiguous()
+    o = body(_local(q), partial(k), partial(v)).contiguous()
     return _from_local(o, q, (*q.shape[:3], v.shape[3]), q.placements)
+
+
+def expert_parallel(body, params, x, dims, *, dp_axes=None):
+    """``body(params, x, rank)`` run as a ``shard_map`` runs it: on each
+    device's token shard and expert shard, its partial outputs summed over
+    ``model`` by one all-reduce.  ``dims`` has ``params``' structure and
+    names each leaf's dimension sharded over ``model`` (None: the leaf
+    is whole on every device); ``rank`` is the device's index along
+    ``model``.  ``x`` is placed with its batch over ``dp_axes`` (None:
+    replicated) and whole over every other axis (a sequence sharded by
+    boundary-SP is gathered first); every leaf is whole but for its
+    ``dims`` shard (under FSDP its data shards are gathered, once a
+    layer).  For plain tensors ``body(params, x, 0)``."""
+    if not isinstance(x, DTensor):
+        return body(params, x, 0)
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    ep = names.index("model")
+    dp = {names.index(a) for a in ((dp_axes,) if isinstance(dp_axes, str)
+                                   else dp_axes or ())}
+    x_pl = tuple(Shard(0) if i in dp else Replicate()
+                 for i in range(mesh.ndim))
+
+    def grad_of(pl):
+        # partial over the ep axis where the leaf is whole there (each
+        # device's outputs are a part of the sum), and over the batch's
+        # axes (each device's tokens are a part of the batch)
+        return tuple(Partial() if i in dp or (i == ep and not isinstance(
+            p, Shard)) else p for i, p in enumerate(pl))
+
+    def leaf(w, dim):
+        if dim is not None and w.shape[dim] % mesh.size(ep):
+            raise ValueError(f"{w.shape[dim]} rows of dimension {dim} do "
+                             f"not split over the {mesh.size(ep)}-way "
+                             "model axis")
+        pl = tuple(Shard(dim) if i == ep and dim is not None
+                   else Replicate() for i in range(mesh.ndim))
+        return _local(w.redistribute(mesh, pl), grad_of(pl))
+
+    local_params = T.tree_map(leaf, params, dims)
+    x_l = _local(x.redistribute(mesh, x_pl), tuple(
+        Partial() if i == ep else p for i, p in enumerate(x_pl)))
+    y = body(local_params, x_l, mesh.get_coordinate()[ep])
+    y = _from_local(y, x, x.shape, tuple(Partial() if i == ep else p
+                                         for i, p in enumerate(x_pl)))
+    return y.redistribute(mesh, x_pl)
 
 
 def write_slot(buf, pos: int, val) -> None:

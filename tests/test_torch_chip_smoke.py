@@ -675,3 +675,17 @@ def test_dryrun_cli_check_fails_on_a_failed_cell(smoke, monkeypatch, capsys):
     with pytest.raises(smoke.CheckFailed, match="the CLI gave rc 1"):
         smoke.dryrun_cli("cpu", "pod")
     assert "failed=1" in capsys.readouterr().out
+
+
+def test_dryrun_cli_wants_every_cell_but_the_mamba2_ones(smoke, monkeypatch):
+    """On the pod mesh the CLI must print 24 ``[ok]`` and 8
+    ``[not-ported]`` (mamba2-780m and jamba): the dense decoders' 12
+    alone fail the check."""
+    import subprocess
+    lines = ["[ok]   a"] * 12 + ["[not-ported] b"] * 20
+    monkeypatch.setattr(smoke.subprocess, "run",
+                        lambda *a, **k: subprocess.CompletedProcess(
+                            a, 0, stdout="\n".join(lines), stderr=""))
+    with pytest.raises(smoke.CheckFailed,
+                       match=r"'\[ok\]': 24, '\[not-ported\]': 8"):
+        smoke.dryrun_cli("cpu", "pod")

@@ -240,9 +240,8 @@ def test_the_sharded_step_computes_the_one_device_step(mesh, heads):
 
 def test_other_architectures_are_not_ported():
     from repro_torch.launch import steps
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        steps.build_cell("deepseek-v2-lite-16b", "train_4k", None,
-                         multi_pod=False)
+    with pytest.raises(NotImplementedError, match="queue 1 item 4c"):
+        steps.build_cell("mamba2-780m", "train_4k", None, multi_pod=False)
 
 
 def test_a_mesh_of_real_cards_is_item_5():
@@ -332,34 +331,46 @@ def test_only_the_plain_attentions_scores_are_score_traffic():
     assert 4 * scores <= rep.score_traffic_bytes < rep.traffic_bytes
 
 
-@pytest.mark.parametrize("causal", [True, False])
-def test_flash_on_fake_tensors_is_shape_only(causal):
+@pytest.mark.parametrize("causal,sq,skv,d,dv", [
+    pytest.param(True, 64, 64, 32, 32, id="True"),
+    pytest.param(False, 64, 64, 32, 32, id="False"),
+    pytest.param(True, 64, 64, 192, 128, id="mla"),
+    pytest.param(False, 48, 80, 32, 32, id="cross")])
+def test_flash_on_fake_tensors_is_shape_only(causal, sq, skv, d, dv):
     """The forward and K0-K2 return the kernels' shapes and dtypes, count
-    the kernels' products and bytes, and materialise no score tile."""
+    the kernels' products and bytes, and materialise no score tile: at
+    MLA's (192, 128) widths, q/k and v counted apart, and in
+    cross-attention's non-causal ``Sq != Skv``, every (query, key)
+    pair."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.launch.op_analysis import OpAnalysis
     a = OpAnalysis()
-    bh, bh_kv, s, d = 8, 2, 64, 32
+    bh, bh_kv = 8, 2
     with FakeTensorMode():
-        q = torch.empty(bh, s, d, dtype=torch.bfloat16, requires_grad=True)
-        k = torch.empty(bh_kv, s, d, dtype=torch.bfloat16,
+        q = torch.empty(bh, sq, d, dtype=torch.bfloat16, requires_grad=True)
+        k = torch.empty(bh_kv, skv, d, dtype=torch.bfloat16,
                         requires_grad=True)
-        v = torch.empty(bh_kv, s, d, dtype=torch.bfloat16,
+        v = torch.empty(bh_kv, skv, dv, dtype=torch.bfloat16,
                         requires_grad=True)
         with a:
             out = fa.flash_attention(q, k, v, causal=causal)
             out.backward(torch.ones_like(out))
-        assert out.shape == (bh, s, d) and out.dtype == torch.bfloat16
+        assert out.shape == (bh, sq, dv) and out.dtype == torch.bfloat16
         assert q.grad.shape == q.shape and k.grad.shape == k.shape
+        assert v.grad.shape == v.shape
     assert fa.flash_attention.launches == 0
     rep = a.report()
-    fwd = fa.attention_flops(bh, s, s, d, d, causal)
+    fwd = fa.attention_flops(bh, sq, skv, d, dv, causal)
+    pairs = fa.causal_pairs(sq, skv) if causal else sq * skv
+    assert fwd == 2 * bh * pairs * (d + dv)
     assert rep.flops == fwd + 5 * fwd // 2
     assert rep.score_traffic_bytes == 0
     elem = 2
-    fwd_bytes = (2 * bh + 2 * bh_kv) * s * d * elem + bh * s * 4
+    q_o = bh * sq * (d + dv) * elem           # q and out (or dq and dout)
+    k_v = bh_kv * skv * (d + dv) * elem       # k and v (or dk and dv)
+    fwd_bytes = q_o + k_v + bh * sq * 4
     # backward: q, k, v, out, dout, lse in; dq, dk, dv, delta out
-    bwd_bytes = (4 * bh + 4 * bh_kv) * s * d * elem + 2 * bh * s * 4
+    bwd_bytes = 2 * q_o + 2 * k_v + 2 * bh * sq * 4
     assert rep.traffic_bytes >= fwd_bytes + bwd_bytes
 
 

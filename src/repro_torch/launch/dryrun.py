@@ -9,9 +9,10 @@ under ``artifacts/dryrun_torch/`` for the roofline
 (``python -m repro_torch.launch.roofline``).
 
 A port of ``repro.launch.dryrun`` with the same options; it needs no
-``XLA_FLAGS`` and no card.  The cells of the dense GQA decoders are
-ported; a cell that ``steps.build_cell`` refuses as not ported yet prints
-``[not-ported]``, and any other failure ``[FAIL]`` (exit code 1).
+``XLA_FLAGS`` and no card.  Every cell of the reference's list is
+ported; a cell whose build raises ``NotImplementedError`` (an
+architecture the port lacks) prints ``[not-ported]``, and any other
+failure ``[FAIL]`` (exit code 1).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen2-7b --shape train_4k

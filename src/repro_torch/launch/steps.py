@@ -16,8 +16,7 @@ allocation) and reads one device's FLOPs, traffic, collectives and peak
 memory from ``launch.op_analysis``.  Where the reference lowers and
 compiles a jitted program, the port traces its own eager step: the train
 step updates weights and moments in place, so no donated second copy
-exists to count.  Stacks with Mamba2 layers are not ported yet and raise
-``NotImplementedError``.
+exists to count.
 """
 from __future__ import annotations
 
@@ -207,13 +206,6 @@ def _placed(x, mesh, spec: Spec):
                               shape=x.shape, stride=x.stride())
 
 
-def dryrun_ported(cfg) -> bool:
-    """Whether the port's dry run builds ``cfg``'s cells: every stack
-    without a Mamba2 layer (the dense, MLA and MoE decoders, the
-    cross-attention decoder and the encoder-decoder)."""
-    return "mamba" not in cfg.pattern
-
-
 def build_cell(arch: str, shape_name, mesh, *, multi_pod: bool,
                smoke: bool = False, batch_override: int | None = None,
                fsdp: bool | None = None, zero1: bool = False,
@@ -225,11 +217,6 @@ def build_cell(arch: str, shape_name, mesh, *, multi_pod: bool,
     ``registry.ShapeSpec`` of the caller's own (``chip_smoke.py``'s
     ``[train]`` shape)."""
     cfg = registry.get_config(arch, smoke=smoke)
-    if not dryrun_ported(cfg):
-        raise NotImplementedError(
-            f"{arch}: the dry run covers the stacks without Mamba2 layers; "
-            "the Mamba2 and hybrid cells are ROADMAP queue 1 item 4c, not "
-            "ported yet")
     spec = (shape_name if isinstance(shape_name, registry.ShapeSpec)
             else registry.SHAPES[shape_name])
     gb = batch_override or spec.global_batch

@@ -39,18 +39,22 @@ Conventions
 * Mamba2 is eager torch: the reference has no Pallas kernel for the SSD
   scan.  ``mamba_apply`` computes every chunk's intra-chunk term and
   state contribution in one batched pass and carries the
-  ``(B, heads, N, P)`` state across chunks in a Python loop (the
-  counterpart of the reference's ``lax.scan``); it zeroes the front pad's
-  inputs after the convolution, so the pad adds nothing whatever the conv
-  bias (ROADMAP R11).
+  ``(B, heads, N, P)`` state across chunks by a prefix scan in
+  ``log2(chunks)`` batched steps (the counterpart of the reference's
+  sequential ``lax.scan``; the products and sums are associated
+  differently, so the state agrees to rounding); it zeroes the front
+  pad's inputs after the convolution, so the pad adds nothing whatever
+  the conv bias (ROADMAP R11).
 
-* With DTensor parameters (the dry run) the attention layers (GQA, MLA,
-  cross-attention) pass through the sharding points of
-  ``repro_torch.models.shard``, and ``moe_apply_shardmap`` runs the MoE
-  on each device's tokens and experts; for plain tensors those are the
-  plain code.
+* With DTensor parameters (the dry run) GQA, cross-attention and MLA's
+  decode pass through the sharding points of ``repro_torch.models.shard``;
+  MLA's prefill, Mamba2 and ``moe_apply_shardmap`` run on each device's
+  heads or experts (``shard.model_parallel``); for plain tensors those
+  are the plain code.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -271,9 +275,11 @@ def mla_meta(cfg: ModelConfig) -> dict:
 
 def _mla_q_latent(params, xn, cfg: ModelConfig, positions):
     """The queries split into their no-RoPE and RoPE parts, the latent
-    ``c_kv`` and the shared RoPE key, from the normed input."""
+    ``c_kv`` and the shared RoPE key, from the normed input (the heads of
+    ``wq``: a device's own in :func:`mla_apply`'s body)."""
     m = cfg.mla
-    q = shard.split_heads(xn @ params["wq"].to(xn.dtype), cfg.n_heads,
+    h = params["wq"].shape[1] // (m.d_nope + m.d_rope)
+    q = shard.split_heads(xn @ params["wq"].to(xn.dtype), h,
                           m.d_nope + m.d_rope)
     q_nope, q_rope = q[..., :m.d_nope], q[..., m.d_nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
@@ -287,27 +293,42 @@ def _mla_q_latent(params, xn, cfg: ModelConfig, positions):
     return q_nope, q_rope, c_kv, k_rope
 
 
+# MLA's weights split over ``model`` by heads (None: whole everywhere)
+MLA_DIMS = {"wq": 1, "w_dkv": None, "w_kr": None, "w_uk": 1, "w_uv": 1,
+            "wo": 0, "norm": None, "kv_norm": None}
+
+
 def mla_apply(params, x, cfg: ModelConfig, positions=None):
     """Prefill MLA: K and V expanded from the latent, blockwise attention
     with q/k ``d_nope + d_rope`` wide and v ``d_v`` wide; the one shared
     RoPE key is broadcast to every head.  Returns (out, (c_kv, k_rope))
-    for cache seeding."""
+    for cache seeding.  With DTensors each device runs it on its own
+    heads (``shard.model_parallel``, :data:`MLA_DIMS`), the latent and
+    the RoPE key whole: its input's gradient, a part on each device, is
+    reduced once, where the layer takes its input."""
     m = cfg.mla
-    s = x.shape[1]
-    h = cfg.n_heads
-    xn = rmsnorm(x, params["norm"], cfg.norm_eps)
-    if positions is None:
-        positions = torch.arange(s, device=x.device)[None, :]
-    q_nope, q_rope, c_kv, k_rope = _mla_q_latent(params, xn, cfg, positions)
-    k_nope = shard.split_heads(c_kv @ params["w_uk"].to(x.dtype), h,
-                               m.d_nope)
-    v = shard.split_heads(c_kv @ params["w_uv"].to(x.dtype), h, m.d_v)
-    k = torch.cat([k_nope, shard.broadcast_heads(k_rope, k_nope)], dim=-1)
-    q_full = torch.cat([q_nope, q_rope], dim=-1)
-    o = shard.local_attention(blockwise_attention, q_full, k, v,
-                              causal=True, block=cfg.attention_block)
-    return (shard.merge_heads(o) @ params["wo"].to(x.dtype),
-            (c_kv, k_rope[:, :, 0, :]))
+
+    def local(p, xl, _):
+        b, s, _ = xl.shape
+        if p["wq"].shape[1] % (m.d_nope + m.d_rope):
+            raise ValueError(f"{cfg.n_heads} heads do not split over the "
+                             "model axis")
+        xn = rmsnorm(xl, p["norm"], cfg.norm_eps)
+        pos = (torch.arange(s, device=xl.device)[None, :]
+               if positions is None else positions)
+        q_nope, q_rope, c_kv, k_rope = _mla_q_latent(p, xn, cfg, pos)
+        h = q_nope.shape[2]
+        k_nope = (c_kv @ p["w_uk"].to(xl.dtype)).reshape(b, s, h, m.d_nope)
+        v = (c_kv @ p["w_uv"].to(xl.dtype)).reshape(b, s, h, m.d_v)
+        k = torch.cat([k_nope, k_rope.expand(b, s, h, m.d_rope)], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        o = blockwise_attention(q_full, k, v, causal=True,
+                                block=cfg.attention_block)
+        return (o.reshape(b, s, h * m.d_v) @ p["wo"].to(xl.dtype),
+                (c_kv, k_rope[:, :, 0, :]))
+
+    return shard.model_parallel(local, params, x, MLA_DIMS,
+                                out_dims=(None, None))
 
 
 def mla_decode(params, x, cache, cfg: ModelConfig):
@@ -506,9 +527,28 @@ def moe_apply(params, x, cfg: ModelConfig):
     return _moe_shared(params, xf, y).reshape(b, s, d)
 
 
-def moe_apply_shardmap(params, x, cfg: ModelConfig, dp_axes=None):
+def _aux_from(probs, expert, cfg: ModelConfig, local: shard.Local):
+    """The load-balancing loss of the routed tokens' probabilities (T, E)
+    and chosen experts (T, k): the expert counts (of fixed size: a trace
+    on fake tensors cannot see a size that follows the data; whole
+    numbers, so exact) and the mean probabilities, each summed over the
+    batch's shards once."""
+    e = cfg.moe
+    ids = torch.arange(e.n_experts, device=expert.device)
+    counts = local.batch_sum((expert.reshape(-1, 1) == ids).sum(
+        dim=0).to(F32))
+    frac_tokens = counts / torch.clamp(counts.sum(), min=1.0)
+    frac_probs = local.batch_sum(probs.mean(dim=0))
+    if local.dp:
+        frac_probs = frac_probs / math.prod(local.mesh.size(i)
+                                            for i in local.dp)
+    return e.n_experts * (frac_tokens * frac_probs).sum()
+
+
+def moe_apply_shardmap(params, x, cfg: ModelConfig, dp_axes=None,
+                       with_aux: bool = False):
     """Expert-parallel MoE with local routing, as the reference's
-    ``shard_map`` runs it (``shard.expert_parallel``): each device routes
+    ``shard_map`` runs it (``shard.model_parallel``): each device routes
     its own tokens (``x`` placed over ``dp_axes``, whole over the other
     axes) to its own ``E / |model|`` experts, with a capacity per (data
     shard, expert) of ``max(8, int(t_local * top_k / E *
@@ -518,40 +558,41 @@ def moe_apply_shardmap(params, x, cfg: ModelConfig, dp_axes=None):
     all-reduce over ``model`` sums both.  Under FSDP the expert weights
     arrive data-sharded and are gathered here, once a layer: the
     reference's ``mesh`` and ``fsdp`` arguments are the DTensors' own
-    mesh and placements.  For plain tensors: one device, all experts, the
-    global routing at this capacity."""
+    mesh and placements.  ``with_aux`` also returns the load-balancing
+    loss of this routing (:func:`moe_aux_loss`'s value), formed on each
+    device from its own tokens, so its router and norm gradients are
+    partial sums like the MoE's own, reduced once with them; the devices
+    along ``model``, which route the same tokens, form it alike, and only
+    the first passes a gradient.  For plain tensors: one device, all
+    experts, the global routing at this capacity."""
     e = cfg.moe
 
-    def local(p, xl, rank):
+    aux = []
+
+    def local(p, xl, lc):
         t = xl.shape[0] * xl.shape[1]
-        xf, _, gate, expert = moe_route(p, xl, cfg)
+        xf, probs, gate, expert = moe_route(p, xl, cfg)
         e_loc = p["wg"].shape[0]
         cap = max(8, int(t * e.top_k / e.n_experts * e.capacity_factor))
-        dispatch = moe_dispatch(expert, cfg, cap=cap, lo=rank * e_loc,
+        dispatch = moe_dispatch(expert, cfg, cap=cap, lo=lc.rank * e_loc,
                                 n=e_loc)
         y = _moe_experts(p, xf, gate, dispatch, e.top_k)
+        if with_aux:
+            a = _aux_from(probs, expert, cfg, lc)
+            aux.append(a if lc.rank == 0 else a.detach())
         return _moe_shared(p, xf, y).reshape(xl.shape)
 
     dims = {"router": None, "norm": None, "wg": 0, "wu": 0, "wd": 0}
     if "shared" in params:
         dims["shared"] = {"wg": 1, "wu": 1, "wd": 0}
-    return shard.expert_parallel(local, params, x, dims, dp_axes=dp_axes)
+    y = shard.model_parallel(local, params, x, dims, dp_axes=dp_axes)
+    return (y, shard.whole(aux[0], x)) if with_aux else y
 
 
 def moe_aux_loss(params, x, cfg: ModelConfig):
     """Load-balancing auxiliary loss (Switch-style)."""
-    e = cfg.moe
     _, probs, _, expert = moe_route(params, x, cfg)
-    # a count of fixed size (bincount's size follows the data, which a
-    # trace on fake tensors cannot see), in whole numbers, so exact; with
-    # DTensors the counts and the mean probabilities are each reduced
-    # over the batch's shards once, by hand
-    ids = torch.arange(e.n_experts, device=expert.device)
-    counts = shard.all_reduced((expert.reshape(-1, 1) == ids).sum(
-        dim=0).to(F32))
-    frac_tokens = counts / torch.clamp(counts.sum(), min=1.0)
-    frac_probs = shard.all_reduced(probs.mean(dim=0))
-    return e.n_experts * (frac_tokens * frac_probs).sum()
+    return _aux_from(probs, expert, cfg, shard.Local())
 
 
 # ---------------------------------------------------------------------------
@@ -578,16 +619,53 @@ def mamba_meta(cfg: ModelConfig) -> dict:
     }
 
 
-def _mamba_split(params, xn, cfg: ModelConfig):
-    """The input projection split into the gate ``z`` (d_inner), the conv
-    input ``xbc`` (d_inner + 2 G N) and the raw step ``dt`` (heads)."""
+# Mamba2's weights split over ``model``: the input projection and the
+# conv by their columns as stored (a contiguous share, which does not fall
+# on the z | xBC | dt boundaries), the per-head vectors and the output
+# side by heads
+MAMBA_DIMS = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "a_log": 0,
+              "d_skip": 0, "dt_bias": 0, "out_norm": 0, "out_proj": 0,
+              "norm": None}
+
+
+def _mamba_layout(cfg: ModelConfig, lc: shard.Local):
+    """The heads one device computes, as ``(groups, heads a group)``,
+    and the column ranges it reads for them: of the input projection
+    ``{"z", "x", "b", "c", "dt"}`` and of the conv input ``{"x", "b",
+    "c"}``.  One device: every head, every column.  Over a ``model`` axis
+    of ``k`` devices: ``heads / k`` heads, all in one group, whose B and
+    C columns (``N`` each) every device of the group reads whole."""
     s = cfg.ssm
-    di = s.d_inner(cfg.d_model)
-    gn = s.n_groups * s.d_state
-    nh = s.n_heads(cfg.d_model)
-    proj = xn @ params["in_proj"].to(xn.dtype)
-    z, xbc, dt = torch.split(proj, [di, di + 2 * gn, nh], dim=-1)
-    return z, xbc, dt, di, gn, nh
+    di, nh = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model)
+    n, p, g = s.d_state, s.head_dim, s.n_groups
+    gn, hg = g * n, nh // g
+    h0, h1 = lc.share(nh)
+    if lc.size > 1 and hg % (h1 - h0):
+        raise ValueError(f"{nh // lc.size} heads a device straddle "
+                         f"{g} groups of {hg}")
+    b0, b1 = (0, gn) if lc.size == 1 else (h0 // hg * n, h0 // hg * n + n)
+    conv = {"x": (h0 * p, h1 * p), "b": (di + b0, di + b1),
+            "c": (di + gn + b0, di + gn + b1)}
+    cols = {"z": (h0 * p, h1 * p),
+            **{k: (di + lo, di + hi) for k, (lo, hi) in conv.items()},
+            "dt": (2 * di + 2 * gn + h0, 2 * di + 2 * gn + h1)}
+    heads = (g, hg) if lc.size == 1 else (1, h1 - h0)
+    return heads, cols, conv
+
+
+def _cols(t, ranges, dim: int = -1):
+    """``t``'s ranges ``[(lo, hi), ...]`` along ``dim``, concatenated in
+    order (adjacent ranges as one slice; all of ``t``: ``t`` itself)."""
+    merged: list[list[int]] = []
+    for lo, hi in ranges:
+        if merged and merged[-1][1] == lo:
+            merged[-1][1] = hi
+        else:
+            merged.append([lo, hi])
+    if merged == [[0, t.shape[dim]]]:
+        return t
+    parts = [t.narrow(dim, lo, hi - lo) for lo, hi in merged]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
 
 
 def _causal_conv(xbc, w, b, prev=None):
@@ -611,45 +689,71 @@ def _mamba_gates(params, dt):
     return dt, -torch.exp(params["a_log"].to(F32))
 
 
-def _mamba_out(params, y, xs, z, cfg: ModelConfig, dtype):
+def _mamba_out(params, y, xs, z, cfg: ModelConfig, dtype,
+               lc: shard.Local):
     """The float32 skip term ``xs * d_skip`` added to the scan's ``y``
     (..., heads, P), cast to the config dtype, gated by ``silu(z)``, normed
-    and projected out."""
+    over the whole ``d_inner`` (over ``model``, the sum of squares of each
+    device's heads summed) and projected out (over ``model``, each
+    device's part of the sum)."""
     y = y + xs.to(F32) * params["d_skip"].to(F32)[:, None]
-    y = y.reshape(*z.shape).to(dtype)
-    y = rmsnorm(y * F.silu(z), params["out_norm"], cfg.norm_eps)
+    y = y.reshape(*z.shape).to(dtype) * F.silu(z)
+    if lc.size == 1:
+        y = rmsnorm(y, params["out_norm"], cfg.norm_eps)
+    else:
+        yf = y.to(F32)
+        var = lc.psum((yf * yf).sum(dim=-1, keepdim=True)) \
+            / (yf.shape[-1] * lc.size)
+        y = (yf * torch.rsqrt(var + cfg.norm_eps)).to(dtype) \
+            * params["out_norm"].to(dtype)
     return y @ params["out_proj"].to(dtype)
 
 
-def mamba_apply(params, x, cfg: ModelConfig):
-    """Chunked SSD forward (prefill). x: (B, S, d) -> (out, {"state":
-    float32 (B, heads, N, P), "conv": (B, W-1, conv_dim)}).
-
-    The sequence is padded at the front to whole chunks, as in the
-    reference (a zero state stays zero through the pad, unlike a tail pad
-    that would corrupt the carried-out state), and the pad's conv outputs
-    are zeroed so it adds nothing even with a non-zero conv bias.  B and C
-    stay in their group form (no (B, S, heads, N) broadcast): heads are
-    indexed (group, head in group).  Every chunk's intra-chunk term and its
-    contribution to the state come from one batched pass; the state is
-    carried across the chunks by a loop over them; the carried-in state's
-    term is again batched.  All three are float32; the projections run in
-    the config dtype."""
+def _mamba_scan(params, x, cfg: ModelConfig, lc: shard.Local):
+    """:func:`mamba_apply` on one device's heads (``lc``; all of them on
+    one device)."""
     s = cfg.ssm
-    b, s0, _ = x.shape
+    b, s0, d = x.shape
     xn = rmsnorm(x, params["norm"], cfg.norm_eps)
     front = (-s0) % min(s.chunk, max(s0, 1))
     if front:
         xn = F.pad(xn, (0, 0, front, 0))
     seq = s0 + front
-    z, xbc, dt, di, gn, nh = _mamba_split(params, xn, cfg)
-    xbc, conv_tail = _causal_conv(xbc, params["conv_w"], params["conv_b"])
+    (g, hg), cols, conv = _mamba_layout(cfg, lc)
+    nh, p, n = g * hg, s.head_dim, s.d_state
+    di, gn = nh * p, g * n
+    order = [cols[k] for k in ("z", "x", "b", "c", "dt")]
+    if lc.size > 1 and d <= b * seq:
+        # the weight is the smaller operand: gathered whole, this
+        # device's columns taken from it
+        w_in = lc.gather(params["in_proj"], 1)
+        proj = xn @ _cols(w_in, order).to(xn.dtype)
+        full = None
+    else:
+        # the product is the smaller (or one device): gathered whole
+        full = lc.gather(xn @ params["in_proj"].to(xn.dtype), -1)
+        proj = _cols(full, order)
+    z, xbc, dt = torch.split(proj, [di, di + 2 * gn, nh], dim=-1)
+    conv_order = [conv[k] for k in ("x", "b", "c")]
+    xbc, conv_tail = _causal_conv(
+        xbc, _cols(lc.gather(params["conv_w"], 1), conv_order),
+        _cols(lc.gather(params["conv_b"], 0), conv_order))
+    if lc.size > 1:
+        # the decode window in the cache's layout (this device's share of
+        # the conv columns as stored): the last W-1 inputs of those
+        # columns, from the weight or the product gathered above
+        d_inner = s.d_inner(cfg.d_model)
+        lo, hi = lc.share(d_inner + 2 * s.n_groups * n)
+        last = slice(max(seq - (s.conv_width - 1), 0), seq)
+        conv_tail = (xn[:, last] @ w_in[:, d_inner + lo:d_inner + hi].to(
+            xn.dtype) if full is None
+            else full[:, last, d_inner + lo:d_inner + hi])
+        conv_tail = F.pad(conv_tail, (0, 0, s.conv_width - 1
+                                      - conv_tail.shape[1], 0))
     if front:
         xbc = xbc.clone()
         xbc[:, :front] = 0
     xs, b_in, c_in = torch.split(xbc, [di, gn, gn], dim=-1)
-    p, n, g = s.head_dim, s.d_state, s.n_groups
-    hg = nh // g
     cl = min(s.chunk, seq)
     nc = seq // cl
     dt, a = _mamba_gates(params, dt)                        # (B, S, nh)
@@ -676,44 +780,100 @@ def mamba_apply(params, x, cfg: ModelConfig):
     to_end = torch.exp(cum[:, :, -1:] - cum) * dtc          # (B,c,j,g,h)
     chunk_state = torch.einsum("bcjgn,bcjghp->bcghnp", bc,
                                xc * to_end[..., None])
-    # the carry: the state entering each chunk
-    chunk_decay = torch.exp(cum[:, :, -1])                  # (B,c,g,h)
-    state = xc.new_zeros((b, g, hg, n, p))
-    entering = []
-    for c in range(nc):
-        entering.append(state)
-        state = state * chunk_decay[:, c, ..., None, None] + chunk_state[:, c]
-    entering = torch.stack(entering, dim=1)                 # (B,c,g,h,N,P)
+    # the carry: the state leaving chunk c is s_c = s_{c-1} a_c + u_c
+    # (a_c the chunk's decay, u_c its own contribution), a prefix scan of
+    # the pairs (a, u) in log2(chunks) steps: each step folds in the
+    # pair ``k`` chunks back
+    a_c = torch.exp(cum[:, :, -1])[..., None, None]         # (B,c,g,h,1,1)
+    u_c = chunk_state
+    k = 1
+    while k < nc:
+        u_c = torch.cat([u_c[:, :k], u_c[:, k:] + a_c[:, k:] * u_c[:, :-k]],
+                        dim=1)
+        a_c = torch.cat([a_c[:, :k], a_c[:, k:] * a_c[:, :-k]], dim=1)
+        k *= 2
+    state = u_c[:, -1]
+    entering = torch.cat([torch.zeros_like(u_c[:, :1]), u_c[:, :-1]],
+                         dim=1)                             # (B,c,g,h,N,P)
     y = y + torch.einsum("bcign,bcghnp->bcighp", cc, entering) \
         * torch.exp(cum)[..., None]
     out = _mamba_out(params, y.reshape(b, seq, nh, p),
-                     xs.reshape(b, seq, nh, p), z, cfg, x.dtype)
+                     xs.reshape(b, seq, nh, p), z, cfg, x.dtype, lc)
     return out[:, front:], {"state": state.reshape(b, nh, n, p),
                             "conv": conv_tail}
 
 
-def mamba_decode(params, x, cache, cfg: ModelConfig):
-    """Single-token recurrent step. x: (B, 1, d); cache: {"state": float32
-    (B, heads, N, P), "conv": (B, W-1, conv_dim)}, both written in place."""
+def mamba_apply(params, x, cfg: ModelConfig):
+    """Chunked SSD forward (prefill). x: (B, S, d) -> (out, {"state":
+    float32 (B, heads, N, P), "conv": (B, W-1, conv_dim)}).
+
+    The sequence is padded at the front to whole chunks, as in the
+    reference (a zero state stays zero through the pad, unlike a tail pad
+    that would corrupt the carried-out state), and the pad's conv outputs
+    are zeroed so it adds nothing even with a non-zero conv bias.  B and C
+    stay in their group form (no (B, S, heads, N) broadcast): heads are
+    indexed (group, head in group).  Every chunk's intra-chunk term and its
+    contribution to the state come from one batched pass; the state is
+    carried across the chunks by a prefix scan; the carried-in state's
+    term is again batched.  All three are float32; the projections run in
+    the config dtype.
+
+    With DTensors each device runs the layer on its own heads
+    (``shard.model_parallel``, :data:`MAMBA_DIMS`): the input
+    projection's columns of those heads (z, x and dt) and its group's B
+    and C, whole, from the projection gathered over ``model``, or from
+    the weight so gathered where that is the smaller; the conv on the
+    same columns; the scan along the whole sequence; the output norm's
+    sum of squares and the output projection summed over ``model``.  The
+    state cache comes back split by heads, the conv window split by its
+    columns as stored."""
+    return shard.model_parallel(
+        lambda p, xl, lc: _mamba_scan(p, xl, cfg, lc), params, x,
+        MAMBA_DIMS, out_dims={"state": 1, "conv": 2})
+
+
+def _mamba_step(params, x, cfg: ModelConfig, lc: shard.Local, state_c,
+                conv_c):
+    """:func:`mamba_decode` on one device's heads, its shards of the
+    caches written in place: the projection gathered whole over
+    ``model``, the conv on this device's share of its columns as stored
+    (the cache window's own), its output gathered whole."""
     s = cfg.ssm
     b = x.shape[0]
     xn = rmsnorm(x, params["norm"], cfg.norm_eps)
-    z, xbc, dt, di, gn, nh = _mamba_split(params, xn, cfg)
-    xbc, conv_tail = _causal_conv(xbc, params["conv_w"], params["conv_b"],
-                                  prev=cache["conv"])
-    xs, b_in, c_in = torch.split(xbc, [di, gn, gn], dim=-1)
-    p, n, g = s.head_dim, s.d_state, s.n_groups
-    hg = nh // g
-    dt, a = _mamba_gates(params, dt[:, 0])                  # (B, nh)
+    (g, hg), cols, conv = _mamba_layout(cfg, lc)
+    nh, p, n = g * hg, s.head_dim, s.d_state
+    full = lc.gather(xn @ params["in_proj"].to(xn.dtype), -1)
+    d_inner = s.d_inner(cfg.d_model)
+    lo, hi = lc.share(d_inner + 2 * s.n_groups * n)
+    act, conv_tail = _causal_conv(
+        _cols(full, [(d_inner + lo, d_inner + hi)]), params["conv_w"],
+        params["conv_b"], prev=conv_c)
+    conv_c.copy_(conv_tail)
+    act = _cols(lc.gather(act, -1), [conv[k] for k in ("x", "b", "c")])
+    xs, b_in, c_in = torch.split(act, [nh * p, g * n, g * n], dim=-1)
+    z = _cols(full, [cols["z"]])
+    dt, a = _mamba_gates(params, _cols(full, [cols["dt"]])[:, 0])
     xh = xs.reshape(b, g, hg, p).to(F32)
     bg = b_in.reshape(b, g, n).to(F32)
     cg = c_in.reshape(b, g, n).to(F32)
-    state = cache["state"].view(b, g, hg, n, p)
+    state = state_c.view(b, g, hg, n, p)
     new = state * torch.exp(dt * a).view(b, g, hg, 1, 1) + torch.einsum(
         "bgn,bghp->bghnp", bg, xh * dt.view(b, g, hg, 1))
     y = torch.einsum("bgn,bghnp->bghp", cg, new)
     state.copy_(new)
-    cache["conv"].copy_(conv_tail)
-    out = _mamba_out(params, y.reshape(b, 1, nh, p),
-                     xs.reshape(b, 1, nh, p), z, cfg, x.dtype)
+    return _mamba_out(params, y.reshape(b, 1, nh, p),
+                      xs.reshape(b, 1, nh, p), z, cfg, x.dtype, lc)
+
+
+def mamba_decode(params, x, cache, cfg: ModelConfig):
+    """Single-token recurrent step. x: (B, 1, d); cache: {"state": float32
+    (B, heads, N, P), "conv": (B, W-1, conv_dim)}, both written in place
+    (with DTensors each device's shards, on the device that holds them:
+    the state by heads, the conv window by its columns as stored)."""
+    state, conv = shard.local_of(cache["state"]), shard.local_of(
+        cache["conv"])
+    out = shard.model_parallel(
+        lambda p, xl, lc: _mamba_step(p, xl, cfg, lc, state, conv), params,
+        x, MAMBA_DIMS)
     return out, {"state": cache["state"], "conv": cache["conv"]}

@@ -200,17 +200,28 @@ class LM:
         return self.encode(params, aux) if cfg.n_encoder_layers else aux
 
     # ------------------------------------------------------------- forward
-    def _mlp(self, i: int, p, x):
+    def _mlp(self, i: int, p, x, with_aux: bool = False):
         """Layer ``i``'s MLP or MoE residual step (none in a Mamba2
-        block)."""
-        if self.cfg.is_moe_layer(i):
-            if self.moe_exec is not None:
-                return shard.residual(x, L.moe_apply_shardmap(
-                    p["mlp"], x, self.cfg, **self.moe_exec))
-            return shard.residual(x, L.moe_apply(p["mlp"], x, self.cfg))
-        if "mlp" in p:
-            return shard.residual(x, L.mlp_apply(p["mlp"], x, self.cfg))
-        return x
+        block) and, with ``with_aux``, its MoE auxiliary loss (else, and
+        for a layer without MoE, None): the expert-parallel MoE forms it
+        from its own routing, the one-device MoE routes once more for
+        it."""
+        cfg = self.cfg
+        aux = None
+        if cfg.is_moe_layer(i):
+            if self.moe_exec is None:
+                if with_aux:
+                    aux = L.moe_aux_loss(p["mlp"], x, cfg)
+                y = L.moe_apply(p["mlp"], x, cfg)
+            elif with_aux:
+                y, aux = L.moe_apply_shardmap(p["mlp"], x, cfg, with_aux=True,
+                                              **self.moe_exec)
+            else:
+                y = L.moe_apply_shardmap(p["mlp"], x, cfg, **self.moe_exec)
+            x = shard.residual(x, y)
+        elif "mlp" in p:
+            x = shard.residual(x, L.mlp_apply(p["mlp"], x, cfg))
+        return x, aux
 
     def _layer(self, i: int, p, x, memory):
         """Layer ``i``'s mixer (and cross-attention) residual steps: the
@@ -233,7 +244,7 @@ class LM:
                 cache[f"{sub}_x"] = {"k": kv[0], "v": kv[1]}
         elif kind == "mamba":
             a, cache[sub] = L.mamba_apply(p["mixer"], x, cfg)
-            x = x + a
+            x = shard.residual(x, a)
         else:
             kv = L.xattn_kv(p["mixer"], memory, cfg)
             x = shard.residual(x, L.xattn_apply(p["mixer"], x, kv, cfg))
@@ -246,10 +257,8 @@ class LM:
         places ``x`` on the way in and out."""
         saved, interior = self.boundary_sp or (None, None)
         x, cache = self._layer(i, p, shard.constrain(x, interior), memory)
-        aux = (L.moe_aux_loss(p["mlp"], x, self.cfg)
-               if self.cfg.is_moe_layer(i) else None)
-        x = shard.constrain(self._mlp(i, p, x), saved)
-        return x, cache, aux
+        x, aux = self._mlp(i, p, x, with_aux=True)
+        return shard.constrain(x, saved), cache, aux
 
     def _train_block(self, i: int, p, x, memory):
         x, _, aux = self._block(i, p, x, memory)
@@ -415,12 +424,12 @@ class LM:
                         p["xattn"], x, (xc["k"][r], xc["v"][r]), cfg))
             elif kind == "mamba":
                 a, _ = L.mamba_decode(p["mixer"], x, layer_cache, cfg)
-                x = x + a
+                x = shard.residual(x, a)
             else:
                 x = shard.residual(x, L.xattn_apply(
                     p["mixer"], x, (layer_cache["k"], layer_cache["v"]),
                     cfg))
-            x = self._mlp(i, p, x)
+            x, _ = self._mlp(i, p, x)
         logits = self._logits(params, x[:, 0])
         out = {name: sub for name, sub in caches.items() if name != "pos"}
         out["pos"] = pos + 1

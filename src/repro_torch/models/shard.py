@@ -20,13 +20,16 @@ tensors, so the one-card path does not change.
 * :func:`local_attention` — attention on each device's (batch shard, head
   shard), on the DTensors' local tensors, so the flash op sees what one
   card would; each q head reads its own kv head.
-* :func:`broadcast_heads` — MLA's one RoPE key expanded to each
-  device's own heads; :func:`gathered` — its latent projections whole
-  on every device; :func:`onto_heads` — its decode's latent output
-  reduced onto the heads.
-* :func:`expert_parallel` — the MoE's ``shard_map``: each device routes
-  its own tokens to its own experts, and one all-reduce over the
-  ``model`` axis sums the partial outputs.
+* :func:`gathered` — MLA's latent projections whole on every device;
+  :func:`onto_heads` — its decode's latent output reduced onto the
+  heads.
+* :func:`model_parallel` — a ``shard_map``: a body runs on each device's
+  tokens and its shard of the ``model`` axis (the MoE's experts, MLA's
+  and Mamba2's heads), issuing its own collectives (:class:`Local`), and
+  one all-reduce over ``model`` sums the partial outputs; every
+  gradient's placement is set by hand, none is left to DTensor.
+  :func:`whole` places a body's result that every device holds alike,
+  :func:`local_of` hands it a cache's shard to write.
 * :func:`write_slot` — a decode step's cache write into the device's own
   sequence shard.
 * :func:`logz_and_gold` — the loss's logsumexp and gold logit over
@@ -51,6 +54,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch import tree as T
@@ -255,24 +259,6 @@ def _local(t, grad=None):
     return t
 
 
-def broadcast_heads(t, like):
-    """``t`` ``(B, S, 1, D)`` (MLA's one RoPE key) expanded to the heads
-    of ``like`` ``(B, S, H, ...)``; for DTensors to the heads ``like``
-    holds on each device, with no collective (its gradient, the sum over
-    those heads, is partial over the devices that split them)."""
-    b, s, h = like.shape[:3]
-    if not isinstance(like, DTensor):
-        return t.expand(b, s, h, t.shape[-1])
-    heads = _dims_on(like, 2)
-    rep = _with(like, heads, Replicate())
-    t = t.redistribute(t.device_mesh, rep)
-    local = _local(t, tuple(Partial() if i in heads else p
-                            for i, p in enumerate(rep)))
-    _, hl = _local_range(like, 2)
-    return _from_local(local.expand(*local.shape[:2], hl, local.shape[3]),
-                       like, (b, s, h, t.shape[-1]), like.placements)
-
-
 def local_attention(attend, q, k, v, **kw):
     """``attend(q, k, v, **kw)`` (``(B, S, H, D)`` layout, GQA); for
     DTensors on each device's shards: q's batch and heads as they are
@@ -317,24 +303,119 @@ def local_attention(attend, q, k, v, **kw):
     return _from_local(o, q, (*q.shape[:3], v.shape[3]), q.placements)
 
 
-def expert_parallel(body, params, x, dims, *, dp_axes=None):
-    """``body(params, x, rank)`` run as a ``shard_map`` runs it: on each
-    device's token shard and expert shard, its partial outputs summed over
-    ``model`` by one all-reduce.  ``dims`` has ``params``' structure and
-    names each leaf's dimension sharded over ``model`` (None: the leaf
-    is whole on every device); ``rank`` is the device's index along
-    ``model``.  ``x`` is placed with its batch over ``dp_axes`` (None:
-    replicated) and whole over every other axis (a sequence sharded by
-    boundary-SP is gathered first); every leaf is whole but for its
-    ``dims`` shard (under FSDP its data shards are gathered, once a
-    layer).  For plain tensors ``body(params, x, 0)``."""
+# torch 2.13 names them ``*_single``; earlier ones ``*_tensor``
+_GATHER = getattr(funcol, "all_gather_single", funcol.all_gather_tensor)
+_SCATTER = getattr(funcol, "reduce_scatter_single",
+                   funcol.reduce_scatter_tensor)
+
+
+class _AllReduce(torch.autograd.Function):
+    """A local tensor summed over one mesh dimension; its gradient summed
+    too (``partial``: each device's gradient is its part of the whole) or
+    passed through (every device reads the same sum, and its gradient is
+    whole on each)."""
+
+    @staticmethod
+    def forward(ctx, t, group, partial: bool):
+        ctx.group, ctx.partial = group, partial
+        return funcol.wait_tensor(funcol.all_reduce(t, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            g = funcol.wait_tensor(funcol.all_reduce(g.contiguous(), "sum",
+                                                     ctx.group))
+        return g, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """Each device's equal share of dimension ``dim`` gathered whole over
+    one mesh dimension; its gradient, each device's part of the whole,
+    reduce-scattered back onto the shares."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim: int):
+        ctx.group, ctx.dim = group, dim
+        return funcol.wait_tensor(_GATHER(t.contiguous(), dim, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return funcol.wait_tensor(_SCATTER(g.contiguous(), "sum", ctx.dim,
+                                           ctx.group)), None, None
+
+
+class Local:
+    """What a body run on each device's shards (:func:`model_parallel`)
+    knows of the mesh: its ``rank`` along the ``model`` axis of ``size``
+    devices, its share of a dimension split over that axis, and the
+    collectives it issues itself, so that no DTensor chooses them: a sum
+    over ``model`` (:meth:`psum`), a gather over it (:meth:`gather`) and a
+    sum over the batch's axes (:meth:`batch_sum`).  ``Local()`` is one
+    device, where each is the identity."""
+
+    def __init__(self, mesh=None, ep: int = 0, dp=()):
+        self.mesh, self.ep, self.dp = mesh, ep, tuple(dp)
+        self.size = 1 if mesh is None else mesh.size(ep)
+        self.rank = 0 if mesh is None else mesh.get_coordinate()[ep]
+
+    def share(self, n: int) -> tuple[int, int]:
+        """``[lo, hi)``: this device's equal share of ``n`` along
+        ``model``."""
+        if n % self.size:
+            raise ValueError(f"{n} does not split over the {self.size}-way "
+                             "model axis")
+        c = n // self.size
+        return self.rank * c, (self.rank + 1) * c
+
+    def psum(self, t):
+        """``t`` summed over ``model``, each device's gradient a part."""
+        if self.size == 1:
+            return t
+        return _AllReduce.apply(t, (self.mesh, self.ep), True)
+
+    def batch_sum(self, t):
+        """``t`` summed over the batch's shards; every device reads the
+        sum alike, so its gradient passes through."""
+        for i in self.dp:
+            t = _AllReduce.apply(t, (self.mesh, i), False)
+        return t
+
+    def gather(self, t, dim: int):
+        """This device's share of ``t``'s dimension ``dim`` gathered whole
+        over ``model``."""
+        if self.size == 1:
+            return t
+        return _AllGather.apply(t, (self.mesh, self.ep), dim % t.dim())
+
+
+def model_parallel(body, params, x, dims, *, dp_axes="x", out_dims=None):
+    """``body(params, x, local)`` run as a ``shard_map`` runs it: on each
+    device's token shard and its shard of the ``model`` axis, the partial
+    outputs summed over ``model`` by one all-reduce.  ``dims`` has
+    ``params``' structure and names each leaf's dimension split over
+    ``model`` (None: whole on every device; under FSDP its data shards
+    are gathered, once a layer); ``local`` is the body's :class:`Local`.
+    ``x`` is placed with its batch over ``dp_axes`` (``"x"``: the axes
+    that shard ``x``'s batch; None: replicated) and whole over every
+    other axis.  Every gradient comes back placed by hand: a leaf's and
+    ``x``'s partial over the batch's axes and over ``model`` where they
+    are whole there.  With ``out_dims`` the body returns ``(y, extras)``,
+    a tree of local tensors (a decode cache) whose batch is ``x``'s and
+    whose dimension named in ``out_dims`` (None: none) is split over
+    ``model``; they come back as DTensors so placed.  For plain tensors
+    ``body(params, x, Local())``."""
     if not isinstance(x, DTensor):
-        return body(params, x, 0)
+        return body(params, x, Local())
     mesh = x.device_mesh
     names = mesh.mesh_dim_names
     ep = names.index("model")
-    dp = {names.index(a) for a in ((dp_axes,) if isinstance(dp_axes, str)
-                                   else dp_axes or ())}
+    if dp_axes == "x":
+        dp = {i for i, p in enumerate(x.placements)
+              if isinstance(p, Shard) and p.dim == 0}
+    else:
+        dp = {names.index(a) for a in ((dp_axes,) if isinstance(dp_axes, str)
+                                       else dp_axes or ())}
+    dp -= {ep}
     x_pl = tuple(Shard(0) if i in dp else Replicate()
                  for i in range(mesh.ndim))
 
@@ -357,10 +438,38 @@ def expert_parallel(body, params, x, dims, *, dp_axes=None):
     local_params = T.tree_map(leaf, params, dims)
     x_l = _local(x.redistribute(mesh, x_pl), tuple(
         Partial() if i == ep else p for i, p in enumerate(x_pl)))
-    y = body(local_params, x_l, mesh.get_coordinate()[ep])
+    out = body(local_params, x_l, Local(
+        mesh, ep, sorted(i for i in dp if mesh.size(i) > 1)))
+    y, extras = out if out_dims is not None else (out, None)
     y = _from_local(y, x, x.shape, tuple(Partial() if i == ep else p
                                          for i, p in enumerate(x_pl)))
-    return y.redistribute(mesh, x_pl)
+    y = y.redistribute(mesh, x_pl)
+    if out_dims is None:
+        return y
+
+    def place(t, dim):
+        shape = [x.shape[0], *t.shape[1:]]
+        if dim is not None:
+            shape[dim] *= mesh.size(ep)
+        return _from_local(t, x, shape, tuple(
+            Shard(dim) if i == ep and dim is not None else p
+            for i, p in enumerate(x_pl)))
+    return y, T.tree_map(place, extras, out_dims)
+
+
+def whole(t, like):
+    """``t``, the same on every device, as a DTensor replicated on
+    ``like``'s mesh (``like`` plain: ``t`` as it is)."""
+    if not isinstance(like, DTensor):
+        return t
+    return _from_local(t, like, t.shape,
+                       (Replicate(),) * like.device_mesh.ndim)
+
+
+def local_of(t):
+    """A DTensor's shard on this device (a plain tensor as it is): the
+    tensor a body of :func:`model_parallel` writes a cache into."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def write_slot(buf, pos: int, val) -> None:

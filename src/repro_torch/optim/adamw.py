@@ -59,7 +59,10 @@ def is_moment_pair(x) -> bool:
 # int8 moment quantization
 # ---------------------------------------------------------------------------
 def _quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    absmax = x.abs().amax(dim=-1, keepdim=True)
+    # a row split over devices: its maxima reduced by hand (DTensor's own
+    # choice, an all-reduce or a reduce-scatter and a gather, changes with
+    # torch's version)
+    absmax = shard.all_reduced(x.abs().amax(dim=-1, keepdim=True))
     scale = torch.clamp(absmax / 127.0, min=1e-12)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale.to(F32)

@@ -1,2 +1,2 @@
 """Fault tolerance of the train path: injected faults, stragglers and a
-step timer."""
+step timer; elastic rescaling onto another mesh."""

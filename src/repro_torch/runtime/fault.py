@@ -11,8 +11,7 @@ a normal event:
 (once each); :class:`StragglerMonitor` flags steps slower than a multiple
 of the running median; :class:`StepTimer` times a step on the host clock,
 synchronising the device first so that the reading covers the device's
-work.  The reference's ``runtime/elastic.py`` (resharding onto another
-mesh) waits for multi-GPU sharding (ROADMAP queue 1 item 5).
+work.  Resharding onto another mesh is ``runtime.elastic``.
 """
 from __future__ import annotations
 

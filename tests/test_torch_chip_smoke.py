@@ -678,14 +678,14 @@ def test_dryrun_cli_check_fails_on_a_failed_cell(smoke, monkeypatch, capsys):
 
 
 def test_dryrun_cli_wants_every_cell_but_the_mamba2_ones(smoke, monkeypatch):
-    """On the pod mesh the CLI must print 24 ``[ok]`` and 8
-    ``[not-ported]`` (mamba2-780m and jamba): the dense decoders' 12
-    alone fail the check."""
+    """On the pod mesh the CLI must print 32 ``[ok]`` and no
+    ``[not-ported]``: since the Mamba2 and jamba cells are ported, the 24
+    other cells with those 8 ``[not-ported]`` fail the check."""
     import subprocess
-    lines = ["[ok]   a"] * 12 + ["[not-ported] b"] * 20
+    lines = ["[ok]   a"] * 24 + ["[not-ported] b"] * 8
     monkeypatch.setattr(smoke.subprocess, "run",
                         lambda *a, **k: subprocess.CompletedProcess(
                             a, 0, stdout="\n".join(lines), stderr=""))
     with pytest.raises(smoke.CheckFailed,
-                       match=r"'\[ok\]': 24, '\[not-ported\]': 8"):
+                       match=r"'\[ok\]': 32, '\[not-ported\]': 0"):
         smoke.dryrun_cli("cpu", "pod")

@@ -7,7 +7,8 @@ reference's: qwen2.5-3b ``train_4k`` at smoke widths, batch 8, on a
 invariants, on a (2, 2) mesh, whose collectives are counted from its
 plan, and on a 1 x 1 mesh, where the counted operations equal
 ``chip_smoke.train_work``'s closed form; the prefill and decode cells
-(bf16 and int8 caches); the CLI and the three hills; and, over four
+(bf16 and int8 caches); a Mamba2 cell's build; the CLI (mamba2-780m's
+cells at full width) and the three hills; and, over four
 ``gloo`` processes with real values, the sharded step against the
 one-process step.  In process:
 ``OpAnalysis``'s rules on plain fake tensors, and the flash wrappers'
@@ -38,6 +39,13 @@ SCRIPT = textwrap.dedent("""\
     for shape in ("train_4k", "prefill_32k", "decode_32k"):
         out[shape] = steps.dryrun_cell("qwen2.5-3b", shape, mesh,
                                        multi_pod=False, **kw)
+    cell = steps.build_cell("mamba2-780m", "train_4k", mesh,
+                            multi_pod=False, **kw)
+    w = cell.example_args[0]["layers"][0]["mixer"]["in_proj"]
+    out["mamba2_cell"] = {
+        "kind": cell.kind, "boundary_sp": cell.lm.boundary_sp,
+        "moe_exec": cell.lm.moe_exec, "in_proj": list(w.shape),
+        "in_proj_placements": [repr(p) for p in w.placements]}
     out["decode_int8"] = steps.dryrun_cell(
         "granite-8b", "decode_32k", mesh, multi_pod=False,
         kv_cache_dtype="int8", **kw)
@@ -69,8 +77,12 @@ def cells():
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
+def _artifacts(cells):
+    return {k: v for k, v in cells.items() if k != "mamba2_cell"}
+
+
 def test_artifact_invariants(cells):
-    for name, res in cells.items():
+    for name, res in _artifacts(cells).items():
         assert res["flops_per_device"] > 0, name
         assert res["traffic_bytes_per_device"] > 0, name
         assert res["memory"]["peak_bytes_est"] > 0, name
@@ -84,7 +96,7 @@ def test_artifact_invariants(cells):
 
 
 def test_sharded_cells_have_collectives(cells):
-    for name, res in cells.items():
+    for name, res in _artifacts(cells).items():
         if name.endswith("__1x1"):
             assert res["collective_total_bytes_per_device"] == 0
             continue
@@ -167,7 +179,7 @@ def test_one_device_counts_train_work(cells, monkeypatch):
 
 def test_roofline_terms_computable(cells):
     from repro_torch.launch import roofline
-    for res in cells.values():
+    for res in _artifacts(cells).values():
         r = roofline.from_artifact(res)
         assert r.bound_s > 0 and r.dominant in ("compute", "memory",
                                                 "collective")
@@ -185,14 +197,20 @@ def test_the_int8_cache_holds_fewer_bytes(cells):
         == slots * (2 * cfg.d_head - (cfg.d_head + 4))
 
 
-def test_cli_marks_cells_not_ported(tmp_path):
+def test_cli_runs_the_mamba2_cells(tmp_path):
+    """mamba2-780m's 8 cells at full width (``long_500k`` at batch 1) on
+    both production meshes: 8 ``[ok]``, none ``[not-ported]`` or
+    ``[FAIL]``, an artifact each."""
     proc = _run(["-m", "repro_torch.launch.dryrun", "--arch", "mamba2-780m",
                  "--mesh", "both", "--out", str(tmp_path)])
     assert proc.returncode == 0, proc.stderr[-2000:]
     lines = proc.stdout.splitlines()
-    assert sum(x.startswith("[not-ported]") for x in lines) == 8
-    assert "ROADMAP queue 1 item 4" in proc.stdout
-    assert not any(x.startswith(("[ok]", "[FAIL]")) for x in lines)
+    assert sum(x.startswith("[ok]") for x in lines) == 8
+    assert not any(x.startswith(("[not-ported]", "[FAIL]")) for x in lines)
+    assert len(list(tmp_path.glob("mamba2-780m__*.json"))) == 8
+    art = json.loads((tmp_path / "mamba2-780m__long_500k__16x16.json")
+                     .read_text())
+    assert art["batch"] == 1 and art["n_devices"] == 256
 
 
 def test_cli_runs_a_dense_cell_at_full_width(tmp_path):
@@ -238,10 +256,16 @@ def test_the_sharded_step_computes_the_one_device_step(mesh, heads):
     assert res["logit_err"] < 1e-5 and res["cache_err"] < 1e-5
 
 
-def test_other_architectures_are_not_ported():
-    from repro_torch.launch import steps
-    with pytest.raises(NotImplementedError, match="queue 1 item 4c"):
-        steps.build_cell("mamba2-780m", "train_4k", None, multi_pod=False)
+def test_build_cell_builds_a_mamba2_cell(cells):
+    """A Mamba2 stack's train cell on (4, 4): no boundary-SP (the
+    reference keeps it off for any stack with a Mamba2 layer), no MoE,
+    and the input projection's fused columns split contiguously over
+    ``model`` as stored."""
+    cell = cells["mamba2_cell"]
+    assert cell["kind"] == "train"
+    assert cell["boundary_sp"] is None and cell["moe_exec"] is None
+    assert cell["in_proj"] == [64, 296]
+    assert cell["in_proj_placements"] == ["Replicate()", "Shard(dim=1)"]
 
 
 def test_a_mesh_of_real_cards_is_item_5():

@@ -1,7 +1,8 @@
 """The port's dry run beyond the dense decoders' (4, 4) cells: the dense
 cells on meshes with an axis of one device (F9), the MLA, MoE,
-cross-attention and encoder cells, a multi-pod MoE train cell and the
-expert-parallel MoE's collectives, counted from its plan.
+cross-attention and encoder cells, a multi-pod MoE train cell, and the
+expert-parallel MoE's prefill and the MoE and MLA train cells'
+collectives (F10), counted from their plans.
 
 Traced in a subprocess at smoke widths, batch 8, as
 ``test_torch_dryrun.py`` traces (the fake process group is process
@@ -44,6 +45,30 @@ SCRIPT = textwrap.dedent("""\
     mesh = make_local_mesh(data=2, model=2, fake=True)
     out["qwen3-moe-30b-a3b__prefill_32k__2x2"] = steps.dryrun_cell(
         "qwen3-moe-30b-a3b", "prefill_32k", mesh, multi_pod=False, **kw)
+    for arch in ("qwen3-moe-30b-a3b", "deepseek-v2-lite-16b"):
+        out[f"{arch}__train_4k__2x2"] = steps.dryrun_cell(
+            arch, "train_4k", mesh, multi_pod=False, **kw)
+
+    # one AdamW update with int8 moments (jamba's plan) of a weight whose
+    # rows are split over data and columns over model
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch.op_analysis import OpAnalysis
+    from repro_torch.models.meta import ParamMeta, ShardingRules, specs_for
+    from repro_torch.optim import adamw
+    rules = ShardingRules({"embed": "data", "ffn": "model"})
+    pmeta = {"w": ParamMeta((64, 32), ("embed", "ffn"))}
+    ocfg = adamw.AdamWConfig(quantize_moments=True)
+    ometa = adamw.state_meta(pmeta, ocfg)
+    a = OpAnalysis()
+    with FakeTensorMode():
+        place = lambda m: steps._fake_dtensors(m, steps.shard_tree(
+            mesh, specs_for(m, rules, mesh)), mesh)
+        params, grads, state = place(pmeta), place(pmeta), place(ometa)
+        with implicit_replication(), a:
+            adamw.update(grads, state, params, ocfg)
+    out["int8_update__2x2"] = a.report().collective_bytes
     mesh = make_local_mesh(data=2, model=4, pod=2, fake=True)
     out["qwen3-moe-30b-a3b__train_4k__2x2x4"] = steps.dryrun_cell(
         "qwen3-moe-30b-a3b", "train_4k", mesh, multi_pod=True, **kw)
@@ -137,6 +162,79 @@ def test_the_moe_collectives_are_the_plans(cells):
     assert res["collective_bytes_per_device"] == {
         "all-reduce": (1 + 2 * cfg.n_layers) * act + cfg.n_layers * aux,
         "all-gather": 2 * kv}
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                  "deepseek-v2-lite-16b"])
+def test_the_moe_and_mla_train_collectives_are_the_plans(cells, arch):
+    """F10: the MoE (qwen3-moe) and MLA-with-MoE (deepseek) smoke
+    ``train_4k`` cells on (2, 2), no FSDP, one microbatch, against a
+    count from their plan, as ``test_torch_dryrun.py``'s dense train
+    cell is counted.  Each collective is placed by the port, none left
+    to DTensor (whose choices differ between torch 2.11 and 2.13): MLA
+    and the MoE run on each device's heads and experts
+    (``shard.model_parallel``), the MoE's auxiliary loss from its own
+    routing.  All of them are all-reduces:
+
+    * a bf16 (rows, d) activation at the vocab-sharded lookup and its
+      gradient, at each layer's two outputs (the attention's and the
+      MoE's) and its recomputed attention output, and at each layer's
+      two input gradients (each reduced once, where the attention and
+      the MoE take their input);
+    * each gradient's shard once over data, and a leaf whole over model
+      (the router, the norms, MLA's latent projections) once more over
+      model; the embedding table's gradient, which the lookup's backward
+      leaves whole over model, whole over data;
+    * the loss's row max, sum of exponentials and gold logit, a float32
+      a row each; the global norm's two float32 scalars;
+    * the auxiliary loss's expert counts and mean probabilities, a
+      float32 an expert each over data, in each MoE layer's forward and
+      again in its recomputation."""
+    import math
+
+    from repro_torch import tree as T
+    from repro_torch.configs import registry
+    from repro_torch.models.lm import LM
+    from repro_torch.models.meta import Spec, is_meta, specs_for
+    from repro_torch.sharding import rules as R
+
+    class Mesh:
+        mesh_dim_names, shape = ("data", "model"), (2, 2)
+    cfg = registry.get_config(arch, smoke=True)
+    res = cells[f"{arch}__train_4k__2x2"]
+    assert (res["fsdp"], res["zero1"], res["microbatches"]) \
+        == (False, False, 1)
+    rules = R.plan_for(cfg, "train", 8, Mesh, False, seq_len=4096).rules
+    rows = 8 // 2 * 4096                  # a device's (batch x sequence)
+    act, row = rows * cfg.d_model * 2, rows * 4
+    meta = LM(cfg).param_meta()
+    grads = norms = 0
+    for (path, m), spec in zip(
+            T.leaves_with_paths(meta, is_leaf=is_meta),
+            T.leaves(specs_for(meta, rules, Mesh),
+                     is_leaf=lambda x: isinstance(x, Spec))):
+        n = 2 * math.prod(m.shape)
+        if path == "['embed']":
+            grads += n
+        elif "model" in tuple(spec):
+            grads += n // 2
+        else:
+            grads, norms = grads + n, norms + n
+    layers = cfg.n_layers
+    aux = 4 * cfg.moe.n_experts * 4 * layers
+    assert res["collective_bytes_per_device"] == {
+        "all-reduce": (2 + 5 * layers) * act + grads + norms + 3 * row + 8
+        + aux}
+
+
+def test_the_int8_moments_reduce_their_row_maxima_once(cells):
+    """An AdamW step with int8 moments (jamba's plan) of a (64, 32)
+    weight split over data by rows and over model by columns: each
+    moment's row maxima (32 rows a device, float32) all-reduced once
+    over model, by hand, and the global norm's float32 scalar over data
+    and over model; no reduce-scatter and no gather (torch 2.13's
+    DTensor chose those where 2.11's all-reduced)."""
+    assert cells["int8_update__2x2"] == {"all-reduce": 2 * 32 * 4 + 2 * 4}
 
 
 @pytest.mark.parametrize("arch,mesh", [

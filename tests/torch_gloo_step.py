@@ -1,8 +1,11 @@
 """The dry run's sharded step with real values: several CPU processes on
 the ``gloo`` backend run the smoke LM's loss and gradients, a train step
 of two microbatches (the gradients added up partial and reduced into
-the moments' placements, the global norm, AdamW's moments) and a decode
-step, with every parameter, optimizer moment, batch and cache placed as
+the moments' placements, the global norm, AdamW's moments), a prefill
+(its last logits and every cache leaf) and a decode step (of
+``--decode-rows`` rows: one row is whole on every device and its cache's
+sequence is split over data and model), with every parameter, optimizer
+moment, batch and cache placed as
 DTensors by the dry run's rules (``specs_for``, ``placements``), through
 the sharding points of ``repro_torch.models.shard``; rank 0 holds them
 against the same step on plain tensors in one process and prints one
@@ -11,6 +14,8 @@ JSON line of the largest differences.
     PYTHONPATH=src python tests/torch_gloo_step.py --mesh 1 4 --heads 6
     PYTHONPATH=src python tests/torch_gloo_step.py --mesh 2 2 \
         --arch deepseek-v2-lite-16b
+    PYTHONPATH=src python tests/torch_gloo_step.py --mesh 2 2 \
+        --arch jamba-1.5-large-398b --decode-rows 1
 
 (float32; ``--arch`` names the smoke config, qwen2-7b by default, whose
 4 q heads ``--heads`` replaces, so 6 heads over a 4-way model axis split
@@ -55,7 +60,7 @@ def _config(arch: str, heads: int, data: int):
 
 
 def run(rank: int, world: int, mesh_shape, arch: str, heads: int,
-        store: str, out: str) -> None:
+        decode_rows: int, store: str, out: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=120))
@@ -132,28 +137,59 @@ def run(rank: int, world: int, mesh_shape, arch: str, heads: int,
         T.tree_map(torch.clone, params), adamw.init(params, ocfg),
         {k: v[grouped] for k, v in batch4.items()})
 
-    # decode: a 9-token prompt into a 16-slot cache, one step
+    # prefill: a 9-token prompt, placed as the dry run's prefill places it
+    # (the layers' insides batch-sharded and whole over model)
     tokens = batch["tokens"]
-    _, caches = lm.prefill(params, tokens[:, :9], aux=batch.get("aux"),
-                           max_len=16)
+    pre = {"tokens": tokens[:, :9], **({"aux": batch["aux"]}
+                                       if cfg.aux_seq else {})}
+    plogits, pcaches = lm.prefill(params, pre["tokens"], aux=pre.get("aux"))
+    pplan = R.plan_for(cfg, "prefill", 2, mesh, False)
+    dlm.boundary_sp = (placements(Spec(("data",), None, None), mesh),) * 2
+    with implicit_replication():
+        dplogits, dpcaches = dlm.prefill(
+            place(params, specs_for(lm.param_meta(), pplan.rules, mesh)),
+            place_batch(pre)["tokens"], aux=place_batch(pre).get("aux"))
+        prefill_err = max(
+            [float((dplogits.full_tensor() - plogits).abs().max())]
+            + [float((t.full_tensor() - pcaches[k][n]).abs().max())
+               for k, v in dpcaches.items() if k != "pos"
+               for n, t in v.items()])
+    dlm.boundary_sp = None
+
+    # decode: the prompt into a 16-slot cache, one step, for
+    # ``decode_rows`` rows (one row does not divide over data: the batch
+    # is whole on every device and the cache's sequence is split over
+    # data and model, as ``long_500k``'s)
+    rows = tokens[:decode_rows]
+    _, caches = lm.prefill(params, rows[:, :9],
+                           aux=None if not cfg.aux_seq
+                           else batch["aux"][:decode_rows], max_len=16)
     plain = {k: {n: t.clone() for n, t in v.items()}
              for k, v in caches.items() if k != "pos"}
     plain["pos"] = 9
-    logits, _ = lm.decode_step(params, plain, tokens[:, 9:10])
-    dplan = R.plan_for(cfg, "decode", 2, mesh, False)
-    cspecs = specs_for(lm.init_cache_meta(2, 16), dplan.rules, mesh)
+    logits, _ = lm.decode_step(params, plain, rows[:, 9:10])
+    dplan = R.plan_for(cfg, "decode", decode_rows, mesh, False)
+    bentry = ("data",) if decode_rows % mesh_shape[0] == 0 else None
+    dlm.moe_exec = {"dp_axes": bentry}
+    cspecs = specs_for(lm.init_cache_meta(decode_rows, 16), dplan.rules,
+                       mesh)
     dcaches = {k: place(v, cspecs[k]) for k, v in caches.items()
                if k != "pos"}
     dcaches["pos"] = 9
     with implicit_replication():
         dlogits, dnew = dlm.decode_step(
             place(params, specs_for(lm.param_meta(), dplan.rules, mesh)),
-            dcaches, place_batch({"t": tokens[:, 9:10]})["t"])
+            dcaches, distribute_tensor(rows[:, 9:10], mesh, placements(
+                Spec(bentry, None), mesh)))
         dlogits = dlogits.full_tensor()
         # every cache leaf, the written slot and the memory's K/V alike
         dcache = {(k, n): t.full_tensor() for k, v in dnew.items()
                   if k != "pos" for n, t in v.items()}
     res = {"loss": float(loss), "loss_err": abs(float(dloss) - float(loss)),
+           "prefill_err": prefill_err,
+           "kv_seq": list(dplan.rules.rules["kv_seq"]) if isinstance(
+               dplan.rules.rules["kv_seq"], list)
+           else [dplan.rules.rules["kv_seq"]],
            "grad_err": max(_relative(a, b) for a, b in
                            zip(dgrads, T.leaves(grads))),
            "norm_err": abs(dnorm / float(met["grad_norm"]) - 1),
@@ -173,12 +209,15 @@ def main() -> None:
     ap.add_argument("--mesh", type=int, nargs=2, default=(1, 4))
     ap.add_argument("--arch", default="qwen2-7b")
     ap.add_argument("--heads", type=int, default=6)
+    ap.add_argument("--decode-rows", type=int, default=2)
     args = ap.parse_args()
     world = args.mesh[0] * args.mesh[1]
     with tempfile.TemporaryDirectory() as d:
         out = os.path.join(d, "out.json")
         mp.spawn(run, args=(world, args.mesh, args.arch, args.heads,
-                            os.path.join(d, "store"), out), nprocs=world)
+                            args.decode_rows, os.path.join(d, "store"),
+                            out),
+                 nprocs=world)
         with open(out) as f:
             print(f.read())
 

@@ -61,6 +61,18 @@ itself).  Phases, each printing its numbers:
    every campaign probe on every module (a 10,000 x 348 current matrix),
    through ``'cuda'`` against ``'vectorized'`` on the first chunk; the
    feature, charge and surface kernels also timed at these shapes;
+9b. ``[mesh]``: ``mesh=`` sharding of the estimation side on (1, 2),
+   (2, 1) and (2, 2) meshes of processes that share card 0 on the
+   ``gloo`` backend (the script needs only one card; NCCL refuses two
+   ranks on one device): 9's surface and probe matrix and an estimation service
+   over 3's 64 traces, all ``impl='cuda'``, each rank's result bit for bit
+   the one process's, each rank's box and launches printed, wall times
+   labelled as processes sharing one card.  The LM paths on a mesh
+   (``launch.serve`` and ``launch.train`` with ``--data``/``--model``)
+   are not run here: DTensor's collectives on gloo with CUDA tensors
+   crashed ranks with SIGSEGV (``tools/gloo_cuda_probe.py``), so they wait
+   for a machine with two cards; their gloo runs on the CPU are
+   ``tests/torch_gloo_mesh.py``;
 10. ``[validation]``: paper Section 9.1 on the port's own fit of the
    50-module fleet (``impl='cuda'``): the paper's 22 held-out modules (8
    A, 7 B, 7 C) and the 23 sweeps of ``N_READS`` scored by all three
@@ -1864,6 +1876,218 @@ def fleet_phase(card: str, device="cuda", sizes=FLEET_MODULES,
     shape_rows(f"fleet probes, {n_mod} modules", probe, stacked,
                min(64, n_mod), card, flush_buf.zero_)
     del flush_buf
+    return launched
+
+
+#: the [mesh] phase's (data, model) meshes by world size: processes
+#: sharing card 0
+MESH_WORLDS = {2: ((1, 2), (2, 1)), 4: ((2, 2),)}
+#: the kernels each [mesh] call must launch in every rank (impl='cuda')
+MESH_KERNELS = {"surface": ("batched_features", "vampire_charge_surface"),
+                "probes": ("batched_features", "vampire_charge"),
+                "service": ("batched_features", "vampire_charge")}
+#: the [mesh] phase's impls and their fleets: 'vectorized' loops over the
+#: modules in Python, so it takes the [fleet] phase's smaller fleet
+MESH_IMPLS = {"cuda": "stacked", "vectorized": "stacked_vec"}
+
+
+def mesh_calls(inp: dict, model, mesh, impl: str = "cuda"):
+    """The [mesh] phase's three calls on ``inp`` (the fleet, its surface
+    traces, the probe batch, the estimation traces), through the entry
+    points a user calls with ``impl``; ``mesh`` None: one process."""
+    from repro_torch.core import fleet
+    from repro_torch.serving import EstimationService, ServiceConfig
+    svc = EstimationService(model, ServiceConfig(lint=False, impl=impl),
+                            mesh=mesh)
+    stacked = inp[MESH_IMPLS[impl]]
+
+    def service():
+        tickets, _ = svc.submit_many(inp["trs"])
+        svc.drain()
+        return [svc.result(t) for t in tickets]
+    return {
+        "surface": lambda: fleet.fleet_surface_energy(
+            stacked, inp["trace"], inp["weight"], impl=impl, mesh=mesh),
+        "probes": lambda: fleet.run_probes(
+            stacked, (), batch=inp["probe"], noisy=False, impl=impl,
+            mesh=mesh),
+        "service": service}, svc
+
+
+def same(a, b) -> bool:
+    """Bit-equal reports, report lists or arrays."""
+    import numpy as np
+    import torch
+    if isinstance(a, np.ndarray):
+        return a.shape == b.shape and bool(np.array_equal(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and bool(torch.equal(a.cpu(), b.cpu()))
+    return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+
+
+def mesh_child(rank: int, world: int, shapes, store: str, work: str,
+               device: str = "cuda") -> None:
+    """One rank of ``[mesh]``, spawned: every rank shares card 0 on the
+    ``gloo`` backend, on a ``cuda`` mesh.  It loads the kernels phase 2
+    built, runs :func:`mesh_calls` of each impl on each of ``shapes``,
+    holds each result against the one process's, bit for bit, and writes
+    what it computed, launched and took (``impl='cuda'``) to
+    ``work/rank<r>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import fleet, model_api
+    from repro_torch.launch.mesh import make_local_mesh
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    inp = torch.load(f"{work}/inputs.pt", weights_only=False)
+    one = torch.load(f"{work}/one.pt", weights_only=False)
+    inp = {k: v if k == "trs" else v.to(device) for k, v in inp.items()}
+    model = model_api.load_estimator(str(MODEL_FILE), device=device)
+    out = {}
+    for shape in shapes:
+        mesh = make_local_mesh(*shape, device=device)
+        rec = {}
+        for impl in MESH_IMPLS:
+            calls, svc = mesh_calls(inp, model, mesh, impl)
+            for name, fn in calls.items():
+                reset_counters()
+                got = fn()
+                if cuda:
+                    torch.cuda.synchronize()
+                rec[f"{name} {impl}"] = {
+                    "equal": same(got, one[f"{name} {impl}"]),
+                    "launches": {k: c for k, c in read_counters().items()
+                                 if c},
+                    "box": list(fleet.LAST_BOX or ()) if name != "service"
+                    else list(svc.engine.last_rows)}
+                fleet.LAST_BOX = None
+        calls, svc = mesh_calls(inp, model, mesh)
+        for name, fn in calls.items():
+            times = []
+            for _ in range(3):
+                dist.barrier()
+                t0 = time.perf_counter()
+                fn()
+                if cuda:
+                    torch.cuda.synchronize()
+                dist.barrier()
+                times.append((time.perf_counter() - t0) * 1e3)
+            rec[f"{name} cuda"]["wall_ms"] = sorted(times)[1]
+        out[f"{shape[0]}x{shape[1]}"] = rec
+    with open(f"{work}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def mesh_phase(card: str, seed: int, device="cuda",
+               n_modules: int = FLEET_MODULES[-1], n_traces: int = 64,
+               n_requests: int = 6000, length: int = 16384,
+               **plan) -> dict[str, int]:
+    """Phase 9b, ``[mesh]``: the estimation side of ``mesh=`` at full
+    size, on (1, 2), (2, 1) and (2, 2) meshes of processes that share
+    card 0 (``gloo``; the script needs only one card and NCCL refuses two
+    ranks on one device).  The ``[fleet]`` phase's synthetic fleet of
+    10,000 modules: its surface over the two validation sweeps and the
+    ``[campaign]`` probe matrix (348 probes); the estimation service over
+    the ``[e2e]`` workload's 64 traces; all ``impl='cuda'``, then the same
+    through ``impl='vectorized'`` on the [fleet] phase's 1,000-module
+    fleet.  Each rank's result must equal the one process's bit for bit
+    (``'vectorized'`` at these shapes; where a card's reduce order can
+    part from it, ROADMAP M2), and under ``'cuda'`` each rank must launch
+    the feature and charge kernels on its own box.  Wall times are of
+    processes sharing one card, not of a multi-GPU mesh.  Returns the
+    launches of every rank's first ``'cuda'`` call of each."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.core import characterize, device_sim, dram, idd_loops
+    from repro_torch.core import model_api
+    n_dev = torch.cuda.device_count()
+    print(f"[mesh] device_count={n_dev}: the meshes are processes sharing "
+          f"card 0 on the gloo backend (cuda meshes), not cards",
+          flush=True)
+    _, stacked = device_sim.synth_fleet_params(n_modules, device=device)
+    _, stacked_vec = device_sim.synth_fleet_params(FLEET_MODULES[0],
+                                                   device=device)
+    trace, weight = dram.batch_traces(
+        [(idd_loops.validation_sweep(8, reps=12), 2),
+         (idd_loops.validation_sweep(16, reps=8), 2)])
+    probe = characterize.campaign_plan(**plan).batch_on("probe_batch",
+                                                        device)
+    trs, _ = build_workload(seed, n_traces, n_requests, length, "cpu")
+    inp = {"stacked": stacked, "stacked_vec": stacked_vec,
+           "trace": trace.to(device), "weight": weight.to(device),
+           "probe": probe, "trs": trs}
+    model = model_api.load_estimator(str(MODEL_FILE), device=device)
+    one = {}
+    for impl in MESH_IMPLS:
+        calls, _ = mesh_calls(inp, model, None, impl)
+        one.update({f"{name} {impl}": fn() for name, fn in calls.items()})
+    calls, _ = mesh_calls(inp, model, None)
+    one_ms = {name: wall_ms(fn, 3) for name, fn in calls.items()}
+    launched = dict.fromkeys(read_counters(), 0)
+    with tempfile.TemporaryDirectory() as work:
+        torch.save({k: v if k == "trs" else v.to("cpu")
+                    for k, v in inp.items()}, f"{work}/inputs.pt")
+        torch.save({k: v if isinstance(v, np.ndarray) else
+                    v.to("cpu") if hasattr(v, "to") else
+                    [r.to("cpu") for r in v] for k, v in one.items()},
+                   f"{work}/one.pt")
+        del one, calls
+        torch.cuda.empty_cache()
+        for world, shapes in MESH_WORLDS.items():
+            t0 = time.perf_counter()
+            mp.spawn(mesh_child, args=(world, shapes, f"{work}/store{world}",
+                                       work, device), nprocs=world)
+            spawn_s = time.perf_counter() - t0
+            ranks = []
+            for r in range(world):
+                with open(f"{work}/rank{r}.json") as f:
+                    ranks.append(json.load(f))
+            for shape in shapes:
+                tag = f"{shape[0]}x{shape[1]}"
+                for name, impl in ((n, i) for i in MESH_IMPLS
+                                   for n in MESH_KERNELS):
+                    call = f"{name} {impl}"
+                    for r, res in enumerate(ranks):
+                        got = res[tag][call]
+                        print(f"[mesh] {tag} rank {r} {call}: "
+                              f"bit_equal_to_one_process={got['equal']} "
+                              f"its box "
+                              f"{'rows' if name == 'service' else 'shape'}"
+                              f"={got['box']} launches={got['launches']}",
+                              flush=True)
+                        check(got["equal"], f"mesh {tag}: rank {r}'s "
+                                            f"{call} differs from one "
+                                            f"process's")
+                        if impl != "cuda":
+                            continue
+                        for k in MESH_KERNELS[name]:
+                            check(got["launches"].get(k, 0) > 0,
+                                  f"mesh {tag}: rank {r} launched no {k} "
+                                  f"in {name}")
+                        for k, c in got["launches"].items():
+                            launched[k] += c
+                    if impl != "cuda":
+                        continue
+                    print(f"[mesh] {tag} {name}: wall_ms="
+                          f"{ranks[0][tag][call]['wall_ms']:.3f} with "
+                          f"{world} processes sharing one card (not a "
+                          f"multi-GPU time) against one process "
+                          f"{one_ms[name]:.3f} card=\"{card}\"",
+                          flush=True)
+            print(f"[mesh] world {world}: spawn and run {spawn_s:.1f} s",
+                  flush=True)
     return launched
 
 
@@ -3823,7 +4047,8 @@ def main(argv=None) -> int:
     # cross-attention, the encoder, the hybrid)
     paths = [study_phase(args.seed, models["vampire"], card),
              hbm_phase(args.seed, models["vampire"], card),
-             campaign_phase(card), fleet_phase(card)]
+             campaign_phase(card), fleet_phase(card),
+             mesh_phase(card, args.seed)]
     t0 = time.perf_counter()
     validation, fitted = validation_phase(card)
     t1 = time.perf_counter()

@@ -31,6 +31,7 @@ from repro_torch.core.energy_model import (BG_ACTIVE, BG_PDN_ACT,
                                            extract_structural_features,
                                            masked_cycles, surface_charge,
                                            surface_cycles)
+from repro_torch.kernels.common import row_sums
 
 _T = TIMING
 
@@ -155,8 +156,8 @@ def batched_baseline_reports(kind: str, trace: CommandTrace, weight,
     ``table`` is the stacked ``(vendors, 10)`` datasheet matrix."""
     ob, pd = _bg_state(extract_structural_features(trace))
     charge = torch.stack(
-        [(_CHARGE_FNS[kind](trace, ob, pd, _row_dict(row)) * weight)
-         .sum(dim=-1) for row in table], dim=-1)             # (T, V)
+        [row_sums(_CHARGE_FNS[kind](trace, ob, pd, _row_dict(row)) * weight)
+         for row in table], dim=-1)                           # (T, V)
     cycles = masked_cycles(trace, weight)
     return _report(charge, cycles[:, None].expand(charge.shape))
 
@@ -222,10 +223,11 @@ class DatasheetModel(model_api.StackedEstimatorMixin):
     def estimate(self, traces, vendors=None, *,
                  mode: model_api.EstimateMode = "mean",
                  impl: str = "vectorized", data=None,
-                 ones_frac=None, toggle_frac=None):
+                 ones_frac=None, toggle_frac=None, config=None):
         """The unified entry point (``repro_torch.core.model_api``).
         ``impl`` is ``'vectorized'``, ``'cuda'`` (the baseline charge
-        kernel) or ``'reference'`` (the per-trace functions)."""
+        kernel, launched at ``config``) or ``'reference'`` (the per-trace
+        functions)."""
         profile = model_api.normalize_data_profile(data, ones_frac,
                                                    toggle_frac)
         model_api.validate_data_profile(mode, profile)
@@ -242,7 +244,8 @@ class DatasheetModel(model_api.StackedEstimatorMixin):
             if impl == "cuda":
                 from repro_torch.kernels.baseline_energy import ops as bops
                 charge, cycles = bops.baseline_charge_matrix(
-                    tb.trace, tb.weight, table, self.kind, surface=True)
+                    tb.trace, tb.weight, table, self.kind, surface=True,
+                    config=config)
                 return _report(charge, cycles[:, None].expand(charge.shape))
             return self._reference_surface(traces, tb, idx)
         if impl == "vectorized":
@@ -251,7 +254,7 @@ class DatasheetModel(model_api.StackedEstimatorMixin):
         elif impl == "cuda":
             from repro_torch.kernels.baseline_energy import ops as bops
             charge, cycles = bops.baseline_charge_matrix(
-                tb.trace, tb.weight, table, self.kind)
+                tb.trace, tb.weight, table, self.kind, config=config)
             rep = _report(charge, cycles[:, None].expand(charge.shape))
         else:
             rep = self._reference_matrix(traces, tb, idx)

@@ -33,7 +33,7 @@ from repro_torch.core.dram import (ACT, PRE, PREA, RD, WR, REF, PDE, PDX,
                                    IL_BANK, IL_BANKCOL, LINE_BITS, N_BANKS,
                                    N_ROW_BANDS, TIMING, TCK_NS, VDD,
                                    CommandTrace, popcount_u32, row_band)
-from repro_torch.kernels.common import cell_sums
+from repro_torch.kernels.common import cell_sums, row_sums
 
 N_SURFACE_CELLS = N_BANKS * N_ROW_BANDS
 
@@ -378,7 +378,7 @@ def masked_cycles(trace: CommandTrace, weight: torch.Tensor) -> torch.Tensor:
 def masked_totals(trace: CommandTrace, weight: torch.Tensor,
                   charges: torch.Tensor):
     """(masked charge, masked cycles) over the command axis."""
-    return (charges * weight).sum(dim=-1), masked_cycles(trace, weight)
+    return row_sums(charges * weight), masked_cycles(trace, weight)
 
 
 # ---------------------------------------------------------------------------
@@ -438,7 +438,7 @@ def scale_report(rep: EnergyReport, factor) -> EnergyReport:
 def trace_energy_vectorized(trace: CommandTrace,
                             pp: PowerParams) -> EnergyReport:
     charges = charge_from_features(trace, extract_features(trace, pp), pp)
-    return _report(charges.sum(dim=-1), trace.total_cycles())
+    return _report(row_sums(charges), trace.total_cycles())
 
 
 def per_command_energy(trace: CommandTrace, pp: PowerParams) -> torch.Tensor:

@@ -166,14 +166,39 @@ def _surface_charges(trace: CommandTrace, weight: torch.Tensor,
     return torch.stack(charges, dim=1)
 
 
+def surface_chunk_charge(trace: CommandTrace, weight: torch.Tensor,
+                         stacked: PowerParams, impl: str = "vectorized", *,
+                         config: dict | None = None) -> torch.Tensor:
+    """The surface charge of every (trace, paramset) pair ->
+    ``(T, V, 8, R)``, before its finalisation (:func:`surface_report`):
+    plain PyTorch (``'vectorized'``) or the feature and surface charge
+    kernels (``'cuda'``, launched at ``config``).  The one-shot, chunked
+    and sharded surface dispatches all reach one of these two, and share
+    the finalisation."""
+    if impl == "cuda":
+        from repro_torch.kernels.vampire_energy import ops as vops
+        return vops.charge_from_planes(vops.charge_planes(trace, weight),
+                                       trace.cmd.shape[0], stacked,
+                                       surface=True, config=config)
+    return _surface_charges(trace, weight,
+                            extract_structural_features(trace), stacked)
+
+
+def surface_report(charge: torch.Tensor, trace: CommandTrace,
+                   weight: torch.Tensor) -> EnergyReport:
+    """The surface report of a ``(T, V, 8, R)`` charge of the batch
+    ``trace``/``weight``: the finalisation every surface dispatch
+    shares."""
+    return _matrix_report(charge, surface_cycles(trace, weight))
+
+
 def batched_surface_reports(trace: CommandTrace, weight: torch.Tensor,
                             stacked: PowerParams) -> EnergyReport:
     """Per-(bank, row-band) decomposition of every pair: leaves are
     ``(traces, vendors, banks, row_bands)``; summing the cell axes gives
     :func:`batched_reports`."""
-    charge = _surface_charges(trace, weight,
-                              extract_structural_features(trace), stacked)
-    return _matrix_report(charge, surface_cycles(trace, weight))
+    return surface_report(surface_chunk_charge(trace, weight, stacked),
+                          trace, weight)
 
 
 # ---------------------------------------------------------------------------
@@ -237,25 +262,27 @@ def chunked_surface_reports(trace: CommandTrace, weight: torch.Tensor,
             else:
                 charge = _surface_charges(tr_c, w_c, sf, chunk)
             acc[rows, cols] = charge
-    return _matrix_report(acc[:n_traces, :n_modules],
-                          surface_cycles(trace, weight))
+    return surface_report(acc[:n_traces, :n_modules], trace, weight)
 
 
 # ---------------------------------------------------------------------------
 # The kernel dispatches (impl='cuda')
 # ---------------------------------------------------------------------------
 def cuda_batched_reports(trace: CommandTrace, weight: torch.Tensor,
-                         stacked: PowerParams) -> EnergyReport:
-    """impl='cuda' twin of :func:`batched_reports`."""
+                         stacked: PowerParams,
+                         config: dict | None = None) -> EnergyReport:
+    """impl='cuda' twin of :func:`batched_reports`; ``config`` is the
+    charge kernel's launch configuration (as in every twin below)."""
     from repro_torch.kernels.vampire_energy import ops as vops
     return _matrix_report(*vops.batched_charge_matrix(trace, weight,
-                                                      stacked))
+                                                      stacked, config=config))
 
 
 def cuda_batched_range_reports(trace: CommandTrace, weight: torch.Tensor,
-                               stacked: PowerParams, band: torch.Tensor):
+                               stacked: PowerParams, band: torch.Tensor,
+                               config: dict | None = None):
     """impl='cuda' twin of :func:`batched_range_reports`."""
-    mean = cuda_batched_reports(trace, weight, stacked)
+    mean = cuda_batched_reports(trace, weight, stacked, config)
     return (scale_report(mean, band[None, :, 0]), mean,
             scale_report(mean, band[None, :, 1]))
 
@@ -263,18 +290,21 @@ def cuda_batched_range_reports(trace: CommandTrace, weight: torch.Tensor,
 def cuda_batched_distribution_reports(trace: CommandTrace,
                                       weight: torch.Tensor,
                                       stacked: PowerParams, ones_frac,
-                                      toggle_frac) -> EnergyReport:
+                                      toggle_frac,
+                                      config: dict | None = None
+                                      ) -> EnergyReport:
     """impl='cuda' twin of :func:`batched_distribution_reports` (no
     feature kernel: the expected fractions feed the charge kernel)."""
     from repro_torch.kernels.vampire_energy import ops as vops
     return _matrix_report(*vops.batched_charge_matrix(
         trace, weight, stacked, ones_frac=ones_frac,
-        toggle_frac=toggle_frac))
+        toggle_frac=toggle_frac, config=config))
 
 
 def cuda_batched_surface_reports(trace: CommandTrace, weight: torch.Tensor,
-                                 stacked: PowerParams) -> EnergyReport:
+                                 stacked: PowerParams,
+                                 config: dict | None = None) -> EnergyReport:
     """impl='cuda' twin of :func:`batched_surface_reports`."""
-    from repro_torch.kernels.vampire_energy import ops as vops
-    return _matrix_report(*vops.batched_charge_matrix(trace, weight, stacked,
-                                                      surface=True))
+    return surface_report(surface_chunk_charge(trace, weight, stacked,
+                                               impl="cuda", config=config),
+                          trace, weight)

@@ -14,8 +14,21 @@ and the stacked-parameter core the estimation dispatch shares.
 * :func:`run_probes` adds the counter-based measurement noise of
   ``device_sim``, the same factor the serial oracle draws per call.
 
-The reference's ``mesh=`` sharding is not ported: the port runs the
-campaign on one card.
+With a ``(data, model)`` mesh (``launch.mesh.make_local_mesh``) both the
+surface and the probe matrix are sharded as the reference's
+``shard_map`` calls are: traces (probes) over ``data``, modules over
+``model``.  Every rank runs the call; each computes the charge of its own
+box through the same ``'vectorized'`` or ``'cuda'`` dispatch, the boxes
+are gathered on every rank, and the finalisation runs once outside, as
+in the one-process dispatch.  Every (trace, module) pair is independent,
+and ``'cuda'`` launches a box's kernels at the whole batch's geometry
+(the tiles a pair's commands are summed in follow it), so its result is
+the one-process result bit for bit.  ``'vectorized'`` is too on the CPU,
+where each pair's sums are kept in one order whatever the box's shape
+(``kernels.common.row_sums``); on a card torch's reduce kernel chooses a
+row's split by the number of rows, so a box can differ from one process
+in the last bits (ROADMAP M2).  A mesh of one device, or axes that do
+not divide the batch, take the plain dispatch.
 """
 from __future__ import annotations
 
@@ -31,10 +44,7 @@ from repro_torch.core.energy_model import (PowerParams, StructuralFeatures,
                                            charge_from_features,
                                            extract_structural_features,
                                            finalize_features, masked_cycles)
-
-MESH_NOT_PORTED = ("mesh= sharding of the campaign and the fleet surface "
-                   "is not ported; the port runs on one card (ROADMAP, "
-                   "queue 1: mesh sharding for a multi-GPU slice)")
+from repro_torch.kernels.common import row_sums
 
 
 def stack_params(params: Sequence[PowerParams]) -> PowerParams:
@@ -45,9 +55,12 @@ def stack_params(params: Sequence[PowerParams]) -> PowerParams:
 
 class FleetStackCache:
     """Stacked fleet params kept on a device: built once per (fleet,
-    device), keyed on the module objects' identity, least recently used
-    entries dropped past ``maxsize``.  An entry holds its modules, so an
-    id cannot be recycled while it is cached."""
+    device, mesh), keyed on the module objects' identity, least recently
+    used entries dropped past ``maxsize``.  An entry holds its modules, so
+    an id cannot be recycled while it is cached.  On a mesh the params
+    are DTensors (``model_api.device_resident``): the module axis
+    ``Shard(0)`` over ``model`` when that axis has more than one device
+    and divides the fleet, else replicated."""
 
     def __init__(self, maxsize: int = 8):
         self.maxsize = maxsize
@@ -55,8 +68,8 @@ class FleetStackCache:
         self.hits = 0
         self.misses = 0
 
-    def stacked(self, modules, device) -> PowerParams:
-        key = (tuple(id(m) for m in modules), torch.device(device))
+    def stacked(self, modules, device, mesh=None) -> PowerParams:
+        key = (tuple(id(m) for m in modules), torch.device(device), mesh)
         hit = self._entries.pop(key, None)
         if hit is not None:
             self.hits += 1
@@ -64,6 +77,11 @@ class FleetStackCache:
             return hit[1]
         self.misses += 1
         stacked = stack_params([m.params for m in modules]).to(device)
+        if mesh is not None:
+            n_model = model_api.mesh_axis(mesh, "model")
+            stacked = model_api.device_resident(
+                stacked, mesh, axis="model" if n_model > 1
+                and len(modules) % n_model == 0 else None)
         self._entries[key] = (tuple(modules), stacked)
         while len(self._entries) > self.maxsize:
             self._entries.pop(next(iter(self._entries)))
@@ -76,16 +94,65 @@ class FleetStackCache:
 #: the process-wide fleet-stack cache both campaign engines go through
 FLEET_STACK_CACHE = FleetStackCache()
 
+#: the shape of the box this rank computed in its last sharded dispatch
+LAST_BOX: tuple | None = None
 
-def fleet_stacked(modules, device=None) -> PowerParams:
+
+def fleet_stacked(modules, device=None, mesh=None) -> PowerParams:
     """The stacked params of a fleet on ``device``: a module sequence is
-    stacked once (:data:`FLEET_STACK_CACHE`); an already stacked
-    ``PowerParams`` (a synthetic fleet) is moved there, and stays where it
-    is when ``device`` is None."""
+    stacked once (:data:`FLEET_STACK_CACHE`), placed on ``mesh`` when one
+    is given; an already stacked ``PowerParams`` (a synthetic fleet) is
+    moved there, and stays where it is when ``device`` is None."""
     if isinstance(modules, PowerParams):
         return modules if device is None else modules.to(device)
     return FLEET_STACK_CACHE.stacked(tuple(modules),
-                                     model_api.resolve_device(device))
+                                     model_api.resolve_device(device), mesh)
+
+
+def _sharded(t) -> bool:
+    from torch.distributed.tensor import DTensor, Shard
+    return isinstance(t, DTensor) and any(isinstance(p, Shard)
+                                          for p in t.placements)
+
+
+def _whole(stacked: PowerParams, mesh) -> PowerParams:
+    """Stacked params as plain tensors holding every module (a module
+    axis sharded over ``model`` is gathered)."""
+    return model_api.map_tensors(stacked, lambda t: model_api.gather_boxes(
+        t.to_local(), mesh, {"model": 0}) if _sharded(t)
+        else model_api.local_view(t))
+
+
+def _rows(n: int, mesh, axis: str) -> slice:
+    """This rank's block of ``n`` rows split evenly over ``axis``."""
+    k = n // model_api.mesh_axis(mesh, axis)
+    i = model_api.mesh_index(mesh, (axis,))
+    return slice(i * k, (i + 1) * k)
+
+
+def _module_block(stacked: PowerParams, mesh) -> PowerParams:
+    """This rank's modules: its shard of a module axis sharded over
+    ``model``, else its block of the rows."""
+    if _sharded(stacked.i2n):
+        return model_api.local_view(stacked)
+    rows = _rows(stacked.i2n.shape[0], mesh, "model")
+    return PowerParams(*(x[rows] for x in model_api.local_view(stacked)))
+
+
+def _note(box: torch.Tensor) -> None:
+    global LAST_BOX
+    LAST_BOX = tuple(box.shape)
+
+
+def _shards(mesh, n_rows: int, n_modules: int) -> bool:
+    """The reference's rule: shard when the mesh has more than one
+    (data x model) device and both axes divide their batch axes."""
+    if mesh is None:
+        return False
+    n_data = model_api.mesh_axis(mesh, "data")
+    n_model = model_api.mesh_axis(mesh, "model")
+    return (n_data * n_model > 1 and n_rows % n_data == 0
+            and n_modules % n_model == 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,7 +206,7 @@ def batched_pair_totals(tr: CommandTrace, w: torch.Tensor,
     for v in range(stacked.i2n.shape[0]):
         pp = stacked.select(v)
         c = charge_from_features(tr, finalize_features(sf, pp), pp)
-        charges.append((c * w).sum(dim=-1))
+        charges.append(row_sums(c * w))
     return torch.stack(charges, dim=-1), masked_cycles(tr, w)
 
 
@@ -164,14 +231,16 @@ def fleet_measure_current(trace: CommandTrace, weight: torch.Tensor,
 
 
 def fleet_measure_current_cuda(trace: CommandTrace, weight: torch.Tensor,
-                               stacked: PowerParams) -> torch.Tensor:
+                               stacked: PowerParams,
+                               config: dict | None = None) -> torch.Tensor:
     """The ``impl='cuda'`` twin of :func:`fleet_measure_current`: the
     feature kernel once over the probe batch, then the VAMPIRE charge
-    kernel with the probe axis as its trace axis and the module axis as
-    its vendor axis (the true params' ``ones_quad`` curvature is part of
-    the kernel)."""
+    kernel (launched at ``config``) with the probe axis as its trace axis
+    and the module axis as its vendor axis (the true params' ``ones_quad``
+    curvature is part of the kernel)."""
     from repro_torch.kernels.vampire_energy import ops as vops
-    return _currents(*vops.batched_charge_matrix(trace, weight, stacked))
+    return _currents(*vops.batched_charge_matrix(trace, weight, stacked,
+                                                 config=config))
 
 
 def fleet_surface_energy(modules, trace: CommandTrace, weight: torch.Tensor,
@@ -187,26 +256,42 @@ def fleet_surface_energy(modules, trace: CommandTrace, weight: torch.Tensor,
     synthetic fleet).  ``module_chunk`` (and ``trace_chunk``) switch to
     the memory-bounded chunked dispatch
     (``estimate_batch.chunked_surface_reports``), exact against the
-    one-shot one."""
+    one-shot one.  With a ``mesh`` every rank makes the call; traces
+    shard over ``data`` and modules over ``model`` (the module docstring)
+    and every rank returns the whole report.  Chunking and a mesh are
+    exclusive strategies."""
     from repro_torch.core import estimate_batch as eb
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
     impl = model_api.resolve_impl(impl, mode="surface").name
     if impl == "reference":
         raise ValueError("impl='reference' for the fleet surface is the "
                          "per-command oracle; score modules one at a time")
-    stacked = fleet_stacked(modules, device)
-    trace, weight = trace.to(stacked.i2n.device), weight.to(
-        stacked.i2n.device)
-    if module_chunk is not None or trace_chunk is not None:
+    chunked = module_chunk is not None or trace_chunk is not None
+    if chunked and mesh is not None:
+        raise ValueError("module_chunk/trace_chunk and mesh are "
+                         "mutually exclusive surface strategies")
+    stacked = fleet_stacked(modules, device, mesh)
+    dev = stacked.i2n.device
+    trace, weight = trace.to(dev), weight.to(dev)
+    if chunked:
         return eb.chunked_surface_reports(
             trace, weight, stacked,
             module_chunk=(stacked.i2n.shape[0] if module_chunk is None
                           else module_chunk),
             trace_chunk=trace_chunk, impl=impl)
-    dispatch = (eb.cuda_batched_surface_reports if impl == "cuda"
-                else eb.batched_surface_reports)
-    return dispatch(trace, weight, stacked)
+    if _shards(mesh, trace.cmd.shape[0], stacked.i2n.shape[0]):
+        rows = _rows(trace.cmd.shape[0], mesh, "data")
+        # the kernels of a box launch at the whole batch's geometry
+        box = eb.surface_chunk_charge(
+            CommandTrace(*(x[rows] for x in trace)), weight[rows],
+            _module_block(stacked, mesh), impl,
+            config={"batch": (trace.cmd.shape[0], stacked.i2n.shape[0])})
+        _note(box)
+        charge = model_api.gather_boxes(box, mesh, {"data": 0, "model": 1})
+        return eb.surface_report(charge, trace, weight)
+    if mesh is not None:
+        stacked = _whole(stacked, mesh)
+    return eb.surface_report(eb.surface_chunk_charge(trace, weight, stacked,
+                                                     impl), trace, weight)
 
 
 def run_probes(modules, points: Sequence[ProbePoint], *,
@@ -225,9 +310,9 @@ def run_probes(modules, points: Sequence[ProbePoint], *,
     ``impl='reference'`` with the batched engine (the oracle is
     ``engine='serial'``), ``impl='cuda'`` with the serial one.  A prebuilt
     ``batch`` of the same points skips the re-padding.  ``modules`` may be
-    a stacked ``PowerParams`` (a synthetic fleet) when ``noisy=False``."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+    a stacked ``PowerParams`` (a synthetic fleet) when ``noisy=False``.
+    With a ``mesh`` the batched engine shards probes over ``data`` and
+    modules over ``model`` and every rank returns the whole matrix."""
     impl = model_api.resolve_impl(impl).name
     if engine == "serial":
         if impl == "cuda":
@@ -247,14 +332,26 @@ def run_probes(modules, points: Sequence[ProbePoint], *,
     if isinstance(modules, PowerParams) and noisy:
         raise ValueError("noisy measurements need module identities; pass "
                          "the modules, or noisy=False for stacked params")
-    stacked = fleet_stacked(modules, device)
+    stacked = fleet_stacked(modules, device, mesh)
     if batch is None:
         batch = ProbeBatch.from_points(points)
     batch = batch.to(stacked.i2n.device)
     measure = (fleet_measure_current_cuda if impl == "cuda"
                else fleet_measure_current)
-    currents = measure(batch.trace, batch.weight, stacked).cpu().numpy()
-    currents = currents.astype(np.float64)
+    if _shards(mesh, batch.weight.shape[0], stacked.i2n.shape[0]):
+        rows = _rows(batch.weight.shape[0], mesh, "data")
+        kw = ({"config": {"batch": (batch.weight.shape[0],
+                                    stacked.i2n.shape[0])}}
+              if impl == "cuda" else {})
+        box = measure(CommandTrace(*(x[rows] for x in batch.trace)),
+                      batch.weight[rows], _module_block(stacked, mesh), **kw)
+        _note(box)
+        currents = model_api.gather_boxes(box, mesh, {"model": 0, "data": 1})
+    else:
+        if mesh is not None:
+            stacked = _whole(stacked, mesh)
+        currents = measure(batch.trace, batch.weight, stacked)
+    currents = currents.cpu().numpy().astype(np.float64)
     if noisy:
         from repro_torch.core import device_sim
         currents = currents * device_sim.measurement_noise_factors(

@@ -7,7 +7,7 @@ Every power model — the fitted VAMPIRE model and the datasheet baselines
     model.estimate(traces, vendors=None, *, mode='mean'|'range'|
                    'distribution'|'surface', impl='vectorized',
                    data=DataProfile(...) | None, ones_frac=None,
-                   toggle_frac=None)
+                   toggle_frac=None, config=None)
 
 * ``traces`` is one :class:`~repro_torch.core.dram.CommandTrace`, a
   sequence of ragged traces, or a
@@ -20,12 +20,19 @@ Every power model — the fitted VAMPIRE model and the datasheet baselines
   PyTorch over the whole batch), ``'cuda'`` (the hand-written kernels of
   ``repro_torch.kernels``; on CPU tensors their plain versions) and
   ``'reference'`` (alias ``'scan'``: the pair-at-a-time per-command
-  oracle).
+  oracle);
+* ``config`` is the charge kernels' launch configuration under
+  ``impl='cuda'`` (``kernels.common.resolve_geometry``: the autotuner's
+  choice when None; the sharded serving engine sizes a box's launch for
+  its whole window); the other impls ignore it.
 
 A model lives on one device.  The entry points that make one
 (:func:`load_estimator`, :func:`make_estimator`, the estimator classes)
 put it on ``cuda`` unless the caller passes ``device="cpu"``; without a
 card and without that request they raise rather than run on the CPU.
+On a mesh of processes, :func:`device_resident` places a model's tensors
+as DTensors and :func:`gather_boxes` assembles what the ranks computed
+(the sharded serving engine and fleet dispatches).
 
 Models are saved as schema v2: a ``.npz`` of plain arrays plus a
 ``__manifest__`` JSON entry, the format ``repro.core.model_api`` writes;
@@ -34,8 +41,10 @@ read here.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
+import math
 import zipfile
 from typing import Literal, Protocol, Sequence, runtime_checkable
 
@@ -62,7 +71,7 @@ class Estimator(Protocol):
 
     def estimate(self, traces, vendors=None, *, mode: EstimateMode = "mean",
                  impl: str = "vectorized", data: "DataProfile | None" = None,
-                 ones_frac=None, toggle_frac=None):
+                 ones_frac=None, toggle_frac=None, config=None):
         ...
 
     def save(self, path: str) -> None:
@@ -384,6 +393,116 @@ class StackedEstimatorMixin:
         if hit is None:
             hit = cache[idx] = build()
         return hit
+
+
+# ---------------------------------------------------------------------------
+# Models on a mesh
+# ---------------------------------------------------------------------------
+_MODEL_CACHES = ("_batches", "_subsets")
+
+
+def map_tensors(obj, fn):
+    """``obj`` with ``fn`` applied to every tensor it holds, through named
+    tuples, tuples, lists, dicts and the attributes of a dataclass
+    instance (a copy, without its per-model caches); any other object is
+    kept as it is."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(map_tensors(x, fn) for x in obj))
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(map_tensors(x, fn) for x in obj)
+    if isinstance(obj, dict):
+        return {k: map_tensors(v, fn) for k, v in obj.items()}
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        new = copy.copy(obj)
+        object.__setattr__(new, "__dict__", {
+            k: map_tensors(v, fn) for k, v in vars(obj).items()
+            if k not in _MODEL_CACHES})
+        return new
+    return obj
+
+
+def device_resident(model, mesh=None, *, axis: str | None = None):
+    """The model with every tensor a DTensor on ``mesh``: ``Replicate()``
+    on every mesh dimension, or with ``axis`` (``'model'``) its leading
+    dimension ``Shard(0)`` over that mesh dimension and ``Replicate()``
+    on the others (the stacked fleet's module axis).  Each rank keeps its
+    own box of the tensor it holds (every rank holds the same model, as
+    SPMD callers do), so no collective runs.  The model's structure is
+    kept; without a mesh the model is returned as it is."""
+    if mesh is None:
+        return model
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+    pl = tuple(Shard(0) if name == axis else Replicate()
+               for name in mesh.mesh_dim_names)
+
+    def one(t):
+        if isinstance(t, DTensor):
+            return t
+        return distribute_tensor(t.to(mesh.device_type), mesh, pl,
+                                 src_data_rank=None)
+    return map_tensors(model, one)
+
+
+def local_view(model):
+    """The model with each DTensor replaced by this rank's shard of it
+    (``to_local()``), which the kernels and the plain dispatches take."""
+    from torch.distributed.tensor import DTensor
+    return map_tensors(model, lambda t: t.to_local()
+                       if isinstance(t, DTensor) else t)
+
+
+def mesh_axis(mesh, name: str) -> int:
+    """The size of ``mesh``'s axis ``name`` (1 when absent)."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape)).get(name, 1)
+
+
+def mesh_index(mesh, names: Sequence[str]) -> int:
+    """This rank's position among the devices of ``names``' axes, in
+    row-major order of the mesh's axes."""
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    index = 0
+    for name in mesh.mesh_dim_names:
+        if name in names:
+            index = index * mesh_axis(mesh, name) + coord[name]
+    return index
+
+
+def gather_boxes(box: torch.Tensor, mesh, dims: dict) -> torch.Tensor:
+    """The whole tensor of which this rank holds ``box``, assembled on
+    every rank: ``dims`` maps a mesh axis to the dimension of ``box`` it
+    splits (axes splitting one dimension do so in the mesh's order, row
+    major); the ranks along an axis that splits nothing hold the same box.
+    Every rank's box has one shape.  One blocking
+    ``all_gather_into_tensor`` over the whole process group (``gloo``
+    takes CUDA tensors for it too), so the mesh must span the world; a
+    mesh over some of the ranks raises a ``ValueError``."""
+    import torch.distributed as dist
+    src = box.contiguous()
+    world = dist.get_world_size()
+    if mesh.size() != world:
+        raise ValueError(f"a mesh of {mesh.size()} devices over a world "
+                         f"of {world} ranks: the sharded dispatches "
+                         f"gather over the whole world, so the mesh must "
+                         f"span it (launch.mesh.make_local_mesh)")
+    out = src.new_empty((world * src.shape[0],) + tuple(src.shape[1:]))
+    dist.all_gather_into_tensor(out, src)
+    out = out.view((world,) + tuple(src.shape))
+    ranks = mesh.mesh.flatten().to(device=out.device, dtype=torch.long)
+    g = out[ranks].reshape(tuple(mesh.shape) + tuple(src.shape))
+    names = list(mesh.mesh_dim_names)
+    for i in reversed(range(len(names))):
+        if names[i] not in dims:
+            g = g.select(i, 0)
+            del names[i]
+    order, shape = [], []
+    for k in range(src.dim()):
+        split = [i for i, n in enumerate(names) if dims[n] == k]
+        order += split + [len(names) + k]
+        shape.append(src.shape[k] * math.prod(g.shape[i] for i in split))
+    return g.permute(order).reshape(shape)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,8 @@ from the characterization campaign (``Vampire.fit(fleet)``, a thin call
 into ``model_api.fit('vampire', fleet, fitter='campaign')``) or from a
 schema-v2 file (``model_api.load_estimator``).
 
-``model.estimate(traces, vendors=None, *, mode=, impl=, data=)`` is the
+``model.estimate(traces, vendors=None, *, mode=, impl=, data=,
+config=)`` is the
 unified entry point (``repro_torch.core.model_api``): ``'mean'``,
 ``'range'`` (lo, mean, hi across each vendor's band), ``'distribution'``
 (expected ones/toggle fractions instead of data) and ``'surface'``
@@ -154,7 +155,7 @@ class Vampire(model_api.StackedEstimatorMixin):
     def estimate(self, traces, vendors=None, *,
                  mode: model_api.EstimateMode = "mean",
                  impl: str = "vectorized", data=None,
-                 ones_frac=None, toggle_frac=None):
+                 ones_frac=None, toggle_frac=None, config=None):
         """The unified entry point (see the module docstring)."""
         from repro_torch.core import estimate_batch as eb
         profile = model_api.normalize_data_profile(data, ones_frac,
@@ -174,7 +175,7 @@ class Vampire(model_api.StackedEstimatorMixin):
                                                   stacked)
             if impl == "cuda":
                 return eb.cuda_batched_surface_reports(tb.trace, tb.weight,
-                                                       stacked)
+                                                       stacked, config)
             return self._reference_surface(traces, tb, stacked)
 
         if mode == "distribution":
@@ -183,7 +184,8 @@ class Vampire(model_api.StackedEstimatorMixin):
                     tb.trace, tb.weight, stacked, ones_frac, toggle_frac)
             if impl == "cuda":
                 return eb.cuda_batched_distribution_reports(
-                    tb.trace, tb.weight, stacked, ones_frac, toggle_frac)
+                    tb.trace, tb.weight, stacked, ones_frac, toggle_frac,
+                    config)
             return self._reference_matrix(traces, tb, stacked,
                                           ones_frac=ones_frac,
                                           toggle_frac=toggle_frac)
@@ -196,8 +198,9 @@ class Vampire(model_api.StackedEstimatorMixin):
         if impl == "cuda":
             if mode == "range":
                 return eb.cuda_batched_range_reports(tb.trace, tb.weight,
-                                                     stacked, band)
-            return eb.cuda_batched_reports(tb.trace, tb.weight, stacked)
+                                                     stacked, band, config)
+            return eb.cuda_batched_reports(tb.trace, tb.weight, stacked,
+                                           config)
         mean = self._reference_matrix(traces, tb, stacked)
         if mode == "mean":
             return mean

@@ -16,8 +16,8 @@ bits).  The float32 CDF must be summed in XLA's order, since ``cdf[-1]``
 scales every draw: on the CPU XLA rewrites the cumulative sum into a
 blocked scan (:func:`xla_cumsum`), and a sequential ``np.cumsum`` differs
 from it in most entries.  Batches are made on the host in numpy and then
-moved to the device.  ``make_global_array`` (a batch sharded over a mesh)
-waits for multi-GPU sharding (ROADMAP queue 1 item 5).
+moved to the device.  ``make_global_array`` places a step's batch on a
+mesh as DTensors.
 """
 from __future__ import annotations
 
@@ -102,6 +102,15 @@ class SyntheticDataset:
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
     def make_global_array(self, step: int, mesh, pspec) -> dict:
-        raise NotImplementedError(
-            "make_global_array shards a batch over a mesh: multi-GPU "
-            "sharding is ROADMAP queue 1 item 5, not ported yet")
+        """Step ``step``'s whole batch as DTensors on ``mesh``, placed by
+        the :class:`~repro_torch.models.meta.Spec` ``pspec``
+        (``meta.placements``).  Every rank draws the same batch and keeps
+        its own box of it, so no collective runs: the full tensors are
+        :meth:`global_batch`'s bit for bit."""
+        from torch.distributed.tensor import distribute_tensor
+
+        from repro_torch.models.meta import placements
+        pl = placements(pspec, mesh)
+        return {k: distribute_tensor(v.to(mesh.device_type), mesh, pl,
+                                     src_data_rank=None)
+                for k, v in self.global_batch(step).items()}

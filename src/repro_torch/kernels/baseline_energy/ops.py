@@ -13,17 +13,20 @@ from repro_torch.kernels.vampire_energy.ops import pack_state
 
 
 def baseline_charge_matrix(trace: CommandTrace, weight, table, kind: str, *,
-                           surface: bool = False):
+                           surface: bool = False,
+                           config: dict | None = None):
     """Masked charge of every (trace, vendor) pair for one baseline kind
     -> ``((T, V) charge, (T,) masked cycles)``, or with ``surface=True``
-    ``((T, V, 8, N_ROW_BANDS) charge, (T, 8, N_ROW_BANDS) cycles)``."""
+    ``((T, V, 8, N_ROW_BANDS) charge, (T, 8, N_ROW_BANDS) cycles)``.
+    ``config`` is the kernel's launch configuration
+    (``kernels.common.resolve_geometry``)."""
     st = structural_state(trace)
     t = trace.cmd.shape[0]
     any_act = (trace.cmd == ACT).any(dim=-1).to(torch.float32)
     charge = WRAPPERS[kind, surface](
         trace.cmd, trace.bank, trace.row, trace.dt, pack_state(st),
         weight.to(torch.float32).contiguous(), any_act,
-        table.to(torch.float32).contiguous())
+        table.to(torch.float32).contiguous(), config=config)
     if surface:
         return (charge.reshape(t, -1, N_BANKS, N_ROW_BANDS),
                 surface_cycles(trace, weight))

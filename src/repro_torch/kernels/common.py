@@ -67,6 +67,20 @@ def cell_index(bank: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
     return ((bank & 7) << 3) | ((row >> 12) & 7)
 
 
+def row_sums(values: torch.Tensor) -> torch.Tensor:
+    """``values.sum(-1)``, each row summed in one order whatever the
+    number of rows.  On the CPU torch sums each of several rows on one
+    thread, but splits a lone row over its threads (two passes) once it
+    holds 32768 values, so a batch of one trace, or a sharded box of one
+    row, would sum it in another order than a batch that holds it among
+    others; a lone row is summed as one of two (a stride-0 view, no
+    copy).  The card's reduce kernel splits a row by the number of rows
+    too; that order is torch's and is not pinned here."""
+    if values.device.type == "cpu" and values.shape[:-1].numel() == 1:
+        return values.expand((2,) + values.shape).sum(-1)[0]
+    return values.sum(-1)
+
+
 CELL_GROUP = 8         # cells one pass of cell_sums compares against
 
 
@@ -99,7 +113,7 @@ def reduce_charge(cw: torch.Tensor, bank, row, surface: bool):
     ``(T, V, 64)`` per-cell sums when ``surface`` (the plain versions'
     reduction, :func:`cell_sums`)."""
     if not surface:
-        return cw.sum(dim=-1).T
+        return row_sums(cw).T
     return cell_sums(cw, cell_index(bank, row), N_CELLS).transpose(0, 1)
 
 
@@ -154,10 +168,19 @@ def resolve_geometry(family: str, n_traces: int, n_cmds: int,
                      config: dict | None = None) -> ChargeGeometry:
     """:func:`charge_geometry` at ``config``'s knobs, or, when the caller
     pins none, at the autotuner's choice for the card ``device_key`` and
-    the shape's bucket (``autotune.best_config``)."""
+    the shape's bucket (``autotune.best_config``).  ``config["batch"]``,
+    the ``(traces, vendors)`` of a whole batch of which the launch
+    computes a box (a sharded dispatch's rank), sizes the geometry for
+    that batch: the cluster, and so the tiles each pair's commands are
+    summed in, follow the batch's size, and a box launched at its own
+    size can sum them in other tiles, so in another order (on the H100 a
+    service window's boxes did, 3.1e-7 relative)."""
     from repro_torch.kernels import autotune
-    if config is None:
-        config = autotune.best_config(family, n_traces, n_cmds, device_key)
+    config = dict(config or {})
+    n_traces, n_vendors = config.pop("batch", (n_traces, n_vendors))
+    if "blocks_per_sm" not in config:
+        config.update(autotune.best_config(family, n_traces, n_cmds,
+                                           device_key))
     return charge_geometry(n_traces, n_cmds, n_vendors, n_sms,
                            int(config["blocks_per_sm"]),
                            int(config["max_cluster"]))
@@ -192,8 +215,9 @@ def launch_charge(fn, pointers: tuple, planes: dict, n_traces: int,
     ``vampire_energy.cu`` or ``baseline_energy.cu``, whose name is
     ``source``) on ``pointers`` (its input tensors in order) -> its
     ``(T, V)`` or ``(T, V, 64)`` float32 output.  ``config`` pins the
-    geometry's knobs; None takes the autotuner's choice for the source's
-    mean or surface family."""
+    geometry's knobs or the whole batch it is sized for
+    (:func:`resolve_geometry`); None takes the autotuner's choice for the
+    source's mean or surface family at this launch's size."""
     from repro_torch.kernels import build
     dev = next(iter(planes.values())).device
     index = dev.index if dev.index is not None else torch.cuda.current_device()

@@ -85,10 +85,13 @@ def charge_planes(trace: CommandTrace, weight: torch.Tensor, *,
 
 
 def charge_from_planes(planes, n_traces: int, stacked: PowerParams, *,
-                       surface: bool = False) -> torch.Tensor:
+                       surface: bool = False,
+                       config: dict | None = None) -> torch.Tensor:
     """The charge kernel (or its surface variant) on :func:`charge_planes`'
     planes for the parameter sets ``stacked`` -> ``(T, V)`` or
-    ``(T, V, 8, N_ROW_BANDS)`` masked charge (zeros for empty traces)."""
+    ``(T, V, 8, N_ROW_BANDS)`` masked charge (zeros for empty traces).
+    ``config`` is the kernel's launch configuration
+    (``kernels.common.resolve_geometry``)."""
     v = stacked.i2n.shape[0]
     cells = (N_BANKS, N_ROW_BANDS) if surface else ()
     if planes is None:
@@ -96,23 +99,25 @@ def charge_from_planes(planes, n_traces: int, stacked: PowerParams, *,
                            device=stacked.i2n.device)
     params = pack_param_blocks(stacked)
     if surface:
-        return vampire_charge_surface(*planes, params).reshape(
+        return vampire_charge_surface(*planes, params,
+                                      config=config).reshape(
             (n_traces, v) + cells)
-    return vampire_charge(*planes, params)
+    return vampire_charge(*planes, params, config=config)
 
 
 def batched_charge_matrix(trace: CommandTrace, weight: torch.Tensor,
                           stacked: PowerParams, *, ones_frac=None,
-                          toggle_frac=None, surface: bool = False):
+                          toggle_frac=None, surface: bool = False,
+                          config: dict | None = None):
     """Masked charge of every (trace, paramset) pair through the kernels
     -> ``((T, V) charge, (T,) masked cycles)``, or with ``surface=True``
     ``((T, V, 8, N_ROW_BANDS) charge, (T, 8, N_ROW_BANDS) cycles)``.
     ``trace``/``weight`` are a padded TraceBatch's ``(T, N)`` fields.
     A batch of empty traces (``N == 0``) launches nothing and gives
-    zeros."""
+    zeros.  ``config`` is the charge kernel's launch configuration."""
     planes = charge_planes(trace, weight, ones_frac=ones_frac,
                            toggle_frac=toggle_frac)
     charge = charge_from_planes(planes, trace.cmd.shape[0], stacked,
-                                surface=surface)
+                                surface=surface, config=config)
     return charge, (surface_cycles(trace, weight) if surface
                     else masked_cycles(trace, weight))

@@ -4,7 +4,7 @@ hybrid; whisper's encoder-decoder and llama-3.2-vision's cross-attention
 decoder), with per-token latency and the decode step's memory energy
 scored by the paper's power model.
 
-A port of ``repro.launch.serve`` for one card.  Prefill runs every
+A port of ``repro.launch.serve``.  Prefill runs every
 attention layer (self, cross and the encoder's) through the hand-written
 flash-attention kernel and Mamba2's chunked scan in eager torch; decode
 runs ``decode_attention`` over the K/V cache, MLA's absorbed-matrix
@@ -37,22 +37,42 @@ committed quick fit when omitted).
 Weights are random, drawn from ``--seed`` by a ``torch.Generator``;
 temperature sampling draws from a generator seeded from ``--seed`` too, so
 its tokens differ from the reference's ``jax.random`` ones (greedy decoding
-at temperature 0 agrees).  There is no mesh: ``--data`` and ``--model``
-must be 1.
+at temperature 0 agrees).
+
+``--data`` or ``--model`` above 1 serves on a ``(data, model)`` mesh of
+processes, one card each (``torchrun``; every rank runs the same
+program): the parameters and the caches are placed by the decode plan's
+rules (``sharding.rules.plan_for``, ``models.meta.specs_for``) as
+DTensors, the prompts over ``data`` when the batch divides it, and the
+prefill and decode steps run through ``models.shard``'s sharding points,
+each rank's attention on its local heads through the flash kernel.  Every
+rank returns the same tokens; rank 0 prints.
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch qwen2.5-3b --no-smoke --data 1 --model 2 --power-report
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import pathlib
 import time
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
+from repro_torch import tree as T
 from repro_torch.configs import registry
 from repro_torch.core import model_api
+from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models import shard
 from repro_torch.models.lm import LM
+from repro_torch.models.meta import Spec, placements, specs_for
+from repro_torch.sharding import rules as R
 
 QUICK_FIT = (pathlib.Path(__file__).resolve().parents[1] / "data"
              / "vampire_quickfit_v2.npz")
@@ -83,15 +103,54 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _full(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _decode_layout(lm: LM, caches, cspecs, s: int, max_len: int, mesh):
+    """The prefill's caches (prompt length ``s``) placed as the decode plan
+    places them (``cspecs``) and grown to ``max_len``, as the reference's
+    prefill emits them (``out_shardings``).  Each leaf is redistributed
+    to its decode placements and a growing leaf is padded on each rank's
+    own shard, so no rank holds more of a cache than its decode shard (a
+    sequence axis the plan splits is padded whole over that axis, then
+    split)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    def one(name, key, t):
+        pl = list(placements(cspecs[name][key], mesh))
+        if not isinstance(t, DTensor):          # the same on every rank
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        if not (lm.grows(name, key) and max_len > s):
+            return t.redistribute(mesh, pl)
+        whole_seq = [Replicate() if isinstance(p, Shard) and p.dim == 2
+                     else p for p in pl]
+        local = t.redistribute(mesh, whole_seq).to_local()
+        grown = local.new_zeros(local.shape[:2] + (max_len,)
+                                + local.shape[3:])
+        grown[:, :, :s] = local
+        shape = t.shape[:2] + (max_len,) + t.shape[3:]
+        g = DTensor.from_local(grown, mesh, whole_seq, run_check=False,
+                               shape=shape,
+                               stride=torch.empty(shape,
+                                                  device="meta").stride())
+        return g.redistribute(mesh, pl)
+    out = {name: {key: one(name, key, t) for key, t in sub.items()}
+           for name, sub in caches.items() if name != "pos"}
+    out["pos"] = s
+    return out
+
+
 def run(job: ServeJob) -> dict:
-    if job.data != 1 or job.model != 1:
-        raise NotImplementedError(
-            f"data={job.data} model={job.model}: the port serves on one "
-            "device; a mesh is not ported")
     device = model_api.resolve_device(job.device)
     cfg = registry.get_config(job.arch, smoke=job.smoke)
     lm = LM(cfg)
     max_len = job.prompt_len + job.decode_tokens
+    mesh = (make_local_mesh(job.data, job.model, device=device)
+            if job.data * job.model > 1 else None)
+    if mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     params = lm.init(torch.Generator(device=device).manual_seed(job.seed))
 
     rng = np.random.default_rng(job.seed)
@@ -104,18 +163,56 @@ def run(job: ServeJob) -> dict:
         aux = torch.zeros((job.batch, cfg.aux_seq, cfg.d_model),
                           dtype=getattr(torch, cfg.dtype), device=device)
 
+    sharded = contextlib.nullcontext
+    if mesh is not None:
+        # the decode plan's placements; the batch over data when it divides
+        n_data = model_api.mesh_axis(mesh, "data")
+        bentry = ("data",) if job.batch % n_data == 0 else None
+        plan = R.plan_for(cfg, "decode", job.batch, mesh, False,
+                          seq_len=max_len)
+        params = steps_lib.place(
+            params, specs_for(lm.param_meta(), plan.rules, mesh), mesh)
+        prompts = steps_lib.place(prompts, Spec(bentry, None), mesh)
+        if aux is not None:
+            aux = steps_lib.place(aux, Spec(bentry, None, None), mesh)
+        if cfg.moe is not None:
+            lm.moe_exec = {"dp_axes": bentry}
+        cspecs = specs_for(lm.init_cache_meta(job.batch, max_len),
+                           plan.rules, mesh)
+        sharded = implicit_replication
+
     t0 = time.perf_counter()
-    logits, caches = lm.prefill(params, prompts, aux=aux, max_len=max_len)
+    with sharded():
+        if mesh is None:
+            logits, caches = lm.prefill(params, prompts, aux=aux,
+                                        max_len=max_len)
+        else:
+            # the layers' insides batch-sharded and whole over model, as
+            # the dry run's prefill cells run them
+            lm.boundary_sp = (placements(Spec(bentry, None, None),
+                                         mesh),) * 2
+            logits, caches = lm.prefill(params, prompts, aux=aux)
+            lm.boundary_sp = None
+            caches = _decode_layout(lm, caches, cspecs, job.prompt_len,
+                                    max_len, mesh)
+            logits = shard.constrain(
+                logits, placements(Spec(bentry, "model"), mesh))
     _sync(device)
     t_prefill = time.perf_counter() - t0
 
-    tok = torch.argmax(logits, dim=-1)[:, None]
+    def step_tokens(tok):
+        return (tok if mesh is None
+                else steps_lib.place(tok, Spec(bentry, None), mesh))
+
+    tok = torch.argmax(_full(logits), dim=-1)[:, None]
     sampler = torch.Generator(device=device).manual_seed(job.seed + 1)
     generated = [tok]
     lat = []
     for _ in range(job.decode_tokens - 1):
         t1 = time.perf_counter()
-        logits, caches = lm.decode_step(params, caches, tok)
+        with sharded():
+            logits, caches = lm.decode_step(params, caches, step_tokens(tok))
+            logits = _full(logits)
         _sync(device)
         lat.append(time.perf_counter() - t1)
         if job.temperature > 0:
@@ -137,10 +234,23 @@ def run(job: ServeJob) -> dict:
         if lat.size and lat.sum() > 0 else 0.0,
     }
     if job.power_report:
+        # one device's traffic: its shards of the weights and the caches
+        local = (lambda tree: tree) if mesh is None else (
+            lambda tree: T.tree_map(shard.local_of, tree))
         res["power"] = power_report(
-            job, decode_traffic_bytes(lm, params, caches, job.batch), logits,
-            tokens, step_seconds=float(np.median(lat)) if lat.size else 1e-3)
+            job, decode_traffic_bytes(lm, local(params), local(caches),
+                                      _local_batch(job.batch, mesh)),
+            _full(logits), tokens,
+            step_seconds=float(np.median(lat)) if lat.size else 1e-3,
+            mesh=mesh)
     return res
+
+
+def _local_batch(batch: int, mesh) -> int:
+    """The rows one device's step covers: ``batch / data`` when the data
+    axis divides the batch, else the whole batch."""
+    n_data = 1 if mesh is None else model_api.mesh_axis(mesh, "data")
+    return batch // n_data if batch % n_data == 0 else batch
 
 
 # ---------------------------------------------------------------------------
@@ -205,16 +315,19 @@ def lint_ingested(seq_traces) -> None:
 
 
 def power_report(job: ServeJob, traffic: float, logits, tokens, *,
-                 step_seconds: float) -> dict:
+                 step_seconds: float, mesh=None) -> dict:
     """Score one decode batch's memory traffic through the estimation
     service.
 
     One DRAM command trace per sequence (carrying that sequence's actual
     logits/token bytes as line data), admitted through the
     :class:`~repro_torch.serving.EstimationService` — lint-gated, bucketed,
-    the model resident on the logits' device.  Energies scale from each
-    trace's modeled bytes to the step's traffic share; the service's
-    metrics ride along under ``"serving"``."""
+    the model resident on the logits' device, and the dispatch sharded
+    over ``mesh`` when it has more than one device.  ``traffic`` is one
+    device's, which covers ``batch / data`` sequences when the data axis
+    divides the batch.  Energies scale from each trace's modeled bytes to
+    the step's traffic share; the service's metrics ride along under
+    ``"serving"``."""
     from repro_torch.analysis import trace_lint
     from repro_torch.core import hbm, traces
     from repro_torch.core.dram import LINE_BYTES
@@ -222,7 +335,7 @@ def power_report(job: ServeJob, traffic: float, logits, tokens, *,
 
     model = _load_estimator(job, logits.device)
     vendors = [v for v in job.power_vendors if v in model.vendors]
-    bytes_per_seq = traffic / max(job.batch, 1)
+    bytes_per_seq = traffic / max(_local_batch(job.batch, mesh), 1)
 
     logits_np = logits.detach().to(torch.float32).cpu().numpy()
     tokens_np = np.asarray(tokens.cpu().numpy(), np.int32)
@@ -244,7 +357,8 @@ def power_report(job: ServeJob, traffic: float, logits, tokens, *,
 
     # the service lints on admission (never bill a protocol-illegal trace)
     # and dispatches the whole batch on the ring's bucketed pad shapes
-    svc = EstimationService(model, ServiceConfig(impl=job.power_impl))
+    svc = EstimationService(model, ServiceConfig(impl=job.power_impl),
+                            mesh=mesh)
     tickets, rejections = svc.submit_many(seq_traces, vendors)
     if rejections:
         raise trace_lint.TraceProtocolError(
@@ -283,6 +397,11 @@ def power_report(job: ServeJob, traffic: float, logits, tokens, *,
     return out
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--arch", default="qwen2.5-3b")
@@ -293,9 +412,10 @@ def main():
     p.add_argument("--prompt-len", type=int, default=64)
     p.add_argument("--decode-tokens", type=int, default=32)
     p.add_argument("--data", type=int, default=1,
-                   help="data-parallel mesh axis size (1: no mesh)")
+                   help="data-parallel mesh axis size (a mesh when data x "
+                        "model > 1: run under torchrun)")
     p.add_argument("--model", type=int, default=1,
-                   help="model-parallel mesh axis size (1: no mesh)")
+                   help="model-parallel mesh axis size")
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
@@ -321,6 +441,8 @@ def main():
                        power_model=args.power_model,
                        power_impl=args.power_impl,
                        vampire_path=args.vampire, device=args.device))
+    if _rank() != 0:
+        return
     print(f"prefill={res['prefill_s']:.2f}s decode p50="
           f"{res['decode_p50_ms']:.1f}ms p99={res['decode_p99_ms']:.1f}ms "
           f"throughput={res['tokens_per_s']:.1f} tok/s")

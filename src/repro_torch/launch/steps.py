@@ -26,7 +26,7 @@ from typing import Any, Callable
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch import tree as T
@@ -175,6 +175,26 @@ def shard_tree(mesh, spec_tree):
     """:class:`Spec` tree -> DTensor placements tree on ``mesh``."""
     return T.tree_map(lambda s: placements(s, mesh), spec_tree,
                       is_leaf=lambda x: isinstance(x, Spec))
+
+
+def place(tree, spec_tree, mesh):
+    """Each tensor of ``tree`` (the same on every rank, as SPMD code makes
+    it) as the DTensor of its box here, placed by the matching
+    :class:`Spec` of ``spec_tree`` (one Spec for a single tensor).  No
+    collective runs; a box that is a view is copied, so the whole tensor
+    can be freed."""
+    def one(t, spec):
+        d = distribute_tensor(t.to(mesh.device_type), mesh,
+                              placements(spec, mesh), src_data_rank=None)
+        local = d.to_local()
+        if local.untyped_storage().nbytes() == local.nbytes:
+            return d
+        return DTensor.from_local(local.clone(), mesh, d.placements,
+                                  run_check=False, shape=d.shape,
+                                  stride=d.stride())
+    if isinstance(tree, torch.Tensor):
+        return one(tree, spec_tree)
+    return T.tree_map(one, tree, spec_tree)
 
 
 def _fake_dtensors(meta_tree, place_tree, mesh, dtype=None):

@@ -1,6 +1,6 @@
 """The trainer: checkpointed, fault-tolerant, power-monitored.
 
-A port of ``repro.launch.train`` for one card.  It trains any of the ten
+A port of ``repro.launch.train``.  It trains any of the ten
 architectures with the step functions of :mod:`repro_torch.launch.steps`
 (``LM.loss`` with per-layer recomputation, attention through the
 flash-attention kernels in both directions, AdamW with float32 or int8
@@ -20,15 +20,30 @@ Usage (the smoke widths on the CPU; on the card, drop ``--device cpu``):
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
         --no-smoke --steps 5 --batch 4 --seq 2048 --power-every 1
 
-Weights are random, drawn from ``--seed`` by a ``torch.Generator``.  There
-is no mesh: ``--data`` and ``--model`` must be 1.
+Weights are random, drawn from ``--seed`` by a ``torch.Generator``.
+
+``--data`` or ``--model`` above 1 trains on a ``(data, model)`` mesh of
+processes, one card each (``torchrun``; every rank runs the same
+program): the parameters are drawn whole from the seed on every rank and
+placed by ``make_rules``/``specs_for`` as DTensors (so they equal the
+one-process init bit for bit), AdamW's moments in the same placements,
+each step's batch from ``SyntheticDataset.make_global_array`` over
+``data``, and checkpoints are gathered whole and written by rank 0; a
+restore places them on the mesh the run resumes on, which may differ
+from the one that saved (the elastic rescale).
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch qwen2.5-3b --data 2 --model 1 --steps 4 --batch 4 --seq 64
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch import tree as T
 from repro_torch.checkpoint.manager import CheckpointManager
@@ -36,9 +51,14 @@ from repro_torch.configs import registry
 from repro_torch.core import model_api
 from repro_torch.data.pipeline import DataConfig, SyntheticDataset
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.launch.serve import tree_nbytes
+from repro_torch.models import shard
 from repro_torch.models.lm import LM
+from repro_torch.models.meta import Spec, specs_for
 from repro_torch.optim import adamw
+from repro_torch.runtime.elastic import shardings_from_specs
+from repro_torch.sharding import rules as R
 from repro_torch.runtime.fault import (FaultInjector, SimulatedFault,
                                        StepTimer, StragglerMonitor)
 
@@ -87,6 +107,10 @@ def train_traffic_bytes(lm: LM, params, opt_state, tokens: int) -> float:
                  + 4 * logits)
 
 
+def _full(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 class PowerMonitor:
     """Per-step HBM energy from the paper's data-dependent model: the
     step's traffic (:func:`train_traffic_bytes`, split 0.6 read / 0.4
@@ -118,15 +142,20 @@ class PowerMonitor:
             ones_frac=ones, toggle_frac=togg)
 
 
+def _local(tree):
+    """Each DTensor of ``tree`` as this rank's shard of it."""
+    return T.tree_map(shard.local_of, tree)
+
+
 def run(job: TrainJob) -> dict:
-    if job.data != 1 or job.model != 1:
-        raise NotImplementedError(
-            f"data={job.data} model={job.model}: the port trains on one "
-            "device; a mesh is ROADMAP queue 1 item 5, not ported yet")
     device = model_api.resolve_device(job.device)
     cfg = job.config or registry.get_config(job.arch, smoke=job.smoke)
     lm = LM(cfg)
     ocfg = adamw.AdamWConfig(warmup_steps=5, decay_steps=max(job.steps, 10))
+    mesh = (make_local_mesh(job.data, job.model, device=device)
+            if job.data * job.model > 1 else None)
+    if mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     params = lm.init(torch.Generator(device=device).manual_seed(job.seed))
     opt_state = adamw.init(params, ocfg)
     step_fn = steps_lib.make_train_step(lm, ocfg)
@@ -134,6 +163,35 @@ def run(job: TrainJob) -> dict:
     ds = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq_len=job.seq,
                                      global_batch=job.batch,
                                      seed=job.seed + 7), device=device)
+    sharded, shardings = contextlib.nullcontext, None
+    local_batch = job.batch
+    if mesh is not None:
+        rules = R.make_rules(cfg, multi_pod=False)
+        pmeta = lm.param_meta()
+        specs = {"params": specs_for(pmeta, rules, mesh),
+                 "opt": specs_for(adamw.state_meta(pmeta, ocfg), rules,
+                                  mesh)}
+        params = steps_lib.place(params, specs["params"], mesh)
+        opt_state = steps_lib.place(opt_state, specs["opt"], mesh)
+        shardings = shardings_from_specs(specs, mesh)
+        n_data = model_api.mesh_axis(mesh, "data")
+        bentry = ("data",) if job.batch % n_data == 0 else None
+        local_batch = job.batch // n_data if bentry else job.batch
+        if cfg.moe is not None:
+            lm.moe_exec = {"dp_axes": bentry}
+        sharded = implicit_replication
+
+    def batch_of(step: int) -> dict:
+        if mesh is None:
+            batch = ds.global_batch(step)
+        else:
+            batch = ds.make_global_array(step, mesh, Spec(bentry, None))
+        if cfg.aux_seq:
+            aux = torch.zeros((job.batch, cfg.aux_seq, cfg.d_model),
+                              dtype=getattr(torch, cfg.dtype), device=device)
+            batch["aux"] = (aux if mesh is None else steps_lib.place(
+                aux, Spec(bentry, None, None), mesh))
+        return batch
     ckpt = (CheckpointManager(job.ckpt_dir, keep=2, async_save=True)
             if job.ckpt_dir else None)
     injector = FaultInjector(fail_at_steps=tuple(job.fail_at))
@@ -144,30 +202,29 @@ def run(job: TrainJob) -> dict:
     step = 0
     if ckpt and ckpt.latest_step() is not None:
         step = ckpt.latest_step()
-        state = ckpt.restore(step, {"params": params, "opt": opt_state})
+        state = ckpt.restore(step, {"params": params, "opt": opt_state},
+                             shardings=shardings)
         params, opt_state = state["params"], state["opt"]
 
     losses, seconds, energies, recoveries = [], [], [], 0
     while step < job.steps:
-        batch = ds.global_batch(step)
-        if cfg.aux_seq:
-            batch["aux"] = torch.zeros((job.batch, cfg.aux_seq, cfg.d_model),
-                                       dtype=getattr(torch, cfg.dtype),
-                                       device=device)
+        batch = batch_of(step)
         try:
             injector.check(step)
-            with StepTimer(device) as t:
+            with StepTimer(device) as t, sharded():
                 params, opt_state, metrics = step_fn(params, opt_state,
                                                      batch)
-                loss = float(metrics["loss"])
+                loss = float(_full(metrics["loss"]))
             straggler.record(step, t.seconds)
             if power is None:
+                # one device's traffic: its shards and its rows
                 power = PowerMonitor(train_traffic_bytes(
-                    lm, params, opt_state, job.batch * job.seq))
+                    lm, _local(params), _local(opt_state),
+                    local_batch * job.seq))
             losses.append(loss)
             seconds.append(t.seconds)
             if job.power_every and step % job.power_every == 0:
-                rep = power.report(params, t.seconds)
+                rep = power.report(_local(params), t.seconds)
                 energies.append((step, rep.total_j))
             step += 1
             if ckpt and step % job.ckpt_every == 0:
@@ -180,7 +237,8 @@ def run(job: TrainJob) -> dict:
             if ckpt and ckpt.latest_step() is not None:
                 restore_step = ckpt.latest_step()
                 state = ckpt.restore(restore_step,
-                                     {"params": params, "opt": opt_state})
+                                     {"params": params, "opt": opt_state},
+                                     shardings=shardings)
                 params, opt_state = state["params"], state["opt"]
                 step = restore_step
             # without a checkpoint directory the step is simply retried
@@ -208,9 +266,10 @@ def main(argv=None):
     p.add_argument("--ckpt-every", type=int, default=10)
     p.add_argument("--fail-at", type=int, nargs="*", default=[])
     p.add_argument("--data", type=int, default=1,
-                   help="data-parallel mesh axis size (1: no mesh)")
+                   help="data-parallel mesh axis size (a mesh when data x "
+                        "model > 1: run under torchrun)")
     p.add_argument("--model", type=int, default=1,
-                   help="model-parallel mesh axis size (1: no mesh)")
+                   help="model-parallel mesh axis size")
     p.add_argument("--power-every", type=int, default=20)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
@@ -223,6 +282,9 @@ def main(argv=None):
                        fail_at=tuple(args.fail_at), data=args.data,
                        model=args.model, power_every=args.power_every,
                        seed=args.seed, device=args.device))
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return
     print(f"steps={res['steps_run']} final_loss={res['final_loss']:.4f} "
           f"recoveries={res['recoveries']} device={res['device']}")
     for s, e in res["energies"]:

@@ -16,8 +16,10 @@ pipeline makes rescaling a pure control-plane operation:
 rules shard, the check a cluster controller runs before it commits to a
 rescale; :func:`shardings_from_specs` gives the DTensor placements of a
 spec tree on a ``DeviceMesh`` (a fake one in the dry run).  Both read a
-mesh's axis names and sizes only.  Step 3 on real cards is multi-GPU
-sharding (ROADMAP queue 1 item 5).
+mesh's axis names and sizes only.  Step 3 is
+``CheckpointManager.restore(step, target, shardings=)``, which places
+each restored leaf by those placements on the target leaves' mesh
+(``launch.train`` resumes a run on another mesh so).
 """
 from __future__ import annotations
 

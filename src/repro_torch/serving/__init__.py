@@ -10,7 +10,9 @@
   per-ticket results, and per-dispatch metrics (queue depth, batch fill,
   traces/s, p50/p99 latency, rejection counts).
 
-A port of ``repro.serving`` for one card (no mesh).  Quick loop::
+A port of ``repro.serving``; with ``mesh=`` the engine shards each
+window's traces over a ``(data, model)`` mesh of processes.  Quick
+loop::
 
     svc = EstimationService(model, ServiceConfig())
     tickets, rejections = svc.submit_many(traces)

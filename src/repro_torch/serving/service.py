@@ -115,15 +115,18 @@ def _map_leaves(fn, rep):
 
 
 class EstimationService:
-    """The continuously batched estimation front end (single process:
-    the concurrency is in the batched dispatch, not in threads)."""
+    """The continuously batched estimation front end (one process a
+    rank: the concurrency is in the batched dispatch, not in threads).
+    With a ``mesh`` every rank runs the service on the same requests and
+    the engine shards each window's traces over the mesh's devices."""
 
     def __init__(self, model=None, config: ServiceConfig | None = None, *,
-                 engine: ServingEngine | None = None, fitter=None):
+                 mesh=None, engine: ServingEngine | None = None,
+                 fitter=None):
         self.config = config or ServiceConfig()
         # a prebuilt engine carries its resident model into the new service
         self.engine = engine if engine is not None else ServingEngine(
-            model, impl=self.config.impl, mode=self.config.mode,
+            model, mesh=mesh, impl=self.config.impl, mode=self.config.mode,
             data=self.config.data,
             ones_frac=self.config.ones_frac,
             toggle_frac=self.config.toggle_frac)

@@ -999,3 +999,70 @@ def test_tuned_configs_match_the_default(device, family):
         torch.cuda.synchronize()
         assert torch.equal(tuned, again)
         _close(tuned, default)
+
+
+# ---------------------------------------------------------------------------
+# A sharded dispatch's boxes on the card
+# ---------------------------------------------------------------------------
+def _rows(tb, start: int, stop: int):
+    from repro_torch.core.dram import CommandTrace
+    from repro_torch.core.estimate_batch import TraceBatch
+    return TraceBatch(CommandTrace(*(x[start:stop] for x in tb.trace)),
+                      tb.weight[start:stop])
+
+
+def _reports_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_a_box_at_its_windows_geometry_gives_the_windows_bits(
+        setup, estimation_batch):
+    """``impl='cuda'``: a box of 16 traces of the 64-trace estimation
+    window, launched at the window's geometry (``config={"batch": ...}``,
+    as the sharded serving engine launches it), is the window's rows bit
+    for bit; launched at its own, the charge kernel's cluster (so its
+    tiles) follows the box's size, and the bits part (3.1e-7 relative on
+    the H100)."""
+    _, _, models = setup
+    model = models["vampire"]
+    whole = model.estimate(estimation_batch, impl="cuda")
+    n, v = estimation_batch.n_traces, len(model.vendors)
+    mismatched = 0
+    for start in range(0, n, 16):
+        box = _rows(estimation_batch, start, start + 16)
+        want = [x[start:start + 16] for x in whole]
+        at_window = model.estimate(box, impl="cuda",
+                                   config={"batch": (n, v)})
+        assert _reports_equal(at_window, want)
+        at_own = model.estimate(box, impl="cuda")
+        _close(at_own.energy_pj, want[3])
+        mismatched += not _reports_equal(at_own, want)
+    assert mismatched > 0
+
+
+def test_vectorized_boxes_part_from_their_window_on_the_card(setup,
+                                                             device):
+    """``impl='vectorized'``: boxes of 2 traces of an 8-trace window agree
+    with the window's rows at float32 rounding (rtol 1e-6) but not bit for
+    bit: torch's reduce kernel chooses how many threads sum a row by the
+    number of rows, and the port keeps torch's order (moving it would move
+    every one-process number).  So only ``'cuda'``, and ``'vectorized'``
+    on the CPU (``kernels.common.row_sums``), shard bit for bit (ROADMAP
+    M2).  Should this test fail on its last line, the card's order no
+    longer follows the row count and M2 can close."""
+    import dataclasses
+    _, _, models = setup
+    model = models["vampire"]
+    apps = [dataclasses.replace(traces.SPEC_APPS[i], seed=i + 1)
+            for i in range(8)]
+    tb = bucketed_trace_batch([traces.app_trace(a, n_requests=6000)
+                               for a in apps], 8, 16384).to(device)
+    whole = model.estimate(tb, impl="vectorized")
+    equal = True
+    for start in range(0, 8, 2):
+        box = model.estimate(_rows(tb, start, start + 2), impl="vectorized")
+        want = [x[start:start + 2] for x in whole]
+        for got, w in zip(box, want):
+            _close(got, w, rtol=1e-6)
+        equal = equal and _reports_equal(box, want)
+    assert not equal

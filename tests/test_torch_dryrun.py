@@ -269,9 +269,13 @@ def test_build_cell_builds_a_mamba2_cell(cells):
 
 
 def test_a_mesh_of_real_cards_is_item_5():
+    """A real mesh spans the process group's ranks: one device works in
+    one process, four need a world of four."""
     from repro_torch.launch import mesh
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        mesh.make_local_mesh(2, 2)
+    one = mesh.make_local_mesh(1, 1, device="cpu")
+    assert one.mesh_dim_names == ("data", "model") and one.size() == 1
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):
+        mesh.make_local_mesh(2, 2, device="cpu")
 
 
 # --------------------------------------------------------------------------

@@ -28,6 +28,7 @@ from repro_torch.core import estimate_batch as pbatch
 from repro_torch.core import fleet as pfleet
 from repro_torch.core import idd_loops as pidd
 from repro_torch.core import params as pparams
+from repro_torch.launch.mesh import make_local_mesh
 
 RTOL = 1e-5
 SPECS = [(v, i, 2015) for v in range(3) for i in range(2)]
@@ -193,12 +194,15 @@ def test_the_engine_refuses_contradictions(points, fleets):
         pfleet.run_probes(mods, pts, engine="sharded", device="cpu")
     with pytest.raises(ValueError, match="unknown impl"):
         pfleet.run_probes(mods, pts, impl="pallas", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pfleet.run_probes(mods, pts, mesh=object(), device="cpu")
+    # a mesh of one device takes the plain dispatch, bit for bit
+    mesh = make_local_mesh(1, 1, device="cpu")
+    np.testing.assert_array_equal(
+        pfleet.run_probes(mods, pts, mesh=mesh, device="cpu"),
+        pfleet.run_probes(mods, pts, device="cpu"))
     tb = pfleet.ProbeBatch.from_points(pts)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pfleet.fleet_surface_energy(mods, tb.trace, tb.weight, mesh=object(),
-                                    device="cpu")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        pfleet.fleet_surface_energy(mods, tb.trace, tb.weight, mesh=mesh,
+                                    module_chunk=2, device="cpu")
     with pytest.raises(ValueError, match="oracle"):
         pfleet.fleet_surface_energy(mods, tb.trace, tb.weight,
                                     impl="reference", device="cpu")

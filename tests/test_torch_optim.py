@@ -18,6 +18,7 @@ import torch
 from repro.optim import adamw as radamw
 from repro.optim import compress as rcompress
 from repro_torch import tree as T
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.meta import ParamMeta, is_meta
 from repro_torch.optim import adamw as padamw
 from repro_torch.optim import compress as pcompress
@@ -156,8 +157,15 @@ def test_ef_compress_and_decompress_trees_match_the_reference():
 
 
 def test_the_compressed_psum_waits_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        pcompress.crosspod_compressed_psum({"w": torch.zeros(2)}, "pod")
+    """On a mesh of one device the compressed psum is the reference's
+    quantise-dequantise round trip of each leaf (the sum over four ranks:
+    ``tests/test_torch_mesh.py``)."""
+    mesh = make_local_mesh(1, 1, device="cpu")
+    g = np.random.default_rng(0).standard_normal((3, 8)).astype(np.float32)
+    got = pcompress.crosspod_compressed_psum({"w": torch.from_numpy(g)},
+                                             "data", mesh)
+    want = rcompress.decompress(*rcompress.compress(jnp.asarray(g)))
+    np.testing.assert_array_equal(got["w"].numpy(), np.asarray(want))
 
 
 # ------------------------------------------- the reference's own tests

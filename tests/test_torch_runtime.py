@@ -17,6 +17,9 @@ from repro.data.pipeline import DataConfig as RDataConfig
 from repro.data.pipeline import SyntheticDataset as RDataset
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import DataConfig, SyntheticDataset, xla_cumsum
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models.meta import Spec
+from repro_torch.runtime.elastic import shardings_from_specs
 from repro_torch.runtime.fault import (FaultInjector, SimulatedFault,
                                        StepTimer, StragglerMonitor)
 
@@ -68,8 +71,11 @@ def test_data_deterministic_and_shardable():
     assert all(s.shape == (2, 32) for s in shards)
     with pytest.raises(ValueError, match="does not split"):
         ds.shard_batch(3, 0, 3)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        ds.make_global_array(3, None, None)
+    # on a mesh of one device the placed batch is the global batch
+    placed = ds.make_global_array(3, make_local_mesh(1, 1, device="cpu"),
+                                  Spec("data", None))
+    assert torch.equal(placed["tokens"].full_tensor(), a["tokens"])
+    assert torch.equal(placed["labels"].to_local(), a["labels"])
 
 
 # -------------------------------------------------------------- checkpoint
@@ -126,10 +132,20 @@ def test_checkpoint_async(tmp_path):
 
 
 def test_checkpoint_restore_with_shardings_waits_for_the_mesh(tmp_path):
+    """``restore(shardings=)`` places each leaf on the target leaf's mesh
+    by the given placements (the rescale across meshes of four ranks:
+    ``tests/test_torch_mesh.py``)."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
     mgr = CheckpointManager(str(tmp_path))
-    mgr.save(1, {"w": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        mgr.restore(1, {"w": torch.zeros(2)}, shardings={"w": None})
+    w = torch.arange(6, dtype=torch.float32).reshape(2, 3)
+    mgr.save(1, {"w": w})
+    mesh = make_local_mesh(1, 1, device="cpu")
+    target = {"w": distribute_tensor(torch.zeros(2, 3), mesh,
+                                     (Replicate(), Replicate()))}
+    out = mgr.restore(1, target, shardings=shardings_from_specs(
+        {"w": Spec("data", "model")}, mesh))
+    assert out["w"].placements == (Replicate(), Replicate())
+    assert torch.equal(out["w"].full_tensor(), w)
 
 
 # ------------------------------------------------------------------- fault

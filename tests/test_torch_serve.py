@@ -75,7 +75,9 @@ def test_temperature_sampling_and_mesh_arguments():
     assert res["tokens"].shape == (2, 3) and "power" not in res
     assert (res["tokens"] < preg.get_config("granite-8b", smoke=True).vocab
             ).all()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh of two devices needs two ranks (the mesh runs over four
+    # processes in tests/test_torch_mesh.py)
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         pserve.run(pserve.ServeJob(arch="qwen2.5-3b", data=2, device="cpu"))
 
 

@@ -175,8 +175,10 @@ def test_the_cli_trains_on_the_cpu_and_refuses_a_mesh(capsys):
     ptrain.main(["--arch", "mamba2-780m", "--device", "cpu", "--steps", "2",
                  "--batch", "2", "--seq", "16", "--power-every", "0"])
     assert "steps=2" in capsys.readouterr().out
+    # a mesh of two devices needs two ranks (the mesh trains over four
+    # processes in tests/test_torch_mesh.py)
     for kw in (dict(data=2), dict(model=2)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
             ptrain.run(ptrain.TrainJob(arch=ARCH, device="cpu", **kw))
 
 

@@ -64,9 +64,11 @@ itself).  Phases, each printing its numbers:
 9b. ``[mesh]``: ``mesh=`` sharding of the estimation side on (1, 2),
    (2, 1) and (2, 2) meshes of processes that share card 0 on the
    ``gloo`` backend (the script needs only one card; NCCL refuses two
-   ranks on one device): 9's surface and probe matrix and an estimation service
-   over 3's 64 traces, all ``impl='cuda'``, each rank's result bit for bit
-   the one process's, each rank's box and launches printed, wall times
+   ranks on one device): 9's surface and probe matrix and estimation
+   services over 3's 64 traces and over their first 8 and 16 (boxes of
+   2-8 rows), through ``impl='cuda'`` and then ``'vectorized'``, each
+   rank's result bit for bit the one process's, each rank's box and
+   launches printed, wall times
    labelled as processes sharing one card.  The LM paths on a mesh
    (``launch.serve`` and ``launch.train`` with ``--data``/``--model``)
    are not run here: DTensor's collectives on gloo with CUDA tensors
@@ -302,21 +304,23 @@ def build_workload(seed: int, n_traces: int, n_requests: int, length: int,
     return trs, bucketed_trace_batch(trs, n_traces, length).to(device)
 
 
+#: the feature kernel's compulsory bytes a line: data 64, cmd 4 and
+#: prev_rw 4 read, ones and togg (float32) written
+FEATURE_LINE_BYTES = 64 + 4 + 4 + 2 * 4
+
+
 def kernel_inputs(tb, models):
     """The per-command inputs the path hands each kernel, built by the
     same assembler steps as ``impl='cuda'``."""
     import torch
 
     from repro_torch.core.dram import ACT
-    from repro_torch.core.energy_model import prev_lines, structural_state
+    from repro_torch.core.energy_model import structural_state
     from repro_torch.kernels.vampire_energy import ops as vops
     tr, w = tb.trace, tb.weight
-    t, n = tr.cmd.shape
     st = structural_state(tr)
     return dict(
-        data=tr.data.reshape(t * n, -1),
-        prev=prev_lines(tr.data, st).reshape(t * n, -1),
-        tmask=(st.has_prev & st.is_rw).to(torch.float32).reshape(t * n),
+        data=tr.data, cmd=tr.cmd, prev_rw=st.prev_rw,
         state=vops.pack_state(st), w=w.contiguous(),
         params=vops.pack_param_blocks(models["vampire"].fleet.params),
         any_act=(tr.cmd == ACT).any(dim=-1).to(torch.float32),
@@ -334,9 +338,9 @@ def charge_rows(tb, models, x=None) -> list[dict]:
     t, n = tr.cmd.shape
     m = t * n
     v = x["params"].shape[0]
-    ones, togg = ve.batched_features(x["data"], x["prev"], x["tmask"])
-    vargs = (ones.reshape(t, n), togg.reshape(t, n), tr.cmd, tr.bank, tr.row,
-             tr.dt, x["state"], x["w"], x["params"])
+    ones, togg = ve.batched_features(x["data"], x["cmd"], x["prev_rw"])
+    vargs = (ones, togg, tr.cmd, tr.bank, tr.row, tr.dt, x["state"], x["w"],
+             x["params"])
     rows = []
     for surface, fn, line in ((False, ve.vampire_charge, 220),
                               (True, ve.vampire_charge_surface, 179)):
@@ -383,20 +387,17 @@ def kernel_phase(tb, models, card: str) -> list[dict]:
     flush = flush_buf.zero_
 
     # features: exact
-    ones, togg = ve.batched_features(x["data"], x["prev"], x["tmask"])
-    p_ones, p_togg = ve.batched_features_plain(x["data"], x["prev"],
-                                               x["tmask"])
+    fargs = (x["data"], x["cmd"], x["prev_rw"])
+    ones, togg = ve.batched_features(*fargs)
+    p_ones, p_togg = ve.batched_features_plain(*fargs)
     check(torch.equal(ones, p_ones) and torch.equal(togg, p_togg),
           "features kernel differs from its plain version")
-    nbytes = m * (64 + 64 + 4) + 2 * m * 4
     rows = [dict(
-        name="batched_features", fn=lambda: ve.batched_features(
-            x["data"], x["prev"], x["tmask"]),
-        plain=lambda: ve.batched_features_plain(x["data"], x["prev"],
-                                                x["tmask"]),
+        name="batched_features", fn=lambda: ve.batched_features(*fargs),
+        plain=lambda: ve.batched_features_plain(*fargs),
         source="src/repro_torch/csrc/features.cu",
         replaces="src/repro/kernels/vampire_energy/vampire_energy.py:90",
-        err=0.0, bound=bound(nbytes, m * 64))]
+        err=0.0, bound=bound(m * FEATURE_LINE_BYTES, m * 64))]
     rows += charge_rows(tb, models, x)
 
     for r in rows[1:]:           # the charge kernels
@@ -409,8 +410,8 @@ def kernel_phase(tb, models, card: str) -> list[dict]:
     for r in rows:
         r["ms"] = event_ms(r["fn"], 20, flush)
         r["plain_ms"] = event_ms(r["plain"], 5, flush)
-        rate = ("" if r is rows[0] else
-                f" gb_per_s={r['nbytes'] / r['ms'] / 1e6:.1f}")
+        rate = (f" bytes_per_line={FEATURE_LINE_BYTES}" if r is rows[0]
+                else f" gb_per_s={r['nbytes'] / r['ms'] / 1e6:.1f}")
         print(f"[kernel] {r['name']}: ms={r['ms']:.4f} "
               f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
               f"({r['bound'][1]}) share_of_bound="
@@ -1129,8 +1130,7 @@ def e2e_phase(tb, trs, models, kernel_ms: dict[str, float], card: str):
     host-clock ms of every (kind, mode) estimate."""
     import torch
 
-    from repro_torch.core.energy_model import (prev_lines,
-                                               structural_state)
+    from repro_torch.core.energy_model import structural_state
     from repro_torch.core.estimate_batch import bucketed_trace_batch
     from repro_torch.kernels.vampire_energy import ops as vops
     t, n = tb.trace.cmd.shape
@@ -1138,9 +1138,7 @@ def e2e_phase(tb, trs, models, kernel_ms: dict[str, float], card: str):
     times = {}
 
     def bookkeeping():
-        st = structural_state(tb.trace)
-        prev_lines(tb.trace.data, st)
-        vops.pack_state(st)
+        vops.pack_state(structural_state(tb.trace))
 
     book_ms = wall_ms(bookkeeping, 5)
     for kind in KINDS:
@@ -1569,7 +1567,7 @@ def shape_rows(tag: str, batch, stacked, plain_v: int, card: str,
     phase's own runs, before this."""
     import torch
 
-    from repro_torch.core.energy_model import prev_lines, structural_state
+    from repro_torch.core.energy_model import structural_state
     from repro_torch.kernels.vampire_energy import ops as vops
     from repro_torch.kernels.vampire_energy import vampire_energy as ve
     tr, w = batch.trace, batch.weight
@@ -1577,22 +1575,19 @@ def shape_rows(tag: str, batch, stacked, plain_v: int, card: str,
     v = stacked.i2n.shape[0]
     m = t * n
     st = structural_state(tr)
-    data = tr.data.reshape(m, -1)
-    prev = prev_lines(tr.data, st).reshape(m, -1)
-    tmask = (st.has_prev & st.is_rw).to(torch.float32).reshape(m)
-    ones, togg = ve.batched_features(data, prev, tmask)
-    p_ones, p_togg = ve.batched_features_plain(data, prev, tmask)
+    fargs = (tr.data, tr.cmd, st.prev_rw)
+    ones, togg = ve.batched_features(*fargs)
+    p_ones, p_togg = ve.batched_features_plain(*fargs)
     check(torch.equal(ones, p_ones) and torch.equal(togg, p_togg),
           f"{tag}: features kernel differs from its plain version")
     params = vops.pack_param_blocks(stacked)
-    args = [ones.reshape(t, n), togg.reshape(t, n), tr.cmd, tr.bank, tr.row,
-            tr.dt, vops.pack_state(st), w.contiguous(), params]
+    args = [ones, togg, tr.cmd, tr.bank, tr.row, tr.dt, vops.pack_state(st),
+            w.contiguous(), params]
     plain_args = args[:-1] + [params[:plain_v].contiguous()]
     masked = int((w[:, :1] == 0).sum())
-    rows = [("batched_features", lambda: ve.batched_features(data, prev,
-                                                             tmask),
-             lambda: ve.batched_features_plain(data, prev, tmask), 0.0,
-             bound(m * (64 + 64 + 4) + 2 * m * 4, m * 64))]
+    rows = [("batched_features", lambda: ve.batched_features(*fargs),
+             lambda: ve.batched_features_plain(*fargs), 0.0,
+             bound(m * FEATURE_LINE_BYTES, m * 64))]
     for fn, surface in ((ve.vampire_charge, False),
                         (ve.vampire_charge_surface, True)):
         got = fn(*args)[:, :plain_v]
@@ -1882,36 +1877,52 @@ def fleet_phase(card: str, device="cuda", sizes=FLEET_MODULES,
 #: the [mesh] phase's (data, model) meshes by world size: processes
 #: sharing card 0
 MESH_WORLDS = {2: ((1, 2), (2, 1)), 4: ((2, 2),)}
+#: the [mesh] phase's service windows besides the whole workload's: the
+#: first 8 and 16 traces, whose boxes on the meshes hold 2-8 rows
+MESH_WINDOWS = (8, 16)
 #: the kernels each [mesh] call must launch in every rank (impl='cuda')
 MESH_KERNELS = {"surface": ("batched_features", "vampire_charge_surface"),
                 "probes": ("batched_features", "vampire_charge"),
-                "service": ("batched_features", "vampire_charge")}
+                "service": ("batched_features", "vampire_charge"),
+                **{f"window {w}": ("batched_features", "vampire_charge")
+                   for w in MESH_WINDOWS}}
+#: the [mesh] calls timed against one process
+MESH_TIMED = ("surface", "probes", "service")
 #: the [mesh] phase's impls and their fleets: 'vectorized' loops over the
 #: modules in Python, so it takes the [fleet] phase's smaller fleet
 MESH_IMPLS = {"cuda": "stacked", "vectorized": "stacked_vec"}
 
 
 def mesh_calls(inp: dict, model, mesh, impl: str = "cuda"):
-    """The [mesh] phase's three calls on ``inp`` (the fleet, its surface
+    """The [mesh] phase's calls on ``inp`` (the fleet, its surface
     traces, the probe batch, the estimation traces), through the entry
-    points a user calls with ``impl``; ``mesh`` None: one process."""
+    points a user calls with ``impl``: the surface, the probe matrix, a
+    service over every trace and one over each of ``MESH_WINDOWS``'
+    first traces; ``mesh`` None: one process.  Returns the calls and
+    each service by its call's name."""
     from repro_torch.core import fleet
     from repro_torch.serving import EstimationService, ServiceConfig
-    svc = EstimationService(model, ServiceConfig(lint=False, impl=impl),
-                            mesh=mesh)
     stacked = inp[MESH_IMPLS[impl]]
+    services = {}
 
-    def service():
-        tickets, _ = svc.submit_many(inp["trs"])
-        svc.drain()
-        return [svc.result(t) for t in tickets]
+    def service(name, trs):
+        svc = services[name] = EstimationService(
+            model, ServiceConfig(lint=False, impl=impl), mesh=mesh)
+
+        def run():
+            tickets, _ = svc.submit_many(trs)
+            svc.drain()
+            return [svc.result(t) for t in tickets]
+        return run
     return {
         "surface": lambda: fleet.fleet_surface_energy(
             stacked, inp["trace"], inp["weight"], impl=impl, mesh=mesh),
         "probes": lambda: fleet.run_probes(
             stacked, (), batch=inp["probe"], noisy=False, impl=impl,
             mesh=mesh),
-        "service": service}, svc
+        "service": service("service", inp["trs"]),
+        **{f"window {w}": service(f"window {w}", inp["trs"][:w])
+           for w in MESH_WINDOWS}}, services
 
 
 def same(a, b) -> bool:
@@ -1955,7 +1966,7 @@ def mesh_child(rank: int, world: int, shapes, store: str, work: str,
         mesh = make_local_mesh(*shape, device=device)
         rec = {}
         for impl in MESH_IMPLS:
-            calls, svc = mesh_calls(inp, model, mesh, impl)
+            calls, services = mesh_calls(inp, model, mesh, impl)
             for name, fn in calls.items():
                 reset_counters()
                 got = fn()
@@ -1965,11 +1976,12 @@ def mesh_child(rank: int, world: int, shapes, store: str, work: str,
                     "equal": same(got, one[f"{name} {impl}"]),
                     "launches": {k: c for k, c in read_counters().items()
                                  if c},
-                    "box": list(fleet.LAST_BOX or ()) if name != "service"
-                    else list(svc.engine.last_rows)}
+                    "box": list(services[name].engine.last_rows)
+                    if name in services else list(fleet.LAST_BOX or ())}
                 fleet.LAST_BOX = None
-        calls, svc = mesh_calls(inp, model, mesh)
-        for name, fn in calls.items():
+        calls, _ = mesh_calls(inp, model, mesh)
+        for name in MESH_TIMED:
+            fn = calls[name]
             times = []
             for _ in range(3):
                 dist.barrier()
@@ -1996,12 +2008,13 @@ def mesh_phase(card: str, seed: int, device="cuda",
     ranks on one device).  The ``[fleet]`` phase's synthetic fleet of
     10,000 modules: its surface over the two validation sweeps and the
     ``[campaign]`` probe matrix (348 probes); the estimation service over
-    the ``[e2e]`` workload's 64 traces; all ``impl='cuda'``, then the same
-    through ``impl='vectorized'`` on the [fleet] phase's 1,000-module
-    fleet.  Each rank's result must equal the one process's bit for bit
-    (``'vectorized'`` at these shapes; where a card's reduce order can
-    part from it, ROADMAP M2), and under ``'cuda'`` each rank must launch
-    the feature and charge kernels on its own box.  Wall times are of
+    the ``[e2e]`` workload's 64 traces, and over its first 8 and 16 (boxes
+    of 2-8 rows, whose row sums a card's reduce kernel would split by the
+    row count without the window's ``config``); all ``impl='cuda'``, then
+    the same through ``impl='vectorized'`` on the [fleet] phase's
+    1,000-module fleet.  Each rank's result must equal the one process's
+    bit for bit, and under ``'cuda'`` each rank must launch the feature
+    and charge kernels on its own box.  Wall times are of
     processes sharing one card, not of a multi-GPU mesh.  Returns the
     launches of every rank's first ``'cuda'`` call of each."""
     import tempfile
@@ -2034,7 +2047,7 @@ def mesh_phase(card: str, seed: int, device="cuda",
         calls, _ = mesh_calls(inp, model, None, impl)
         one.update({f"{name} {impl}": fn() for name, fn in calls.items()})
     calls, _ = mesh_calls(inp, model, None)
-    one_ms = {name: wall_ms(fn, 3) for name, fn in calls.items()}
+    one_ms = {name: wall_ms(calls[name], 3) for name in MESH_TIMED}
     launched = dict.fromkeys(read_counters(), 0)
     with tempfile.TemporaryDirectory() as work:
         torch.save({k: v if k == "trs" else v.to("cpu")
@@ -2061,12 +2074,12 @@ def mesh_phase(card: str, seed: int, device="cuda",
                     call = f"{name} {impl}"
                     for r, res in enumerate(ranks):
                         got = res[tag][call]
+                        what = ("shape" if name in ("surface", "probes")
+                                else "rows")
                         print(f"[mesh] {tag} rank {r} {call}: "
                               f"bit_equal_to_one_process={got['equal']} "
-                              f"its box "
-                              f"{'rows' if name == 'service' else 'shape'}"
-                              f"={got['box']} launches={got['launches']}",
-                              flush=True)
+                              f"its box {what}={got['box']} "
+                              f"launches={got['launches']}", flush=True)
                         check(got["equal"], f"mesh {tag}: rank {r}'s "
                                             f"{call} differs from one "
                                             f"process's")
@@ -2078,7 +2091,7 @@ def mesh_phase(card: str, seed: int, device="cuda",
                                   f"in {name}")
                         for k, c in got["launches"].items():
                             launched[k] += c
-                    if impl != "cuda":
+                    if impl != "cuda" or name not in MESH_TIMED:
                         continue
                     print(f"[mesh] {tag} {name}: wall_ms="
                           f"{ranks[0][tag][call]['wall_ms']:.3f} with "

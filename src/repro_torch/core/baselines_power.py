@@ -31,7 +31,7 @@ from repro_torch.core.energy_model import (BG_ACTIVE, BG_PDN_ACT,
                                            extract_structural_features,
                                            masked_cycles, surface_charge,
                                            surface_cycles)
-from repro_torch.kernels.common import row_sums
+from repro_torch.kernels.common import batch_rows, row_sums
 
 _T = TIMING
 
@@ -151,25 +151,34 @@ MODELS = {"micron": micron_power, "drampower": drampower}
 # Batched dispatches (impl='vectorized')
 # ---------------------------------------------------------------------------
 def batched_baseline_reports(kind: str, trace: CommandTrace, weight,
-                             table: torch.Tensor) -> EnergyReport:
+                             table: torch.Tensor,
+                             config: dict | None = None) -> EnergyReport:
     """Reports of every (trace, vendor) pair of one baseline kind;
-    ``table`` is the stacked ``(vendors, 10)`` datasheet matrix."""
+    ``table`` is the stacked ``(vendors, 10)`` datasheet matrix;
+    ``config`` places a sharded box in its batch
+    (``kernels.common.batch_rows``)."""
     ob, pd = _bg_state(extract_structural_features(trace))
+    rows = batch_rows(config)
     charge = torch.stack(
-        [row_sums(_CHARGE_FNS[kind](trace, ob, pd, _row_dict(row)) * weight)
+        [row_sums(_CHARGE_FNS[kind](trace, ob, pd, _row_dict(row)) * weight,
+                  rows)
          for row in table], dim=-1)                           # (T, V)
     cycles = masked_cycles(trace, weight)
     return _report(charge, cycles[:, None].expand(charge.shape))
 
 
 def batched_baseline_surface_reports(kind: str, trace: CommandTrace, weight,
-                                     table: torch.Tensor) -> EnergyReport:
+                                     table: torch.Tensor,
+                                     config: dict | None = None
+                                     ) -> EnergyReport:
     """``mode='surface'`` twin: the same per-command charges grouped onto
     the (bank, row-band) cells -> ``(traces, vendors, banks, row_bands)``."""
     ob, pd = _bg_state(extract_structural_features(trace))
+    rows = batch_rows(config)
     charge = torch.stack(
         [surface_charge(trace, weight,
-                        _CHARGE_FNS[kind](trace, ob, pd, _row_dict(row)))
+                        _CHARGE_FNS[kind](trace, ob, pd, _row_dict(row)),
+                        rows)
          for row in table], dim=1)                            # (T, V, 8, R)
     cycles = surface_cycles(trace, weight)
     return _report(charge, cycles[:, None].expand(charge.shape))
@@ -240,7 +249,7 @@ class DatasheetModel(model_api.StackedEstimatorMixin):
         if mode == "surface":
             if impl == "vectorized":
                 return batched_baseline_surface_reports(
-                    self.kind, tb.trace, tb.weight, table)
+                    self.kind, tb.trace, tb.weight, table, config)
             if impl == "cuda":
                 from repro_torch.kernels.baseline_energy import ops as bops
                 charge, cycles = bops.baseline_charge_matrix(
@@ -250,7 +259,7 @@ class DatasheetModel(model_api.StackedEstimatorMixin):
             return self._reference_surface(traces, tb, idx)
         if impl == "vectorized":
             rep = batched_baseline_reports(self.kind, tb.trace, tb.weight,
-                                           table)
+                                           table, config)
         elif impl == "cuda":
             from repro_torch.kernels.baseline_energy import ops as bops
             charge, cycles = bops.baseline_charge_matrix(

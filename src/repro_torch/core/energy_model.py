@@ -389,18 +389,21 @@ def surface_cells(trace: CommandTrace) -> torch.Tensor:
     return trace.bank * N_ROW_BANDS + row_band(trace.row)
 
 
-def _grouped(values: torch.Tensor, cells: torch.Tensor) -> torch.Tensor:
+def _grouped(values: torch.Tensor, cells: torch.Tensor,
+             rows=None) -> torch.Tensor:
     """Sum ``values`` (..., N) into their cells -> (..., 8, N_ROW_BANDS)
-    (``kernels.common.cell_sums``: float charges stay float32)."""
-    return cell_sums(values, cells, N_SURFACE_CELLS).reshape(
+    (``kernels.common.cell_sums``: float charges stay float32; ``rows``
+    places a sharded box in its batch)."""
+    return cell_sums(values, cells, N_SURFACE_CELLS, rows).reshape(
         values.shape[:-1] + (N_BANKS, N_ROW_BANDS))
 
 
 def surface_charge(trace: CommandTrace, weight: torch.Tensor,
-                   charges: torch.Tensor) -> torch.Tensor:
+                   charges: torch.Tensor, rows=None) -> torch.Tensor:
     """Masked per-command charges grouped onto the structural surface ->
-    (..., 8, N_ROW_BANDS) mA*cycles."""
-    return _grouped(charges * weight, surface_cells(trace))
+    (..., 8, N_ROW_BANDS) mA*cycles; ``rows`` places a sharded box of
+    traces in its batch (``kernels.common.batch_rows``)."""
+    return _grouped(charges * weight, surface_cells(trace), rows)
 
 
 def surface_cycles(trace: CommandTrace, weight: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,7 @@ from repro_torch.core.energy_model import (EnergyReport, PowerParams,
                                            per_trace_fraction, scale_report,
                                            surface_charge, surface_cycles)
 from repro_torch.core.fleet import batched_pair_totals
+from repro_torch.kernels.common import batch_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,26 +123,30 @@ def _matrix_report(charge, cycles) -> EnergyReport:
 # The batched dispatches (impl='vectorized')
 # ---------------------------------------------------------------------------
 def batched_reports(trace: CommandTrace, weight: torch.Tensor,
-                    stacked: PowerParams) -> EnergyReport:
+                    stacked: PowerParams,
+                    config: dict | None = None) -> EnergyReport:
     """Energy reports of every (trace, vendor) pair; every leaf is
-    ``(traces, vendors)``."""
+    ``(traces, vendors)``.  ``config`` places a sharded box in its batch
+    (``kernels.common.batch_rows``; as in every dispatch below)."""
     charge, cycles = batched_pair_totals(
-        trace, weight, extract_structural_features(trace), stacked)
+        trace, weight, extract_structural_features(trace), stacked, config)
     return _matrix_report(charge, cycles)
 
 
 def batched_range_reports(trace: CommandTrace, weight: torch.Tensor,
-                          stacked: PowerParams, band: torch.Tensor):
+                          stacked: PowerParams, band: torch.Tensor,
+                          config: dict | None = None):
     """(lo, mean, hi) report matrices across the per-vendor (V, 2)
     process-variation band."""
-    mean = batched_reports(trace, weight, stacked)
+    mean = batched_reports(trace, weight, stacked, config)
     return (scale_report(mean, band[None, :, 0]), mean,
             scale_report(mean, band[None, :, 1]))
 
 
 def batched_distribution_reports(trace: CommandTrace, weight: torch.Tensor,
                                  stacked: PowerParams, ones_frac,
-                                 toggle_frac) -> EnergyReport:
+                                 toggle_frac,
+                                 config: dict | None = None) -> EnergyReport:
     """No-data-trace mode: expected ones/toggle fractions (scalars or one
     per trace) replace the per-command data features."""
     t = trace.cmd.shape[0]
@@ -149,20 +154,21 @@ def batched_distribution_reports(trace: CommandTrace, weight: torch.Tensor,
     of = per_trace_fraction(ones_frac, t, dev)
     tf = per_trace_fraction(toggle_frac, t, dev)
     sf = distribution_features(extract_structural_features(trace), of, tf)
-    charge, cycles = batched_pair_totals(trace, weight, sf, stacked)
+    charge, cycles = batched_pair_totals(trace, weight, sf, stacked, config)
     return _matrix_report(charge, cycles)
 
 
 def _surface_charges(trace: CommandTrace, weight: torch.Tensor,
-                     sf: StructuralFeatures,
-                     stacked: PowerParams) -> torch.Tensor:
+                     sf: StructuralFeatures, stacked: PowerParams,
+                     rows=None) -> torch.Tensor:
     """Masked surface charge of every (trace, paramset) pair ->
-    ``(T, V, 8, R)``; ``sf`` is the batch's structural pass."""
+    ``(T, V, 8, R)``; ``sf`` is the batch's structural pass, ``rows``
+    the box's place in its batch."""
     charges = []
     for v in range(stacked.i2n.shape[0]):
         pp = stacked.select(v)
         c = charge_from_features(trace, finalize_features(sf, pp), pp)
-        charges.append(surface_charge(trace, weight, c))
+        charges.append(surface_charge(trace, weight, c, rows))
     return torch.stack(charges, dim=1)
 
 
@@ -172,7 +178,8 @@ def surface_chunk_charge(trace: CommandTrace, weight: torch.Tensor,
     """The surface charge of every (trace, paramset) pair ->
     ``(T, V, 8, R)``, before its finalisation (:func:`surface_report`):
     plain PyTorch (``'vectorized'``) or the feature and surface charge
-    kernels (``'cuda'``, launched at ``config``).  The one-shot, chunked
+    kernels (``'cuda'``, launched at ``config``; ``'vectorized'`` takes
+    the box's place in its batch from it).  The one-shot, chunked
     and sharded surface dispatches all reach one of these two, and share
     the finalisation."""
     if impl == "cuda":
@@ -181,7 +188,8 @@ def surface_chunk_charge(trace: CommandTrace, weight: torch.Tensor,
                                        trace.cmd.shape[0], stacked,
                                        surface=True, config=config)
     return _surface_charges(trace, weight,
-                            extract_structural_features(trace), stacked)
+                            extract_structural_features(trace), stacked,
+                            batch_rows(config))
 
 
 def surface_report(charge: torch.Tensor, trace: CommandTrace,
@@ -193,11 +201,13 @@ def surface_report(charge: torch.Tensor, trace: CommandTrace,
 
 
 def batched_surface_reports(trace: CommandTrace, weight: torch.Tensor,
-                            stacked: PowerParams) -> EnergyReport:
+                            stacked: PowerParams,
+                            config: dict | None = None) -> EnergyReport:
     """Per-(bank, row-band) decomposition of every pair: leaves are
     ``(traces, vendors, banks, row_bands)``; summing the cell axes gives
     :func:`batched_reports`."""
-    return surface_report(surface_chunk_charge(trace, weight, stacked),
+    return surface_report(surface_chunk_charge(trace, weight, stacked,
+                                               config=config),
                           trace, weight)
 
 

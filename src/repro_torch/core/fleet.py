@@ -23,12 +23,11 @@ are gathered on every rank, and the finalisation runs once outside, as
 in the one-process dispatch.  Every (trace, module) pair is independent,
 and ``'cuda'`` launches a box's kernels at the whole batch's geometry
 (the tiles a pair's commands are summed in follow it), so its result is
-the one-process result bit for bit.  ``'vectorized'`` is too on the CPU,
-where each pair's sums are kept in one order whatever the box's shape
-(``kernels.common.row_sums``); on a card torch's reduce kernel chooses a
-row's split by the number of rows, so a box can differ from one process
-in the last bits (ROADMAP M2).  A mesh of one device, or axes that do
-not divide the batch, take the plain dispatch.
+the one-process result bit for bit.  So is ``'vectorized'``: each
+pair's sums are kept in the whole batch's order whatever the box's shape
+(``kernels.common.row_sums``, given the box's place in the batch by the
+same ``config``).  A mesh of one device, or axes that do not divide the
+batch, take the plain dispatch.
 """
 from __future__ import annotations
 
@@ -44,7 +43,7 @@ from repro_torch.core.energy_model import (PowerParams, StructuralFeatures,
                                            charge_from_features,
                                            extract_structural_features,
                                            finalize_features, masked_cycles)
-from repro_torch.kernels.common import row_sums
+from repro_torch.kernels.common import batch_rows, row_sums
 
 
 def stack_params(params: Sequence[PowerParams]) -> PowerParams:
@@ -197,16 +196,19 @@ class ProbeBatch:
 
 
 def batched_pair_totals(tr: CommandTrace, w: torch.Tensor,
-                        sf: StructuralFeatures, stacked: PowerParams):
+                        sf: StructuralFeatures, stacked: PowerParams,
+                        config: dict | None = None):
     """Masked charge of every (trace, paramset) pair and the masked cycles
     of every trace -> ``((..., V), (...,))``.  The structural pass ``sf``
     ran once for the batch; only the open-bank finalize and the charge
-    integration run per parameter set."""
+    integration run per parameter set.  ``config`` places a sharded box
+    of traces in its batch (``kernels.common.batch_rows``)."""
+    rows = batch_rows(config)
     charges = []
     for v in range(stacked.i2n.shape[0]):
         pp = stacked.select(v)
         c = charge_from_features(tr, finalize_features(sf, pp), pp)
-        charges.append(row_sums(c * w))
+        charges.append(row_sums(c * w, rows))
     return torch.stack(charges, dim=-1), masked_cycles(tr, w)
 
 
@@ -218,16 +220,18 @@ def _currents(charge: torch.Tensor, cycles: torch.Tensor) -> torch.Tensor:
 
 def fleet_measure_current(trace: CommandTrace, weight: torch.Tensor,
                           stacked: PowerParams,
-                          sf: StructuralFeatures | None = None
-                          ) -> torch.Tensor:
+                          sf: StructuralFeatures | None = None,
+                          config: dict | None = None) -> torch.Tensor:
     """Noise-free average current of every (module, probe) pair in plain
     PyTorch: ``trace``/``weight`` are a ProbeBatch's padded fields,
     ``stacked`` the fleet's stacked params -> float32 (modules, probes).
     ``sf`` is the batch's structural pass when the caller already has it
-    (it depends on the traces only)."""
+    (it depends on the traces only); ``config`` places a sharded box in
+    its batch, as the kernels' twin takes it."""
     if sf is None:
         sf = extract_structural_features(trace)
-    return _currents(*batched_pair_totals(trace, weight, sf, stacked))
+    return _currents(*batched_pair_totals(trace, weight, sf, stacked,
+                                          config))
 
 
 def fleet_measure_current_cuda(trace: CommandTrace, weight: torch.Tensor,
@@ -280,11 +284,13 @@ def fleet_surface_energy(modules, trace: CommandTrace, weight: torch.Tensor,
             trace_chunk=trace_chunk, impl=impl)
     if _shards(mesh, trace.cmd.shape[0], stacked.i2n.shape[0]):
         rows = _rows(trace.cmd.shape[0], mesh, "data")
-        # the kernels of a box launch at the whole batch's geometry
+        # a box's kernels launch at the whole batch's geometry, and its
+        # 'vectorized' row sums are taken at the batch's shape
         box = eb.surface_chunk_charge(
             CommandTrace(*(x[rows] for x in trace)), weight[rows],
             _module_block(stacked, mesh), impl,
-            config={"batch": (trace.cmd.shape[0], stacked.i2n.shape[0])})
+            config={"batch": (trace.cmd.shape[0], stacked.i2n.shape[0]),
+                    "first_trace": rows.start})
         _note(box)
         charge = model_api.gather_boxes(box, mesh, {"data": 0, "model": 1})
         return eb.surface_report(charge, trace, weight)
@@ -340,11 +346,11 @@ def run_probes(modules, points: Sequence[ProbePoint], *,
                else fleet_measure_current)
     if _shards(mesh, batch.weight.shape[0], stacked.i2n.shape[0]):
         rows = _rows(batch.weight.shape[0], mesh, "data")
-        kw = ({"config": {"batch": (batch.weight.shape[0],
-                                    stacked.i2n.shape[0])}}
-              if impl == "cuda" else {})
         box = measure(CommandTrace(*(x[rows] for x in batch.trace)),
-                      batch.weight[rows], _module_block(stacked, mesh), **kw)
+                      batch.weight[rows], _module_block(stacked, mesh),
+                      config={"batch": (batch.weight.shape[0],
+                                        stacked.i2n.shape[0]),
+                              "first_trace": rows.start})
         _note(box)
         currents = model_api.gather_boxes(box, mesh, {"model": 0, "data": 1})
     else:

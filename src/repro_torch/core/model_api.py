@@ -23,8 +23,11 @@ Every power model — the fitted VAMPIRE model and the datasheet baselines
   oracle);
 * ``config`` is the charge kernels' launch configuration under
   ``impl='cuda'`` (``kernels.common.resolve_geometry``: the autotuner's
-  choice when None; the sharded serving engine sizes a box's launch for
-  its whole window); the other impls ignore it.
+  choice when None).  A sharded dispatch estimates its box with the
+  whole batch's ``{"batch": (traces, vendors), "first_trace": t0}``:
+  ``'cuda'`` sizes the launch for the batch, ``'vectorized'`` sums the
+  box's rows at the batch's shape (``kernels.common.row_sums``), so both
+  give the batch's bits; ``'reference'`` ignores it.
 
 A model lives on one device.  The entry points that make one
 (:func:`load_estimator`, :func:`make_estimator`, the estimator classes)

@@ -172,7 +172,7 @@ class Vampire(model_api.StackedEstimatorMixin):
         if mode == "surface":
             if impl == "vectorized":
                 return eb.batched_surface_reports(tb.trace, tb.weight,
-                                                  stacked)
+                                                  stacked, config)
             if impl == "cuda":
                 return eb.cuda_batched_surface_reports(tb.trace, tb.weight,
                                                        stacked, config)
@@ -181,7 +181,8 @@ class Vampire(model_api.StackedEstimatorMixin):
         if mode == "distribution":
             if impl == "vectorized":
                 return eb.batched_distribution_reports(
-                    tb.trace, tb.weight, stacked, ones_frac, toggle_frac)
+                    tb.trace, tb.weight, stacked, ones_frac, toggle_frac,
+                    config)
             if impl == "cuda":
                 return eb.cuda_batched_distribution_reports(
                     tb.trace, tb.weight, stacked, ones_frac, toggle_frac,
@@ -193,8 +194,8 @@ class Vampire(model_api.StackedEstimatorMixin):
         if impl == "vectorized":
             if mode == "range":
                 return eb.batched_range_reports(tb.trace, tb.weight, stacked,
-                                                band)
-            return eb.batched_reports(tb.trace, tb.weight, stacked)
+                                                band, config)
+            return eb.batched_reports(tb.trace, tb.weight, stacked, config)
         if impl == "cuda":
             if mode == "range":
                 return eb.cuda_batched_range_reports(tb.trace, tb.weight,

@@ -37,8 +37,9 @@ _F32 = ctypes.c_float
 
 # exported C functions of each source -> their argument types
 SIGNATURES = {
+    # data, cmd, prev_rw, ones, togg, (lines, padded trace length), stream
     "features": {
-        "repro_features": [_P, _P, _P, _P, _P, _I64, _P],
+        "repro_features": [_P] * 5 + [_I64, _I64, _P],
     },
     # charge kernels: the planes, the output, then (n_traces, n_cmds,
     # n_vendors, cluster, group, phase) and the stream

@@ -67,25 +67,47 @@ def cell_index(bank: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
     return ((bank & 7) << 3) | ((row >> 12) & 7)
 
 
-def row_sums(values: torch.Tensor) -> torch.Tensor:
+def batch_rows(config: dict | None) -> tuple[int, int] | None:
+    """Where a sharded dispatch's box sits in its whole batch, from the
+    kernels' ``config``: ``(first row, rows of the batch)`` from
+    ``config["first_trace"]`` and ``config["batch"][0]``, or None for a
+    call that is not a box."""
+    if not config or "batch" not in config:
+        return None
+    return int(config.get("first_trace", 0)), int(config["batch"][0])
+
+
+def row_sums(values: torch.Tensor,
+             rows: tuple[int, int] | None = None) -> torch.Tensor:
     """``values.sum(-1)``, each row summed in one order whatever the
     number of rows.  On the CPU torch sums each of several rows on one
     thread, but splits a lone row over its threads (two passes) once it
     holds 32768 values, so a batch of one trace, or a sharded box of one
     row, would sum it in another order than a batch that holds it among
     others; a lone row is summed as one of two (a stride-0 view, no
-    copy).  The card's reduce kernel splits a row by the number of rows
-    too; that order is torch's and is not pinned here."""
-    if values.device.type == "cpu" and values.shape[:-1].numel() == 1:
-        return values.expand((2,) + values.shape).sum(-1)[0]
+    copy).  The card's reduce kernel chooses how a row is split by the
+    number of rows (and a row's first vector load by its address), so a
+    box ``values`` whose leading axis is rows ``rows = (first, total)``
+    of a batch (:func:`batch_rows`) is summed there inside a zero tensor
+    of the batch's shape, at its own rows, and sliced back out: each row
+    then sums in the order the whole batch sums it."""
+    if values.device.type == "cpu":
+        if values.shape[:-1].numel() == 1:
+            return values.expand((2,) + values.shape).sum(-1)[0]
+    elif rows is not None and values.shape[0] != rows[1]:
+        first, total = rows
+        box = slice(first, first + values.shape[0])
+        whole = values.new_zeros((total,) + values.shape[1:])
+        whole[box] = values
+        return whole.sum(-1)[box]
     return values.sum(-1)
 
 
 CELL_GROUP = 8         # cells one pass of cell_sums compares against
 
 
-def cell_sums(values: torch.Tensor, cells: torch.Tensor,
-              n_cells: int) -> torch.Tensor:
+def cell_sums(values: torch.Tensor, cells: torch.Tensor, n_cells: int,
+              rows: tuple[int, int] | None = None) -> torch.Tensor:
     """Sum ``values`` ``(..., N)`` into ``n_cells`` cells by ``cells``
     (broadcastable to ``values``) -> ``(..., n_cells)``, in the values'
     dtype.  Integers scatter once (exact in any order).  Floats are summed
@@ -104,7 +126,8 @@ def cell_sums(values: torch.Tensor, cells: torch.Tensor,
     parts = []
     for first in range(0, n_cells, CELL_GROUP):
         hit = cells[..., None, :] == ids[first:first + CELL_GROUP, None]
-        parts.append(torch.where(hit, values[..., None, :], 0.0).sum(-1))
+        parts.append(row_sums(torch.where(hit, values[..., None, :], 0.0),
+                              rows))
     return torch.cat(parts, dim=-1)
 
 

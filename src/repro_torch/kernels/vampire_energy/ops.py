@@ -15,8 +15,7 @@ from repro_torch.core.dram import CommandTrace, LINE_BITS, N_BANKS, \
     N_ROW_BANDS
 from repro_torch.core.energy_model import (PowerParams, StructuralState,
                                            masked_cycles, per_trace_fraction,
-                                           prev_lines, structural_state,
-                                           surface_cycles)
+                                           structural_state, surface_cycles)
 from repro_torch.kernels.vampire_energy.vampire_energy import (
     SCAL_FIELDS, batched_features, vampire_charge, vampire_charge_surface)
 
@@ -66,17 +65,11 @@ def charge_planes(trace: CommandTrace, weight: torch.Tensor, *,
     kernel reads before the parameter block, or None for a batch of empty
     traces (``N == 0``), which launches nothing.  One set of planes serves
     any number of parameter sets (:func:`charge_from_planes`)."""
-    t, n = trace.cmd.shape
-    if n == 0:
+    if trace.cmd.shape[1] == 0:
         return None
     st = structural_state(trace)
     if ones_frac is None:
-        tmask = (st.has_prev & st.is_rw).to(torch.float32)
-        ones, togg = batched_features(
-            trace.data.reshape(t * n, -1),
-            prev_lines(trace.data, st).reshape(t * n, -1),
-            tmask.reshape(t * n))
-        ones, togg = ones.reshape(t, n), togg.reshape(t, n)
+        ones, togg = batched_features(trace.data, trace.cmd, st.prev_rw)
     else:
         ones, togg = expected_data_features(st, ones_frac, toggle_frac)
     return (ones.contiguous(), togg.contiguous(), trace.cmd, trace.bank,

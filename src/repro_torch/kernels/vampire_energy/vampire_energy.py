@@ -4,8 +4,10 @@ Two CUDA kernels (``repro_torch/csrc``) split the work where the model
 does:
 
 1. :func:`batched_features` (``features.cu``) — the param-independent
-   feature kernel, run once per batch: per-line popcount and bus-XOR
-   toggle popcount.  Replaces ``batched_features_pallas``.
+   feature kernel, run once per batch: per-line popcount and the bus-XOR
+   toggle popcount against the previous RD/WR's line, which it gathers
+   itself from ``structural_state``'s ``prev_rw``.  Replaces
+   ``batched_features_pallas`` and the gather that fed it.
 2. :func:`vampire_charge` / :func:`vampire_charge_surface`
    (``vampire_energy.cu``) — the per-vendor charge kernel over compact
    per-command inputs, reduced inside the kernel to a ``(T, V)`` matrix or
@@ -38,33 +40,40 @@ P_COEFFS, P_SCAL, P_BVEC, P_SURF, P_SIZE = 0, 24, 35, 59, 123
 # ---------------------------------------------------------------------------
 # 1. the feature kernel
 # ---------------------------------------------------------------------------
-def batched_features_plain(data, prev, tmask):
-    """Plain version of :func:`batched_features`."""
+def batched_features_plain(data, cmd, prev_rw):
+    """Plain version of :func:`batched_features` (``torch.gather`` of the
+    previous RD/WR's line)."""
     ones = popcount_u32(data).sum(dim=-1).to(torch.float32)
+    index = prev_rw.clamp(min=0).long()[..., None].expand(data.shape)
+    prev = torch.gather(data, -2, index)
     togg = popcount_u32(torch.bitwise_xor(data, prev)).sum(dim=-1)
-    return ones, togg.to(torch.float32) * tmask
+    take = ((cmd == RD) | (cmd == WR)) & (prev_rw >= 0)
+    return ones, torch.where(take, togg.to(torch.float32), 0.0)
 
 
-def batched_features(data: torch.Tensor, prev: torch.Tensor,
-                     tmask: torch.Tensor):
-    """``(M, 16)`` int32 line bit patterns ``data`` and ``prev`` and an
-    ``(M,)`` float32 toggle-validity mask -> ``(ones, togg)``, both
-    ``(M,)`` float32: per-line popcount of ``data`` and popcount of
-    ``data ^ prev`` times the mask."""
-    if on_cpu(data, prev, tmask):
-        return batched_features_plain(data, prev, tmask)
-    m = data.shape[0]
+def batched_features(data: torch.Tensor, cmd: torch.Tensor,
+                     prev_rw: torch.Tensor):
+    """A padded batch's ``(T, N, 16)`` int32 line bit patterns ``data``,
+    ``(T, N)`` int32 command codes ``cmd`` and ``(T, N)`` int32
+    ``prev_rw`` (``structural_state``'s index of the previous RD/WR in the
+    same trace, -1 where there is none) -> ``(ones, togg)``, both
+    ``(T, N)`` float32: each line's popcount, and the popcount of the line
+    XOR the previous RD/WR's line where the command is a RD or WR with
+    one (else 0)."""
+    if on_cpu(data, cmd, prev_rw):
+        return batched_features_plain(data, cmd, prev_rw)
+    t, n = cmd.shape
     dev = require_cuda(
-        {"data": data, "prev": prev, "tmask": tmask},
-        {"data": torch.int32, "prev": torch.int32, "tmask": torch.float32},
-        {"data": (m, 16), "prev": (m, 16), "tmask": (m,)})
-    require_aligned(data=data, prev=prev)
-    ones = torch.empty(m, dtype=torch.float32, device=dev)
-    togg = torch.empty(m, dtype=torch.float32, device=dev)
+        {"data": data, "cmd": cmd, "prev_rw": prev_rw},
+        {"data": torch.int32, "cmd": torch.int32, "prev_rw": torch.int32},
+        {"data": (t, n, 16), "cmd": (t, n), "prev_rw": (t, n)})
+    require_aligned(data=data)
+    ones = torch.empty((t, n), dtype=torch.float32, device=dev)
+    togg = torch.empty((t, n), dtype=torch.float32, device=dev)
     lib = build.library("features")
-    rc = lib.repro_features(build.ptr(data), build.ptr(prev),
-                            build.ptr(tmask), build.ptr(ones),
-                            build.ptr(togg), m, build.stream(dev))
+    rc = lib.repro_features(build.ptr(data), build.ptr(cmd),
+                            build.ptr(prev_rw), build.ptr(ones),
+                            build.ptr(togg), t * n, n, build.stream(dev))
     build.check(rc, "features kernel")
     batched_features.launches += 1
     return ones, togg

@@ -10,12 +10,12 @@ rank runs the service) the model is replicated as DTensors
 (``model_api.device_resident``) and the trace axis of a bucket is split
 over every mesh dimension, in row-major rank order: each rank scores its
 rows on its local copy of the model, and the reports are gathered on
-every rank.  Per-trace estimation is embarrassingly parallel; under
-``impl='cuda'`` a box's charge kernels launch at the whole window's
-geometry (``config={"batch": ...}``), so the sharded result is the
-one-process result bit for bit, and so is ``'vectorized'``'s on the CPU;
-``'vectorized'`` on a card can differ from it in the last bits, where
-torch's reduce kernel splits a row by the number of rows (ROADMAP M2).
+every rank.  Per-trace estimation is embarrassingly parallel; a box is
+estimated with the window's ``config={"batch": ..., "first_trace": ...}``:
+under ``impl='cuda'`` its charge kernels launch at the window's
+geometry, under ``'vectorized'`` its row sums are taken at the window's
+shape (``kernels.common.row_sums``), so the sharded result is the
+one-process result bit for bit.
 A mesh of one device, or a bucket whose trace count does not divide the
 device count, takes the plain dispatch, as the reference's does.
 
@@ -79,8 +79,10 @@ class ServingEngine:
         self.last_rows = (rows.start, rows.stop)
         box = TraceBatch(CommandTrace(*(x[rows] for x in tb.trace)),
                          tb.weight[rows])
-        # the kernels of a box launch at the whole window's geometry
-        whole = {"batch": (tb.n_traces, len(vendors or self.local.vendors))}
+        # a box's kernels launch at the whole window's geometry, and its
+        # 'vectorized' row sums are taken at the window's shape
+        whole = {"batch": (tb.n_traces, len(vendors or self.local.vendors)),
+                 "first_trace": rows.start}
         rep = self.local.estimate(box, vendors, config=whole, **kw)
         dims = dict.fromkeys(self.mesh.mesh_dim_names, 0)
         return model_api.map_tensors(

@@ -14,7 +14,7 @@ import torch
 from repro_torch.core import model_api, traces
 from repro_torch.core.dram import ACT
 from repro_torch.core.estimate_batch import bucketed_trace_batch
-from repro_torch.core.energy_model import prev_lines, structural_state
+from repro_torch.core.energy_model import structural_state
 from repro_torch.kernels.baseline_energy import baseline_energy as be
 from repro_torch.kernels.vampire_energy import ops as vops
 from repro_torch.kernels.vampire_energy import vampire_energy as ve
@@ -50,19 +50,75 @@ def _close(got, want, rtol=RTOL):
                                want.double().cpu().numpy(), rtol=rtol)
 
 
+def _prev_rw(cmd: torch.Tensor) -> torch.Tensor:
+    """``structural_state``'s ``prev_rw`` of a ``(T, N)`` command plane."""
+    from repro_torch.core.dram import CommandTrace
+    zero = torch.zeros_like(cmd)
+    return structural_state(CommandTrace(cmd, zero, zero, zero, None,
+                                         zero)).prev_rw
+
+
+def _feature_inputs(device, t, n, p_rw, seed):
+    """Seeded ``(data, cmd, prev_rw)`` of a ``(t, n)`` batch whose
+    commands are RD or WR with probability ``p_rw``."""
+    rng = np.random.default_rng(seed)
+    data = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (t, n, 16),
+                                         dtype=np.int64).astype(np.int32))
+    rw = rng.random((t, n)) < p_rw
+    cmd = np.where(rw, rng.choice([3, 4], (t, n)),
+                   rng.choice([0, 1, 2, 5], (t, n))).astype(np.int32)
+    cmd = torch.from_numpy(cmd).to(device)
+    return data.to(device), cmd, _prev_rw(cmd)
+
+
 def test_features_kernel_is_bit_exact(device):
-    gen = torch.Generator().manual_seed(5)
-    data = torch.randint(-2**31, 2**31 - 1, (4099, 16), generator=gen,
-                         dtype=torch.int32).to(device)
-    prev = torch.randint(-2**31, 2**31 - 1, (4099, 16), generator=gen,
-                         dtype=torch.int32).to(device)
-    tmask = (torch.rand(4099, generator=gen) < 0.5).float().to(device)
+    data, cmd, prev_rw = _feature_inputs(device, 5, 4099, 0.4, 5)
     before = ve.batched_features.launches
-    ones, togg = ve.batched_features(data, prev, tmask)
+    ones, togg = ve.batched_features(data, cmd, prev_rw)
     torch.cuda.synchronize()
     assert ve.batched_features.launches == before + 1
-    p_ones, p_togg = ve.batched_features_plain(data, prev, tmask)
+    p_ones, p_togg = ve.batched_features_plain(data, cmd, prev_rw)
     assert torch.equal(ones, p_ones) and torch.equal(togg, p_togg)
+
+
+@pytest.mark.parametrize("t, n, p_rw", [
+    (1, 1, 1.0),          # one line
+    (1, 700, 0.3),        # one trace
+    (2, 1000, 0.01),      # previous lines tiles back, read through L2
+    (3, 333, 0.5),        # 999 lines: not a multiple of the 256-line tile
+    (100, 5, 0.6),        # traces shorter than a tile: a tile wraps many
+    (4, 256, 0.2)])       # traces of one tile each
+def test_features_kernel_edges(device, t, n, p_rw):
+    data, cmd, prev_rw = _feature_inputs(device, t, n, p_rw, t * n)
+    if n >= 512:
+        # a previous RD/WR at the line before a tile (its overlap line) and
+        # one further back in the tile before
+        cmd[0, 250:520] = 0
+        cmd[0, 255] = 3
+        cmd[0, 300] = 4
+        cmd[0, 200] = 3
+        cmd[0, 510] = 3
+        prev_rw = _prev_rw(cmd)
+        assert int(prev_rw[0, 300]) == 255 and int(prev_rw[0, 510]) == 300
+    ones, togg = ve.batched_features(data, cmd, prev_rw)
+    torch.cuda.synchronize()
+    p_ones, p_togg = ve.batched_features_plain(data, cmd, prev_rw)
+    assert torch.equal(ones, p_ones) and torch.equal(togg, p_togg)
+
+
+def test_features_launch_once_per_cuda_estimate(setup):
+    """Every ``'cuda'`` VAMPIRE estimate but mode='distribution' launches
+    the feature kernel exactly once; the baselines never do."""
+    _, tb, models = setup
+    for kind, est in models.items():
+        for mode in ("mean", "range", "distribution", "surface"):
+            kw = (dict(ones_frac=0.35, toggle_frac=0.15)
+                  if mode == "distribution" else {})
+            before = ve.batched_features.launches
+            est.estimate(tb, mode=mode, impl="cuda", **kw)
+            want = int(kind == "vampire" and mode != "distribution")
+            assert ve.batched_features.launches == before + want, (kind,
+                                                                   mode)
 
 
 @pytest.mark.parametrize("surface", [False, True])
@@ -70,11 +126,8 @@ def test_vampire_charge_kernel_matches_plain(setup, surface):
     _, tb, models = setup
     tr = tb.trace
     st = structural_state(tr)
-    t, n = tr.cmd.shape
-    ones, togg = ve.batched_features(
-        tr.data.reshape(t * n, -1), prev_lines(tr.data, st).reshape(t * n, -1),
-        (st.has_prev & st.is_rw).float().reshape(-1))
-    args = (ones.reshape(t, n), togg.reshape(t, n), tr.cmd, tr.bank, tr.row,
+    ones, togg = ve.batched_features(tr.data, tr.cmd, st.prev_rw)
+    args = (ones, togg, tr.cmd, tr.bank, tr.row,
             tr.dt, vops.pack_state(st), tb.weight,
             vops.pack_param_blocks(models["vampire"].fleet.params))
     fn = ve.vampire_charge_surface if surface else ve.vampire_charge
@@ -1066,3 +1119,35 @@ def test_vectorized_boxes_part_from_their_window_on_the_card(setup,
             _close(got, w, rtol=1e-6)
         equal = equal and _reports_equal(box, want)
     assert not equal
+
+
+def test_vectorized_boxes_with_the_windows_config_give_its_bits(setup,
+                                                                device):
+    """M2 closed: the boxes of 2-8 rows of 8- and 16-trace windows that
+    part from their window when estimated alone (the test above) give the
+    window's bits when estimated with the window's ``config={"batch":
+    ..., "first_trace": ...}``, as the sharded engine and fleet dispatches
+    pass it: ``kernels.common.row_sums`` sums a box's rows inside a zero
+    tensor of the window's shape, at its own rows.  Every kind, and the
+    VAMPIRE surface (``cell_sums``)."""
+    import dataclasses
+    _, _, models = setup
+    apps = [dataclasses.replace(traces.SPEC_APPS[i], seed=i + 1)
+            for i in range(16)]
+    trs = [traces.app_trace(a, n_requests=6000) for a in apps]
+    for window in (8, 16):
+        tb = bucketed_trace_batch(trs[:window], window, 16384).to(device)
+        for kind, mode in [(k, "mean") for k in models] + [("vampire",
+                                                            "surface")]:
+            model = models[kind]
+            whole = model.estimate(tb, mode=mode, impl="vectorized")
+            v = len(model.vendors)
+            for size in (window // 4, window // 2):
+                for start in range(0, window, size):
+                    box = model.estimate(
+                        _rows(tb, start, start + size), mode=mode,
+                        impl="vectorized",
+                        config={"batch": (window, v), "first_trace": start})
+                    want = [x[start:start + size] for x in whole]
+                    assert _reports_equal(box, want), (window, kind, mode,
+                                                       size, start)

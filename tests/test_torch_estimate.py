@@ -331,3 +331,33 @@ def test_a_batch_of_empty_traces_gives_zeros(estimators, kind, mode, impl):
             assert lg.shape == np.asarray(lw).shape, name
             assert not lg.any() and not np.asarray(lw).any(), name
     _assert_reports(got, want, mode, f"{kind}/{mode}/{impl} empty traces")
+
+
+@pytest.mark.parametrize("impl", ("vectorized", "cuda"))
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("kind", KINDS)
+def test_a_box_with_its_batch_config_gives_the_batch_rows(estimators, ragged,
+                                                          kind, mode, impl):
+    """A sharded dispatch's box, estimated with the whole batch's
+    ``config={"batch": ..., "first_trace": ...}``, is the batch's rows bit
+    for bit on every impl that takes a config (on the CPU; on a card
+    ``tests/test_torch_cuda.py`` holds the same)."""
+    from repro_torch.core.dram import CommandTrace
+    from repro_torch.kernels.common import batch_rows
+    _, port = estimators
+    _, trs = ragged
+    kw = MODE_KW.get(mode, {})
+    tb = pbatch.TraceBatch.from_traces(trs)
+    whole = port[kind].estimate(tb, mode=mode, impl=impl, **kw)
+    n, v = tb.n_traces, len(port[kind].vendors)
+    for rows in (slice(0, 2), slice(2, 3), slice(3, 5)):
+        box = pbatch.TraceBatch(CommandTrace(*(x[rows] for x in tb.trace)),
+                                tb.weight[rows])
+        config = {"batch": (n, v), "first_trace": rows.start}
+        assert batch_rows(config) == (rows.start, n)
+        got = port[kind].estimate(box, mode=mode, impl=impl, config=config,
+                                  **kw)
+        for g, w in zip(_reports(got, mode), _reports(whole, mode)):
+            for name, lg, lw in zip(g._fields, g, w):
+                assert torch.equal(lg, lw[rows]), (rows, name)
+    assert batch_rows(None) is None and batch_rows({"max_cluster": 2}) is None

@@ -80,23 +80,28 @@ def batches():
     return rtb, ptb
 
 
-def test_feature_plain_version_matches_pallas_bit_for_bit():
-    rng = np.random.default_rng(23)
-    data = rng.integers(0, 1 << 32, size=(777, 16),
-                        dtype=np.uint64).astype(np.uint32)
-    prev = rng.integers(0, 1 << 32, size=(777, 16),
-                        dtype=np.uint64).astype(np.uint32)
-    tmask = (rng.random(777) < 0.6).astype(np.float32)
-    r_ones, r_togg = r_ve.batched_features_pallas(data, prev, tmask,
-                                                  interpret=True)
+def test_feature_plain_version_matches_pallas_bit_for_bit(batches):
+    """The feature wrapper on ``(data, cmd, prev_rw)`` against the
+    reference's kernel on the previous line and toggle mask that the
+    reference's own ``structural_state`` makes for the same batch."""
+    import jax
+    from repro.core.energy_model import structural_state as r_state
+    from repro_torch.core.energy_model import structural_state as p_state
+    rtb, ptb = batches
+    t, n = ptb.trace.cmd.shape
+    st = jax.vmap(r_state)(rtb.trace)
+    r_ones, r_togg = r_ve.batched_features_pallas(
+        rtb.trace.data.reshape(t * n, -1), st.prev_data.reshape(t * n, -1),
+        (st.has_prev & st.is_rw).astype(jnp.float32).reshape(t * n),
+        interpret=True)
     before = p_ve.batched_features.launches
-    ones, togg = p_ve.batched_features(torch.from_numpy(data.view(np.int32)),
-                                       torch.from_numpy(prev.view(np.int32)),
-                                       torch.from_numpy(tmask))
+    ones, togg = p_ve.batched_features(ptb.trace.data, ptb.trace.cmd,
+                                       p_state(ptb.trace).prev_rw)
     assert p_ve.batched_features.launches == before   # CPU: no launch
     assert ones.dtype == togg.dtype == torch.float32
-    np.testing.assert_array_equal(ones.numpy(), np.asarray(r_ones))
-    np.testing.assert_array_equal(togg.numpy(), np.asarray(r_togg))
+    assert ones.shape == togg.shape == (t, n)
+    np.testing.assert_array_equal(ones.numpy().reshape(-1), np.asarray(r_ones))
+    np.testing.assert_array_equal(togg.numpy().reshape(-1), np.asarray(r_togg))
 
 
 @pytest.mark.parametrize("variant", ["mean", "surface", "distribution"])
@@ -472,7 +477,10 @@ def test_kernel_data_ops_match_the_plain_feature_pass(batches):
 def test_line_kernel_wrappers_refuse_non_cuda_tensors():
     meta = torch.zeros(4, 16, dtype=torch.int32, device="meta")
     lut = torch.zeros(256, dtype=torch.int32, device="meta")
-    for call in (lambda: p_pc.line_ones(meta),
+    plane = torch.zeros(2, 2, dtype=torch.int32, device="meta")
+    for call in (lambda: p_ve.batched_features(meta.view(2, 2, 16), plane,
+                                               plane),
+                 lambda: p_pc.line_ones(meta),
                  lambda: p_tg.line_toggles(meta, meta),
                  lambda: p_lut.apply_lut_lines(meta, lut),
                  lambda: p_bdi.bdi_sizes(meta)):

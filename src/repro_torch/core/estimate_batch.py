@@ -10,7 +10,9 @@ matrix of a fitted model in one call.
   structural pass runs once over the batch, the charge once per vendor;
 * the ``cuda_*`` twins evaluate the same contracts through the
   hand-written kernels (``impl='cuda'``): the feature kernel once per
-  batch and the per-vendor charge kernel over ``(chunks, traces, vendors)``.
+  batch and the per-vendor charge kernel over ``(chunks, traces, vendors)``;
+  their reports, and a chunked map's padding and charges, are spans
+  (``repro_torch.spans``).
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from repro_torch.core.energy_model import (EnergyReport, PowerParams,
                                            surface_charge, surface_cycles)
 from repro_torch.core.fleet import batched_pair_totals
 from repro_torch.kernels.common import batch_rows
+from repro_torch.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,9 +187,11 @@ def surface_chunk_charge(trace: CommandTrace, weight: torch.Tensor,
     the finalisation."""
     if impl == "cuda":
         from repro_torch.kernels.vampire_energy import ops as vops
-        return vops.charge_from_planes(vops.charge_planes(trace, weight),
-                                       trace.cmd.shape[0], stacked,
-                                       surface=True, config=config)
+        planes = vops.charge_planes(trace, weight)
+        with span("charge", launches=vops.charge_launches):
+            return vops.charge_from_planes(planes, trace.cmd.shape[0],
+                                           stacked, surface=True,
+                                           config=config)
     return _surface_charges(trace, weight,
                             extract_structural_features(trace), stacked,
                             batch_rows(config))
@@ -246,13 +251,14 @@ def chunked_surface_reports(trace: CommandTrace, weight: torch.Tensor,
                    else min(int(trace_chunk), n_traces))
     m_pad = (-n_modules) % module_chunk
     t_pad = (-n_traces) % trace_chunk
-    stacked = _pad_leading(stacked, m_pad)
-    padded = _pad_leading(trace, t_pad)
-    pad_w = torch.cat([weight, weight.new_zeros((t_pad,) + weight.shape[1:])])
-
-    acc = torch.zeros((n_traces + t_pad, n_modules + m_pad, N_BANKS,
-                       N_ROW_BANDS), dtype=torch.float32,
-                      device=weight.device)
+    with span("pack"):
+        stacked = _pad_leading(stacked, m_pad)
+        padded = _pad_leading(trace, t_pad)
+        pad_w = torch.cat([weight,
+                           weight.new_zeros((t_pad,) + weight.shape[1:])])
+        acc = torch.zeros((n_traces + t_pad, n_modules + m_pad, N_BANKS,
+                           N_ROW_BANDS), dtype=torch.float32,
+                          device=weight.device)
     for ti in range(0, n_traces + t_pad, trace_chunk):
         rows = slice(ti, ti + trace_chunk)
         tr_c = CommandTrace(*(x[rows] for x in padded))
@@ -266,13 +272,15 @@ def chunked_surface_reports(trace: CommandTrace, weight: torch.Tensor,
         for mi in range(0, n_modules + m_pad, module_chunk):
             cols = slice(mi, mi + module_chunk)
             chunk = PowerParams(*(x[cols] for x in stacked))
-            if impl == "cuda":
-                charge = vops.charge_from_planes(planes, trace_chunk, chunk,
-                                                 surface=True)
-            else:
-                charge = _surface_charges(tr_c, w_c, sf, chunk)
-            acc[rows, cols] = charge
-    return surface_report(acc[:n_traces, :n_modules], trace, weight)
+            if impl != "cuda":
+                acc[rows, cols] = _surface_charges(tr_c, w_c, sf, chunk)
+                continue
+            # the chunk's charge span takes in the scatter
+            with span("charge", launches=vops.charge_launches):
+                acc[rows, cols] = vops.charge_from_planes(
+                    planes, trace_chunk, chunk, surface=True)
+    with span("report"):
+        return surface_report(acc[:n_traces, :n_modules], trace, weight)
 
 
 # ---------------------------------------------------------------------------
@@ -284,8 +292,10 @@ def cuda_batched_reports(trace: CommandTrace, weight: torch.Tensor,
     """impl='cuda' twin of :func:`batched_reports`; ``config`` is the
     charge kernel's launch configuration (as in every twin below)."""
     from repro_torch.kernels.vampire_energy import ops as vops
-    return _matrix_report(*vops.batched_charge_matrix(trace, weight,
-                                                      stacked, config=config))
+    charge, cycles = vops.batched_charge_matrix(trace, weight, stacked,
+                                                config=config)
+    with span("report"):
+        return _matrix_report(charge, cycles)
 
 
 def cuda_batched_range_reports(trace: CommandTrace, weight: torch.Tensor,
@@ -306,15 +316,18 @@ def cuda_batched_distribution_reports(trace: CommandTrace,
     """impl='cuda' twin of :func:`batched_distribution_reports` (no
     feature kernel: the expected fractions feed the charge kernel)."""
     from repro_torch.kernels.vampire_energy import ops as vops
-    return _matrix_report(*vops.batched_charge_matrix(
+    charge, cycles = vops.batched_charge_matrix(
         trace, weight, stacked, ones_frac=ones_frac,
-        toggle_frac=toggle_frac, config=config))
+        toggle_frac=toggle_frac, config=config)
+    with span("report"):
+        return _matrix_report(charge, cycles)
 
 
 def cuda_batched_surface_reports(trace: CommandTrace, weight: torch.Tensor,
                                  stacked: PowerParams,
                                  config: dict | None = None) -> EnergyReport:
     """impl='cuda' twin of :func:`batched_surface_reports`."""
-    return surface_report(surface_chunk_charge(trace, weight, stacked,
-                                               impl="cuda", config=config),
-                          trace, weight)
+    charge = surface_chunk_charge(trace, weight, stacked, impl="cuda",
+                                  config=config)
+    with span("report"):
+        return surface_report(charge, trace, weight)

@@ -44,6 +44,7 @@ from repro_torch.core.energy_model import (PowerParams, StructuralFeatures,
                                            extract_structural_features,
                                            finalize_features, masked_cycles)
 from repro_torch.kernels.common import batch_rows, row_sums
+from repro_torch.spans import span
 
 
 def stack_params(params: Sequence[PowerParams]) -> PowerParams:
@@ -263,41 +264,44 @@ def fleet_surface_energy(modules, trace: CommandTrace, weight: torch.Tensor,
     one-shot one.  With a ``mesh`` every rank makes the call; traces
     shard over ``data`` and modules over ``model`` (the module docstring)
     and every rank returns the whole report.  Chunking and a mesh are
-    exclusive strategies."""
-    from repro_torch.core import estimate_batch as eb
-    impl = model_api.resolve_impl(impl, mode="surface").name
-    if impl == "reference":
-        raise ValueError("impl='reference' for the fleet surface is the "
-                         "per-command oracle; score modules one at a time")
-    chunked = module_chunk is not None or trace_chunk is not None
-    if chunked and mesh is not None:
-        raise ValueError("module_chunk/trace_chunk and mesh are "
-                         "mutually exclusive surface strategies")
-    stacked = fleet_stacked(modules, device, mesh)
-    dev = stacked.i2n.device
-    trace, weight = trace.to(dev), weight.to(dev)
-    if chunked:
-        return eb.chunked_surface_reports(
-            trace, weight, stacked,
-            module_chunk=(stacked.i2n.shape[0] if module_chunk is None
-                          else module_chunk),
-            trace_chunk=trace_chunk, impl=impl)
-    if _shards(mesh, trace.cmd.shape[0], stacked.i2n.shape[0]):
-        rows = _rows(trace.cmd.shape[0], mesh, "data")
-        # a box's kernels launch at the whole batch's geometry, and its
-        # 'vectorized' row sums are taken at the batch's shape
-        box = eb.surface_chunk_charge(
-            CommandTrace(*(x[rows] for x in trace)), weight[rows],
-            _module_block(stacked, mesh), impl,
-            config={"batch": (trace.cmd.shape[0], stacked.i2n.shape[0]),
-                    "first_trace": rows.start})
-        _note(box)
-        charge = model_api.gather_boxes(box, mesh, {"data": 0, "model": 1})
-        return eb.surface_report(charge, trace, weight)
-    if mesh is not None:
-        stacked = _whole(stacked, mesh)
-    return eb.surface_report(eb.surface_chunk_charge(trace, weight, stacked,
-                                                     impl), trace, weight)
+    exclusive strategies.  A call is the root span ``fleet_map``
+    (``repro_torch.spans``)."""
+    with span("fleet_map"):
+        from repro_torch.core import estimate_batch as eb
+        impl = model_api.resolve_impl(impl, mode="surface").name
+        if impl == "reference":
+            raise ValueError("impl='reference' for the fleet surface is the "
+                             "per-command oracle; score modules one at a time")
+        chunked = module_chunk is not None or trace_chunk is not None
+        if chunked and mesh is not None:
+            raise ValueError("module_chunk/trace_chunk and mesh are "
+                             "mutually exclusive surface strategies")
+        stacked = fleet_stacked(modules, device, mesh)
+        dev = stacked.i2n.device
+        trace, weight = trace.to(dev), weight.to(dev)
+        if chunked:
+            return eb.chunked_surface_reports(
+                trace, weight, stacked,
+                module_chunk=(stacked.i2n.shape[0] if module_chunk is None
+                              else module_chunk),
+                trace_chunk=trace_chunk, impl=impl)
+        if _shards(mesh, trace.cmd.shape[0], stacked.i2n.shape[0]):
+            rows = _rows(trace.cmd.shape[0], mesh, "data")
+            # a box's kernels launch at the whole batch's geometry, and its
+            # 'vectorized' row sums are taken at the batch's shape
+            box = eb.surface_chunk_charge(
+                CommandTrace(*(x[rows] for x in trace)), weight[rows],
+                _module_block(stacked, mesh), impl,
+                config={"batch": (trace.cmd.shape[0], stacked.i2n.shape[0]),
+                        "first_trace": rows.start})
+            _note(box)
+            charge = model_api.gather_boxes(box, mesh, {"data": 0, "model": 1})
+            return eb.surface_report(charge, trace, weight)
+        if mesh is not None:
+            stacked = _whole(stacked, mesh)
+        return eb.surface_report(
+            eb.surface_chunk_charge(trace, weight, stacked, impl), trace,
+            weight)
 
 
 def run_probes(modules, points: Sequence[ProbePoint], *,

@@ -34,6 +34,7 @@ from repro_torch.core.energy_model import (EnergyReport, PowerParams,
                                            trace_charges_scan,
                                            trace_energy_scan)
 from repro_torch.core.fleet import stack_params
+from repro_torch.spans import span
 
 
 class FleetModel(NamedTuple):
@@ -156,57 +157,59 @@ class Vampire(model_api.StackedEstimatorMixin):
                  mode: model_api.EstimateMode = "mean",
                  impl: str = "vectorized", data=None,
                  ones_frac=None, toggle_frac=None, config=None):
-        """The unified entry point (see the module docstring)."""
-        from repro_torch.core import estimate_batch as eb
-        profile = model_api.normalize_data_profile(data, ones_frac,
-                                                   toggle_frac)
-        model_api.validate_data_profile(mode, profile)
-        ones_frac, toggle_frac = profile.ones_frac, profile.toggle_frac
-        impl = model_api.resolve_impl(impl, mode=mode).name
-        model_api.require_impl_path(self.kind, impl,
-                                    ("vectorized", "cuda", "reference"))
-        _, idx = model_api.resolve_vendor_indices(self.vendors, vendors)
-        stacked, band = self._stacked_for(idx)
-        tb = self._batch_cache.get(traces)
+        """The unified entry point (see the module docstring); a call is
+        the root span ``estimate`` (``repro_torch.spans``)."""
+        with span("estimate"):
+            from repro_torch.core import estimate_batch as eb
+            profile = model_api.normalize_data_profile(data, ones_frac,
+                                                       toggle_frac)
+            model_api.validate_data_profile(mode, profile)
+            ones_frac, toggle_frac = profile.ones_frac, profile.toggle_frac
+            impl = model_api.resolve_impl(impl, mode=mode).name
+            model_api.require_impl_path(self.kind, impl,
+                                        ("vectorized", "cuda", "reference"))
+            _, idx = model_api.resolve_vendor_indices(self.vendors, vendors)
+            stacked, band = self._stacked_for(idx)
+            tb = self._batch_cache.get(traces)
 
-        if mode == "surface":
+            if mode == "surface":
+                if impl == "vectorized":
+                    return eb.batched_surface_reports(tb.trace, tb.weight,
+                                                      stacked, config)
+                if impl == "cuda":
+                    return eb.cuda_batched_surface_reports(tb.trace, tb.weight,
+                                                           stacked, config)
+                return self._reference_surface(traces, tb, stacked)
+
+            if mode == "distribution":
+                if impl == "vectorized":
+                    return eb.batched_distribution_reports(
+                        tb.trace, tb.weight, stacked, ones_frac, toggle_frac,
+                        config)
+                if impl == "cuda":
+                    return eb.cuda_batched_distribution_reports(
+                        tb.trace, tb.weight, stacked, ones_frac, toggle_frac,
+                        config)
+                return self._reference_matrix(traces, tb, stacked,
+                                              ones_frac=ones_frac,
+                                              toggle_frac=toggle_frac)
+
             if impl == "vectorized":
-                return eb.batched_surface_reports(tb.trace, tb.weight,
-                                                  stacked, config)
+                if mode == "range":
+                    return eb.batched_range_reports(tb.trace, tb.weight,
+                                                    stacked, band, config)
+                return eb.batched_reports(tb.trace, tb.weight, stacked, config)
             if impl == "cuda":
-                return eb.cuda_batched_surface_reports(tb.trace, tb.weight,
-                                                       stacked, config)
-            return self._reference_surface(traces, tb, stacked)
-
-        if mode == "distribution":
-            if impl == "vectorized":
-                return eb.batched_distribution_reports(
-                    tb.trace, tb.weight, stacked, ones_frac, toggle_frac,
-                    config)
-            if impl == "cuda":
-                return eb.cuda_batched_distribution_reports(
-                    tb.trace, tb.weight, stacked, ones_frac, toggle_frac,
-                    config)
-            return self._reference_matrix(traces, tb, stacked,
-                                          ones_frac=ones_frac,
-                                          toggle_frac=toggle_frac)
-
-        if impl == "vectorized":
-            if mode == "range":
-                return eb.batched_range_reports(tb.trace, tb.weight, stacked,
-                                                band, config)
-            return eb.batched_reports(tb.trace, tb.weight, stacked, config)
-        if impl == "cuda":
-            if mode == "range":
-                return eb.cuda_batched_range_reports(tb.trace, tb.weight,
-                                                     stacked, band, config)
-            return eb.cuda_batched_reports(tb.trace, tb.weight, stacked,
-                                           config)
-        mean = self._reference_matrix(traces, tb, stacked)
-        if mode == "mean":
-            return mean
-        return (scale_report(mean, band[None, :, 0]), mean,
-                scale_report(mean, band[None, :, 1]))
+                if mode == "range":
+                    return eb.cuda_batched_range_reports(tb.trace, tb.weight,
+                                                         stacked, band, config)
+                return eb.cuda_batched_reports(tb.trace, tb.weight, stacked,
+                                               config)
+            mean = self._reference_matrix(traces, tb, stacked)
+            if mode == "mean":
+                return mean
+            return (scale_report(mean, band[None, :, 0]), mean,
+                    scale_report(mean, band[None, :, 1]))
 
     def _reference_matrix(self, traces, tb, stacked: PowerParams, *,
                           ones_frac=None, toggle_frac=None) -> EnergyReport:

@@ -6,7 +6,11 @@ batch, the feature kernel once (skipped in distribution mode, where the
 expected fractions stand in for the measured data) — together
 :func:`charge_planes` — and the per-vendor charge kernel (or its surface
 variant) on them, :func:`charge_from_planes`.  The chunked fleet surface
-makes the planes once and launches the charge kernel per module chunk."""
+makes the planes once and launches the charge kernel per module chunk.
+Each step is a span (``repro_torch.spans``): ``state``, ``features``,
+``pack``, ``charge`` (opened by the callers of
+:func:`charge_from_planes`, so that a chunked map's takes in its
+scatter), ``report``."""
 from __future__ import annotations
 
 import torch
@@ -18,6 +22,7 @@ from repro_torch.core.energy_model import (PowerParams, StructuralState,
                                            structural_state, surface_cycles)
 from repro_torch.kernels.vampire_energy.vampire_energy import (
     SCAL_FIELDS, batched_features, vampire_charge, vampire_charge_surface)
+from repro_torch.spans import span
 
 
 def pack_state(st: StructuralState) -> torch.Tensor:
@@ -67,14 +72,23 @@ def charge_planes(trace: CommandTrace, weight: torch.Tensor, *,
     any number of parameter sets (:func:`charge_from_planes`)."""
     if trace.cmd.shape[1] == 0:
         return None
-    st = structural_state(trace)
+    with span("state"):
+        st = structural_state(trace)
     if ones_frac is None:
-        ones, togg = batched_features(trace.data, trace.cmd, st.prev_rw)
+        with span("features"):
+            ones, togg = batched_features(trace.data, trace.cmd, st.prev_rw)
     else:
         ones, togg = expected_data_features(st, ones_frac, toggle_frac)
-    return (ones.contiguous(), togg.contiguous(), trace.cmd, trace.bank,
-            trace.row, trace.dt, pack_state(st),
-            weight.to(torch.float32).contiguous())
+    with span("pack"):
+        return (ones.contiguous(), togg.contiguous(), trace.cmd, trace.bank,
+                trace.row, trace.dt, pack_state(st),
+                weight.to(torch.float32).contiguous())
+
+
+def charge_launches() -> int:
+    """The charge kernels' launches so far (the ``charge`` span's
+    ``launches`` count, as ``span("charge", launches=charge_launches)``)."""
+    return vampire_charge.launches + vampire_charge_surface.launches
 
 
 def charge_from_planes(planes, n_traces: int, stacked: PowerParams, *,
@@ -84,13 +98,15 @@ def charge_from_planes(planes, n_traces: int, stacked: PowerParams, *,
     planes for the parameter sets ``stacked`` -> ``(T, V)`` or
     ``(T, V, 8, N_ROW_BANDS)`` masked charge (zeros for empty traces).
     ``config`` is the kernel's launch configuration
-    (``kernels.common.resolve_geometry``)."""
+    (``kernels.common.resolve_geometry``).  The parameter blocks are a
+    ``pack`` span; the caller opens the ``charge`` span around the call."""
     v = stacked.i2n.shape[0]
     cells = (N_BANKS, N_ROW_BANDS) if surface else ()
     if planes is None:
         return torch.zeros((n_traces, v) + cells, dtype=torch.float32,
                            device=stacked.i2n.device)
-    params = pack_param_blocks(stacked)
+    with span("pack"):
+        params = pack_param_blocks(stacked)
     if surface:
         return vampire_charge_surface(*planes, params,
                                       config=config).reshape(
@@ -110,7 +126,9 @@ def batched_charge_matrix(trace: CommandTrace, weight: torch.Tensor,
     zeros.  ``config`` is the charge kernel's launch configuration."""
     planes = charge_planes(trace, weight, ones_frac=ones_frac,
                            toggle_frac=toggle_frac)
-    charge = charge_from_planes(planes, trace.cmd.shape[0], stacked,
-                                surface=surface, config=config)
-    return charge, (surface_cycles(trace, weight) if surface
-                    else masked_cycles(trace, weight))
+    with span("charge", launches=charge_launches):
+        charge = charge_from_planes(planes, trace.cmd.shape[0], stacked,
+                                    surface=surface, config=config)
+    with span("report"):
+        return charge, (surface_cycles(trace, weight) if surface
+                        else masked_cycles(trace, weight))

@@ -17,7 +17,8 @@ itself).  Phases, each printing its numbers:
 4. every kernel against its plain PyTorch version, timed with CUDA events
    beside its bound: the charge-path kernels on the estimation inputs
    (features bit-exact; charge at rtol 1e-5, the same bits on a second
-   call, and GB/s beside the time), the line kernels (popcount,
+   call, and GB/s beside the time; the state kernel bit-exact there and
+   at the benchmark's batch-long and batch-short shapes), the line kernels (popcount,
    toggle, byte LUT, BDI) bit-exact on a seeded 32 MiB bf16 tensor, with
    ``torch.take`` timed beside the byte LUT (run after phase 5); the
    flash-attention kernel at the qwen2.5-3b prefill shape, at the MLA
@@ -307,6 +308,11 @@ def build_workload(seed: int, n_traces: int, n_requests: int, length: int,
 #: the feature kernel's compulsory bytes a line: data 64, cmd 4 and
 #: prev_rw 4 read, ones and togg (float32) written
 FEATURE_LINE_BYTES = 64 + 4 + 4 + 2 * 4
+#: the state kernel's a command: cmd, bank and col read, prev_rw and the
+#: state word written
+STATE_CMD_BYTES = 3 * 4 + 2 * 4
+#: the benchmark's shapes at which the state kernel is also timed
+STATE_SHAPES = {"batch-long": (512, 16384), "batch-short": (4096, 2048)}
 
 
 def kernel_inputs(tb, models):
@@ -373,9 +379,45 @@ def charge_rows(tb, models, x=None) -> list[dict]:
     return rows
 
 
-def kernel_phase(tb, models, card: str) -> list[dict]:
+def state_rows(tb, shapes: dict) -> list[dict]:
+    """The state kernel on the estimation batch and at ``shapes`` (name ->
+    ``(T, N)``: the batch's commands end to end, repeated and cut into
+    traces of ``N``), each checked for the same bits as its plain
+    version; only the first row is the estimation batch's (``shape`` is
+    None)."""
+    import torch
+
+    from repro_torch.kernels.vampire_energy import vampire_energy as ve
+    tr = tb.trace
+    planes = (tr.cmd, tr.bank, tr.col)
+
+    def rows_of(p, t, n):
+        return p.reshape(-1).repeat(-(-t * n // p.numel()))[:t * n].view(t, n)
+
+    rows = []
+    for label, (t, n) in {None: tuple(tr.cmd.shape), **shapes}.items():
+        args = tuple(rows_of(p, t, n) for p in planes)
+        got, want = ve.batched_state(*args), ve.batched_state_plain(*args)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"state kernel differs from its plain version at "
+              f"(T={t}, N={n})")
+        rows.append(dict(
+            name="batched_state", fn=lambda a=args: ve.batched_state(*a),
+            plain=lambda a=args: ve.batched_state_plain(*a),
+            source="src/repro_torch/csrc/features.cu",
+            replaces="none: port only (the reference's jnp structural_state,"
+                     " src/repro/core/energy_model.py:226)",
+            err=0.0, nbytes=t * n * STATE_CMD_BYTES,
+            bound=bound(t * n * STATE_CMD_BYTES, 0),
+            shape=label and f"{label} (T={t}, N={n})"))
+    return rows
+
+
+def kernel_phase(tb, models, card: str,
+                 state_shapes: dict = STATE_SHAPES) -> list[dict]:
     """Phase 4: every kernel against its plain version at the path's
-    shapes, timed beside its bound."""
+    shapes, timed beside its bound; the state kernel also at
+    ``state_shapes`` (:func:`state_rows`)."""
     import torch
 
     from repro_torch.kernels.vampire_energy import vampire_energy as ve
@@ -406,20 +448,22 @@ def kernel_phase(tb, models, card: str) -> list[dict]:
         check(torch.equal(got, r["fn"]()),
               f"{r['name']}: two calls give different bits")
         r["bound"] = bound(r["nbytes"], r["nops"])
+    rows += state_rows(tb, state_shapes)
 
     for r in rows:
         r["ms"] = event_ms(r["fn"], 20, flush)
         r["plain_ms"] = event_ms(r["plain"], 5, flush)
         rate = (f" bytes_per_line={FEATURE_LINE_BYTES}" if r is rows[0]
                 else f" gb_per_s={r['nbytes'] / r['ms'] / 1e6:.1f}")
+        shape = r.get("shape") or f"(T={t}, N={n}, V={v})"
         print(f"[kernel] {r['name']}: ms={r['ms']:.4f} "
               f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
               f"({r['bound'][1]}) share_of_bound="
               f"{r['bound'][0] / r['ms']:.3f}{rate} "
               f"max_abs_err={r['err']:.3e} "
-              f"shape=(T={t}, N={n}, V={v}) card=\"{card}\"", flush=True)
+              f"shape={shape} card=\"{card}\"", flush=True)
     del flush_buf
-    return rows
+    return [r for r in rows if not r.get("shape")]
 
 
 def one_kernel_phase(rows: list[dict]) -> None:
@@ -1075,7 +1119,7 @@ def counters():
     from repro_torch.kernels.popcount import popcount
     from repro_torch.kernels.toggle import toggle
     from repro_torch.kernels.vampire_energy import vampire_energy as ve
-    wrappers = [ve.batched_features, ve.vampire_charge,
+    wrappers = [ve.batched_state, ve.batched_features, ve.vampire_charge,
                 ve.vampire_charge_surface, *be.WRAPPERS.values(),
                 popcount.line_ones, toggle.line_toggles,
                 byte_lut.apply_lut_lines, bdi.bdi_sizes, fa.flash_attention,
@@ -1115,9 +1159,10 @@ def path_kernels(kind: str, mode: str) -> set[str]:
     if kind == "vampire":
         charge = ("vampire_charge_surface" if mode == "surface"
                   else "vampire_charge")
-        return {charge} | ({"batched_features"} if mode != "distribution"
-                           else set())
-    return {f"{kind}_charge" + ("_surface" if mode == "surface" else "")}
+        return {"batched_state", charge} | (
+            {"batched_features"} if mode != "distribution" else set())
+    return {"batched_state",
+            f"{kind}_charge" + ("_surface" if mode == "surface" else "")}
 
 
 def leaves(rep, mode):
@@ -1130,15 +1175,14 @@ def e2e_phase(tb, trs, models, kernel_ms: dict[str, float], card: str):
     host-clock ms of every (kind, mode) estimate."""
     import torch
 
-    from repro_torch.core.energy_model import structural_state
     from repro_torch.core.estimate_batch import bucketed_trace_batch
-    from repro_torch.kernels.vampire_energy import ops as vops
+    from repro_torch.kernels.vampire_energy import vampire_energy as ve
     t, n = tb.trace.cmd.shape
     total = {name: 0 for name in counters()}
     times = {}
 
     def bookkeeping():
-        vops.pack_state(structural_state(tb.trace))
+        ve.batched_state(tb.trace.cmd, tb.trace.bank, tb.trace.col)
 
     book_ms = wall_ms(bookkeeping, 5)
     for kind in KINDS:

@@ -9,6 +9,11 @@ namespace repro {
 
 // command codes (repro_torch/core/dram.py)
 constexpr int ACT = 1, PRE = 2, RD = 3, WR = 4, REF = 5;
+constexpr int PDE = 6, PDX = 7, PREA = 8, PDE_SLOW = 9, SRE = 10, SRX = 11;
+// background states and interleave modes (core/energy_model.py, dram.py)
+constexpr int BG_ACTIVE = 0, BG_PDN_FAST = 1, BG_PDN_SLOW = 2,
+              BG_PDN_ACT = 3, BG_SR = 4;
+constexpr int IL_NONE = 0, IL_COL = 1, IL_BANK = 2, IL_BANKCOL = 3;
 // DDR3L-800 timing in clocks
 constexpr float T_BURST = 4.0f, T_RC = 20.0f, T_RAS = 14.0f, T_RP = 6.0f,
                 T_RFC = 64.0f;

@@ -37,9 +37,12 @@ _F32 = ctypes.c_float
 
 # exported C functions of each source -> their argument types
 SIGNATURES = {
-    # data, cmd, prev_rw, ones, togg, (lines, padded trace length), stream
+    # features: data, cmd, prev_rw, ones, togg, (lines, padded trace
+    # length), stream; state: cmd, bank, col, prev_rw, state, (traces,
+    # padded trace length), stream
     "features": {
         "repro_features": [_P] * 5 + [_I64, _I64, _P],
+        "repro_state": [_P] * 5 + [_I64, _I64, _P],
     },
     # charge kernels: the planes, the output, then (n_traces, n_cmds,
     # n_vendors, cluster, group, phase) and the stream

@@ -1,13 +1,14 @@
 """Assembler for the VAMPIRE estimation kernels.
 
 :func:`batched_charge_matrix` is the entry point of ``impl='cuda'``: it
-runs the plain-torch ``structural_state`` bookkeeping over the padded
-batch, the feature kernel once (skipped in distribution mode, where the
-expected fractions stand in for the measured data) — together
-:func:`charge_planes` — and the per-vendor charge kernel (or its surface
-variant) on them, :func:`charge_from_planes`.  The chunked fleet surface
-makes the planes once and launches the charge kernel per module chunk.
-Each step is a span (``repro_torch.spans``): ``state``, ``features``,
+runs the state kernel over the padded batch (``structural_state``'s
+bookkeeping and :func:`pack_state`'s word), the feature kernel once
+(skipped in distribution mode, where the expected fractions stand in for
+the measured data) — together :func:`charge_planes` — and the
+per-vendor charge kernel (or its surface variant) on them,
+:func:`charge_from_planes`.  The chunked fleet surface makes the planes
+once and launches the charge kernel per module chunk.  Each step is a
+span (``repro_torch.spans``): ``state`` (count ``launches``), ``features``,
 ``pack``, ``charge`` (opened by the callers of
 :func:`charge_from_planes`, so that a chunked map's takes in its
 scatter), ``report``."""
@@ -16,24 +17,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.dram import CommandTrace, LINE_BITS, N_BANKS, \
-    N_ROW_BANDS
-from repro_torch.core.energy_model import (PowerParams, StructuralState,
-                                           masked_cycles, per_trace_fraction,
-                                           structural_state, surface_cycles)
-from repro_torch.kernels.vampire_energy.vampire_energy import (
-    SCAL_FIELDS, batched_features, vampire_charge, vampire_charge_surface)
+    N_ROW_BANDS, RD, WR
+from repro_torch.core.energy_model import (PowerParams, masked_cycles,
+                                           per_trace_fraction,
+                                           surface_cycles)
+from repro_torch.kernels.vampire_energy.vampire_energy import (  # noqa: F401
+    SCAL_FIELDS, batched_features, batched_state, pack_state, vampire_charge,
+    vampire_charge_surface)
 from repro_torch.spans import span
-
-
-def pack_state(st: StructuralState) -> torch.Tensor:
-    """One int32 word per command: interleave mode (bits 0-1), background
-    state (bits 2-4) and the open-bank mask before the command (bits
-    8-15), as the kernels unpack it (``common.cuh``)."""
-    weights = 1 << torch.arange(N_BANKS, dtype=torch.int32,
-                                device=st.open_before.device)
-    mask = (st.open_before.to(torch.int32) * weights).sum(
-        dim=-1, dtype=torch.int32)
-    return st.il_mode | (st.bg_state << 2) | (mask << 8)
 
 
 def pack_param_blocks(stacked: PowerParams) -> torch.Tensor:
@@ -50,38 +41,48 @@ def pack_param_blocks(stacked: PowerParams) -> torch.Tensor:
                      dim=-1).contiguous()
 
 
-def expected_data_features(st: StructuralState, ones_frac, toggle_frac):
+def expected_data_features(cmd: torch.Tensor, prev_rw: torch.Tensor,
+                           ones_frac, toggle_frac):
     """Distribution mode's per-command ones/toggles from the expected
-    fractions (scalars or one per trace); first-access toggles stay 0."""
-    t = st.is_rw.shape[0]
-    dev = st.is_rw.device
+    fractions (scalars or one per trace); first-access toggles stay 0.
+    ``prev_rw`` is :func:`batched_state`'s."""
+    t = cmd.shape[0]
+    dev = cmd.device
     of = per_trace_fraction(ones_frac, t, dev)[:, None]
     tf = per_trace_fraction(toggle_frac, t, dev)[:, None]
-    ones = torch.where(st.is_rw, of * LINE_BITS, 0.0)
-    togg = torch.where(st.is_rw & st.has_prev, tf * LINE_BITS, 0.0)
+    is_rw = (cmd == RD) | (cmd == WR)
+    ones = torch.where(is_rw, of * LINE_BITS, 0.0)
+    togg = torch.where(is_rw & (prev_rw >= 0), tf * LINE_BITS, 0.0)
     return ones, togg
+
+
+def state_launches() -> int:
+    """The state kernel's launches so far (the ``state`` span's
+    ``launches`` count)."""
+    return batched_state.launches
 
 
 def charge_planes(trace: CommandTrace, weight: torch.Tensor, *,
                   ones_frac=None, toggle_frac=None):
-    """The trace side of the charge kernels' inputs: the ``structural_state``
-    bookkeeping and the feature kernel (skipped in distribution mode) over
-    a padded ``(T, N)`` batch -> the eight ``(T, N)`` planes the charge
-    kernel reads before the parameter block, or None for a batch of empty
-    traces (``N == 0``), which launches nothing.  One set of planes serves
-    any number of parameter sets (:func:`charge_from_planes`)."""
+    """The trace side of the charge kernels' inputs: the state kernel and
+    the feature kernel (skipped in distribution mode) over a padded
+    ``(T, N)`` batch -> the eight ``(T, N)`` planes the charge kernel
+    reads before the parameter block, or None for a batch of empty traces
+    (``N == 0``), which launches nothing.  One set of planes serves any
+    number of parameter sets (:func:`charge_from_planes`)."""
     if trace.cmd.shape[1] == 0:
         return None
-    with span("state"):
-        st = structural_state(trace)
+    with span("state", launches=state_launches):
+        prev_rw, state = batched_state(trace.cmd, trace.bank, trace.col)
     if ones_frac is None:
         with span("features"):
-            ones, togg = batched_features(trace.data, trace.cmd, st.prev_rw)
+            ones, togg = batched_features(trace.data, trace.cmd, prev_rw)
     else:
-        ones, togg = expected_data_features(st, ones_frac, toggle_frac)
+        ones, togg = expected_data_features(trace.cmd, prev_rw, ones_frac,
+                                            toggle_frac)
     with span("pack"):
         return (ones.contiguous(), togg.contiguous(), trace.cmd, trace.bank,
-                trace.row, trace.dt, pack_state(st),
+                trace.row, trace.dt, state,
                 weight.to(torch.float32).contiguous())
 
 

@@ -1,8 +1,12 @@
 """Wrappers and plain versions of the VAMPIRE estimation kernels.
 
-Two CUDA kernels (``repro_torch/csrc``) split the work where the model
+Three CUDA kernels (``repro_torch/csrc``) split the work where the model
 does:
 
+0. :func:`batched_state` (``features.cu``) — the state kernel, run once
+   per batch: ``structural_state``'s ``prev_rw`` and the packed state
+   word (:func:`pack_state`) in one pass.  Replaces no TPU kernel: the
+   reference's ``structural_state`` is jnp.
 1. :func:`batched_features` (``features.cu``) — the param-independent
    feature kernel, run once per batch: per-line popcount and the bus-XOR
    toggle popcount against the previous RD/WR's line, which it gathers
@@ -22,8 +26,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.dram import (ACT, LINE_BITS, RD, REF, TIMING, WR,
-                                   popcount_u32)
+from repro_torch.core.dram import (ACT, LINE_BITS, N_BANKS, RD, REF, TIMING,
+                                   WR, CommandTrace, popcount_u32)
+from repro_torch.core.energy_model import StructuralState, structural_state
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (cell_index, launch_charge, on_cpu,
                                        reduce_charge, require_aligned,
@@ -35,6 +40,55 @@ SCAL_FIELDS = ("i2n", "q_actpre", "row_ones_slope", "q_ref", "i_pd",
                "io_read_ma_per_one", "io_write_ma_per_zero", "ones_quad",
                "i_pd_slow", "i_actpd", "i_sr")
 P_COEFFS, P_SCAL, P_BVEC, P_SURF, P_SIZE = 0, 24, 35, 59, 123
+
+
+# ---------------------------------------------------------------------------
+# 0. the state kernel
+# ---------------------------------------------------------------------------
+def pack_state(st: StructuralState) -> torch.Tensor:
+    """One int32 word per command: interleave mode (bits 0-1), background
+    state (bits 2-4) and the open-bank mask before the command (bits
+    8-15), as the kernels unpack it (``common.cuh``)."""
+    weights = 1 << torch.arange(N_BANKS, dtype=torch.int32,
+                                device=st.open_before.device)
+    mask = (st.open_before.to(torch.int32) * weights).sum(
+        dim=-1, dtype=torch.int32)
+    return st.il_mode | (st.bg_state << 2) | (mask << 8)
+
+
+def batched_state_plain(cmd, bank, col):
+    """Plain version of :func:`batched_state`: ``structural_state`` and
+    :func:`pack_state`."""
+    zero = torch.zeros_like(cmd)
+    st = structural_state(CommandTrace(cmd, bank, zero, col, None, zero))
+    return st.prev_rw, pack_state(st)
+
+
+def batched_state(cmd: torch.Tensor, bank: torch.Tensor, col: torch.Tensor):
+    """A padded batch's ``(T, N)`` int32 command codes, banks (in
+    ``[0, 8)``) and columns -> ``(prev_rw, state)``, both ``(T, N)``
+    int32: ``structural_state``'s index of the previous RD/WR in the same
+    trace (-1 where there is none) and :func:`pack_state`'s word of the
+    state before each command."""
+    if on_cpu(cmd, bank, col):
+        return batched_state_plain(cmd, bank, col)
+    t, n = cmd.shape
+    i32 = torch.int32
+    dev = require_cuda(dict(cmd=cmd, bank=bank, col=col),
+                       dict(cmd=i32, bank=i32, col=i32),
+                       dict(cmd=(t, n), bank=(t, n), col=(t, n)))
+    prev_rw = torch.empty((t, n), dtype=i32, device=dev)
+    state = torch.empty((t, n), dtype=i32, device=dev)
+    lib = build.library("features")
+    rc = lib.repro_state(build.ptr(cmd), build.ptr(bank), build.ptr(col),
+                         build.ptr(prev_rw), build.ptr(state), t, n,
+                         build.stream(dev))
+    build.check(rc, "state kernel")
+    batched_state.launches += 1
+    return prev_rw, state
+
+
+batched_state.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -164,7 +218,7 @@ def vampire_charge(ones, togg, cmd, bank, row, dt, state, w, params, *,
 
     Per-command inputs are ``(T, N)``: float32 ``ones``/``togg``/``w``,
     int32 ``cmd``/``bank``/``row``/``dt`` (the trace fields) and the
-    packed ``state`` word (``ops.pack_state``); ``params`` is the
+    packed ``state`` word (:func:`pack_state`); ``params`` is the
     ``(V, 123)`` packed parameter block (``ops.pack_param_blocks``);
     ``config`` pins the launch geometry's knobs (``kernels.autotune``)."""
     if on_cpu(ones, togg, cmd, bank, row, dt, state, w, params):

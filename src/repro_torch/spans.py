@@ -52,7 +52,8 @@ import time
 
 import torch
 
-KEEP = 1 << 18                     # spans kept where nothing drains
+KEEP = 1 << 20                     # spans kept where nothing drains (a
+                                   # traced 50 s window: ~500,000)
 SYNCED_ROOTS = 8                   # synced roots after each drain
 SYNC_GAP_NS = 400_000              # the device's idle around a synced edge
 _profiling = torch.autograd._profiler_enabled

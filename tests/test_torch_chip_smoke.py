@@ -197,24 +197,28 @@ def test_flash_kernel_phase_fails_on_a_wrong_lse(smoke, monkeypatch):
 
 def test_charge_kernel_rows_and_the_one_kernel_check(smoke, cpu_model,
                                                     monkeypatch, capsys):
-    """The charge kernels' rows on a small batch: each checked against its
-    plain version and timed with its GB/s; the profiler check passes a
-    call that runs one device operation and fails one that runs two."""
+    """The charge and state kernels' rows on a small batch: each checked
+    against its plain version and timed with its GB/s (the state kernel
+    also at two further shapes, printed and not returned); the profiler
+    check passes a call that runs one device operation and fails one
+    that runs two."""
     from repro_torch.core import model_api
     _, tb = smoke.build_workload(0, 3, 150, 2048, "cpu")
     models = {k: model_api.make_estimator(k, cpu_model) for k in smoke.KINDS}
-    rows = smoke.kernel_phase(tb, models, "cpu")
+    rows = smoke.kernel_phase(tb, models, "cpu", state_shapes={
+        "batch-long": (4, 4096), "batch-short": (24, 512)})
     names = [r["name"] for r in rows]
     assert names == ["batched_features", "vampire_charge",
                      "vampire_charge_surface", "micron_charge",
                      "micron_charge_surface", "drampower_charge",
-                     "drampower_charge_surface"]
+                     "drampower_charge_surface", "batched_state"]
     assert all(r["bound"][1] == "bytes" for r in rows)
     out = capsys.readouterr().out
-    assert out.count("[kernel]") == 7 and out.count("gb_per_s=") == 6
+    assert out.count("[kernel]") == 10 and out.count("gb_per_s=") == 9
+    assert "shape=batch-short (T=24, N=512)" in out
     monkeypatch.setattr(smoke, "device_kernels", lambda fn: ["kernel"])
     smoke.one_kernel_phase(rows)
-    assert capsys.readouterr().out.count("one device operation") == 6
+    assert capsys.readouterr().out.count("one device operation") == 7
     monkeypatch.setattr(smoke, "device_kernels",
                         lambda fn: ["kernel", "reduce"])
     with pytest.raises(smoke.CheckFailed, match="2 device operations"):

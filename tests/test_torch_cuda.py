@@ -121,6 +121,80 @@ def test_features_launch_once_per_cuda_estimate(setup):
                                                                    mode)
 
 
+def _state_inputs(device, t, n, seed, offset=0):
+    """Seeded ``(cmd, bank, col)`` of a ``(t, n)`` batch over every command
+    code, the 8 banks and 3 columns (every interleave mode), each starting
+    ``offset`` int32 past a 16-byte boundary."""
+    rng = np.random.default_rng(seed)
+    planes = []
+    for high in (12, 8, 3):
+        flat = torch.from_numpy(rng.integers(0, high, t * n + offset,
+                                             dtype=np.int32)).to(device)
+        planes.append(flat[offset:].view(t, n))
+    return planes
+
+
+@pytest.mark.parametrize("t, n, offset", [
+    (512, 16384, 0),      # batch-long's shape
+    (4096, 2048, 0),      # batch-short's
+    (23, 16384, 0),       # map-spec's: fewer traces than SMs
+    (1, 1, 0),
+    (3, 7, 0),            # N not a multiple of 4: scalar loads
+    (5, 8193, 0),         # a tile and one command
+    (6, 4096, 1)])        # planes off a 16-byte boundary: scalar loads
+def test_state_kernel_is_bit_exact(device, t, n, offset):
+    cmd, bank, col = _state_inputs(device, t, n, t * n + offset, offset)
+    before = ve.batched_state.launches
+    got = ve.batched_state(cmd, bank, col)
+    torch.cuda.synchronize()
+    assert ve.batched_state.launches == before + 1
+    want = ve.batched_state_plain(cmd, bank, col)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+
+
+def test_state_kernel_on_app_traces(setup):
+    _, tb, _ = setup
+    tr = tb.trace
+    got = ve.batched_state(tr.cmd, tr.bank, tr.col)
+    st = structural_state(tr)
+    assert torch.equal(got[0], st.prev_rw)
+    assert torch.equal(got[1], vops.pack_state(st))
+
+
+def test_state_launches_once_per_charge_planes(setup):
+    """Every ``charge_planes`` call launches the state kernel once, and
+    so does every ``'cuda'`` estimate of every kind and mode."""
+    _, tb, models = setup
+    for kw in ({}, dict(ones_frac=0.35, toggle_frac=0.15)):
+        before = ve.batched_state.launches
+        vops.charge_planes(tb.trace, tb.weight, **kw)
+        assert ve.batched_state.launches == before + 1
+    for kind, est in models.items():
+        for mode in ("mean", "range", "distribution", "surface"):
+            kw = (dict(ones_frac=0.35, toggle_frac=0.15)
+                  if mode == "distribution" else {})
+            before = ve.batched_state.launches
+            est.estimate(tb, mode=mode, impl="cuda", **kw)
+            assert ve.batched_state.launches == before + 1, (kind, mode)
+
+
+def test_cuda_reports_match_the_cpu_plain_path(setup):
+    """``cuda_batched_reports`` and ``chunked_surface_reports(impl='cuda')``
+    on the card against the same calls on the CPU, where every wrapper
+    runs its plain version."""
+    from repro_torch.core import estimate_batch as eb
+    _, tb, models = setup
+    stacked = models["vampire"].fleet.params
+    cpu = (tb.trace.to("cpu"), tb.weight.cpu(), stacked.to("cpu"))
+    on_card = (tb.trace, tb.weight, stacked)
+    for call in (eb.cuda_batched_reports,
+                 lambda *a: eb.chunked_surface_reports(
+                     *a, module_chunk=2, impl="cuda")):
+        for la, lb in zip(call(*on_card), call(*cpu)):
+            _close(la, lb)
+
+
 @pytest.mark.parametrize("surface", [False, True])
 def test_vampire_charge_kernel_matches_plain(setup, surface):
     _, tb, models = setup

@@ -2,7 +2,8 @@
 estimation path: nothing records outside a ``torch.profiler`` session;
 ``impl='cuda'`` (the kernels' plain versions on CPU tensors) gives each
 call one tree of ``state``, ``features``, ``pack``, ``charge`` and
-``report`` spans under its root, with the charge kernels' launches;
+``report`` spans under its root, with the state and charge kernels'
+launches;
 the recorder's own work lies in no span; recording changes no report
 bit."""
 import pathlib
@@ -108,7 +109,7 @@ def test_an_estimate_is_one_tree_with_the_counts(model, batch, mode, kids):
     assert root.name == "estimate" and root.counts == {}
     assert [s.name for s in children] == kids
     assert [s.counts for s in children] == [
-        {"launches": 0} if s.name == "charge" else {}   # CPU: no launch
+        {"launches": 0} if s.name in ("state", "charge") else {}  # CPU
         for s in children]
     # the parameter blocks: the one span inside charge
     charge = children[kids.index("charge")]
